@@ -1,0 +1,140 @@
+"""AudioLLM: frozen Whisper encoder + projector + frozen Llama with LoRA.
+
+Counterpart of `audio_llama_tpu/models/allm.py` (the parts generation
+uses). Two parameter trees, as in the JAX package:
+
+    frozen    = {"llama": ..., "whisper": ...}
+    trainable = {"projector": ..., "lora": ...}
+
+mel [B, n_mels, 3000] -> whisper.encode -> projector.project ->
+splice (<audio> ++ audio ++ </audio> ++ text) -> llama_forward.
+
+This slice takes precomputed log-mel features ([B, n_mels, F] or
+[B, 1, n_mels, F]); waveform input needs the mel kernel, which is the next
+slice's work.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..bridge import ParamTree
+from ..config import AudioLLMConfig
+from . import llama as llama_mod
+from . import lora as lora_mod
+from . import projector as proj_mod
+from . import whisper as whisper_mod
+
+IGNORE_INDEX = -100
+
+
+def init_trainable(cfg: AudioLLMConfig, generator: torch.Generator,
+                   dtype=torch.float32) -> ParamTree:
+    """Projector + (optional) LoRA on the generator's device."""
+    tree = {"projector": proj_mod.init_params(cfg.projector, generator, dtype)}
+    if cfg.lora is not None:
+        tree["lora"] = lora_mod.init_params(cfg.llama, cfg.lora, generator, dtype)
+    return ParamTree(tree)
+
+
+def init_frozen(cfg: AudioLLMConfig, generator: torch.Generator,
+                dtype=torch.bfloat16) -> ParamTree:
+    """Random frozen Llama + Whisper on the generator's device (tests,
+    benchmarks; real checkpoints load through an HF loader, not yet
+    ported)."""
+    return ParamTree({
+        "llama": llama_mod.init_params(cfg.llama, generator, dtype),
+        "whisper": whisper_mod.init_params(cfg.whisper, generator, dtype),
+    })
+
+
+@torch.no_grad()
+def process_audio_features(
+    frozen: ParamTree, cfg: AudioLLMConfig, audio: torch.Tensor,
+    compute_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Precomputed log-mel [B, n_mels, F] (or [B, 1, n_mels, F]) ->
+    encoder states [B, F // 2, d_whisper]."""
+    if audio.dim() == 2:
+        raise NotImplementedError("mel kernel: next slice")
+    mel = audio.squeeze(1) if audio.dim() == 4 else audio
+    return whisper_mod.encode(frozen["whisper"], cfg.whisper, mel, compute_dtype)
+
+
+def combine_text_and_audio_embeddings(
+    frozen: ParamTree,
+    trainable: Optional[ParamTree],
+    cfg: AudioLLMConfig,
+    input_ids: torch.Tensor,  # [B, T]
+    attention_mask: torch.Tensor,  # [B, T]
+    audio_embeds: torch.Tensor,  # [B, A, d_llama], already projected
+    audio_start_id: int,
+    audio_end_id: int,
+    compute_dtype=torch.bfloat16,
+):
+    """'prepend' splice -> (embeds [B, A+2+T, D], mask [B, A+2+T])."""
+    vocab = frozen["llama"]["embed"]["weight"].shape[0]
+    if audio_start_id >= vocab or audio_end_id >= vocab:
+        raise ValueError(
+            f"audio delimiter ids ({audio_start_id}, {audio_end_id}) out of "
+            f"range for embedding table of size {vocab} — did you forget "
+            "resize_embeddings?"
+        )
+    B, A = audio_embeds.shape[:2]
+    text = llama_mod.embed_tokens(frozen["llama"], input_ids, compute_dtype)
+    delim = llama_mod.embed_tokens(
+        frozen["llama"],
+        torch.tensor([[audio_start_id, audio_end_id]], device=input_ids.device),
+        compute_dtype,
+    )  # [1, 2, D]
+    D = text.shape[-1]
+    combined = torch.cat([
+        delim[:, 0:1].expand(B, 1, D),
+        audio_embeds.to(compute_dtype),
+        delim[:, 1:2].expand(B, 1, D),
+        text,
+    ], dim=1)
+    ones = torch.ones((B, A + 2), dtype=attention_mask.dtype, device=attention_mask.device)
+    return combined, torch.cat([ones, attention_mask], dim=1)
+
+
+def splice_inplace(
+    text_embeds: torch.Tensor,  # [B, T, D]
+    audio_embeds: torch.Tensor,  # [B, A, D]
+    input_ids: torch.Tensor,  # [B, T]
+    attention_mask: torch.Tensor,  # [B, T]
+    labels: Optional[torch.Tensor],  # [B, T] or None
+    audio_start_id: int,
+):
+    """Insert the audio block right after the first `<audio>` token of each
+    row (rows without one get it at the front). Output position j holds
+    text[j] for j <= p, audio[j-p-1] for p < j <= p+A, text[j-A] after.
+    Returns (embeds [B, T+A, D], mask [B, T+A], labels [B, T+A] | None)."""
+    B, T, D = text_embeds.shape
+    A = audio_embeds.shape[1]
+    is_start = input_ids == audio_start_id
+    has = is_start.any(dim=1)
+    first = is_start.to(torch.int32).argmax(dim=1)
+    p = torch.where(has, first, torch.full_like(first, -1))[:, None]  # [B, 1]
+
+    j = torch.arange(T + A, device=input_ids.device)[None, :]
+    before = j <= p
+    in_audio = (~before) & (j <= p + A)
+    text_idx = torch.where(before, j, j - A).clamp(0, T - 1)
+    audio_idx = (j - p - 1).clamp(0, A - 1)
+
+    gathered_text = torch.gather(text_embeds, 1, text_idx[..., None].expand(B, T + A, D))
+    gathered_audio = torch.gather(
+        audio_embeds.to(text_embeds.dtype), 1, audio_idx[..., None].expand(B, T + A, D)
+    )
+    embeds = torch.where(in_audio[..., None], gathered_audio, gathered_text)
+    text_mask = torch.gather(attention_mask, 1, text_idx)
+    mask = torch.where(in_audio, torch.ones_like(text_mask), text_mask)
+    out_labels = None
+    if labels is not None:
+        text_labels = torch.gather(labels, 1, text_idx)
+        out_labels = torch.where(in_audio, torch.full_like(text_labels, IGNORE_INDEX),
+                                 text_labels)
+    return embeds, mask, out_labels

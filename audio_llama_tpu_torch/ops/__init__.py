@@ -1,0 +1,1 @@
+"""Plain PyTorch ops and the hand-written CUDA kernels' wrappers."""
