@@ -65,7 +65,7 @@ def generate(
     cfg: AudioLLMConfig,
     input_ids,  # [B, T] (right-padded)
     attention_mask,  # [B, T]
-    audio_features=None,  # [B, n_mels, F] log-mel, or None
+    audio_features=None,  # [B, S] waveform, [B, n_mels, F] log-mel, or None
     generator: Optional[torch.Generator] = None,
     *,
     max_new_tokens: int = 256,
@@ -79,12 +79,17 @@ def generate(
     audio_end_id: int = 0,
     compute_dtype=torch.bfloat16,
     has_audio: bool = True,
+    kv_quant=False,
     device: DeviceLike = None,
 ) -> GenerateResult:
     """Sampling defaults mirror the reference CLI (temperature 0.7, top_p
     0.9, 256 new tokens). Runs on `device` (the card unless the caller asks
     for the CPU), where the weights must already be. Sampling draws from
-    `generator`, which must live on that device."""
+    `generator`, which must live on that device.
+
+    kv_quant: False (a compute-dtype cache) or 4 (K/V-combined int4 rows
+    with per-row scales, decoded by the int4-KV kernel). True / 8 (int8
+    rows) raise NotImplementedError until their decode kernel is ported."""
     dev = resolve_device(device)
     weights_dev = frozen["llama"]["embed"]["weight"].device
     if weights_dev.type != dev.type:
@@ -112,7 +117,8 @@ def generate(
         [mask.to(torch.int32), torch.ones((B, max_new_tokens), dtype=torch.int32, device=dev)],
         dim=1,
     )
-    cache = llama_mod.KVCache.zeros(cfg.llama, B, total, dtype=compute_dtype, device=dev)
+    cache = llama_mod.KVCache.zeros(cfg.llama, B, total, dtype=compute_dtype, device=dev,
+                                    quantized=kv_quant)
     _, cache, hidden = llama_mod.llama_forward(
         frozen["llama"], cfg.llama,
         inputs_embeds=embeds, attention_mask=full_mask, kv_cache=cache, lora=lora,

@@ -9,9 +9,10 @@ uses). Two parameter trees, as in the JAX package:
 mel [B, n_mels, 3000] -> whisper.encode -> projector.project ->
 splice (<audio> ++ audio ++ </audio> ++ text) -> llama_forward.
 
-This slice takes precomputed log-mel features ([B, n_mels, F] or
-[B, 1, n_mels, F]); waveform input needs the mel kernel, which is the next
-slice's work.
+`process_audio_features` takes a waveform [B, S] (log-mel through the mel
+kernel, `ops/mel_power.py`; audio longer than one 30 s window as N windows
+folded into the batch) or precomputed log-mel ([B, n_mels, F] or
+[B, 1, n_mels, F]).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from . import llama as llama_mod
 from . import lora as lora_mod
 from . import projector as proj_mod
 from . import whisper as whisper_mod
+from ..ops import mel_power
 
 IGNORE_INDEX = -100
 
@@ -55,10 +57,23 @@ def process_audio_features(
     frozen: ParamTree, cfg: AudioLLMConfig, audio: torch.Tensor,
     compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
-    """Precomputed log-mel [B, n_mels, F] (or [B, 1, n_mels, F]) ->
-    encoder states [B, F // 2, d_whisper]."""
+    """Waveform [B, S] at 16 kHz, or precomputed log-mel [B, n_mels, F] (or
+    [B, 1, n_mels, F]) -> encoder states [B, A, d_whisper].
+
+    A waveform longer than one window (cfg.mel.max_samples, 30 s) is N
+    consecutive windows: [B, N * S] runs as [B * N, S] through the mel
+    kernel and the encoder, then unfolds to [B, N * A, d]. The length must
+    be a whole number of windows (the host pads)."""
     if audio.dim() == 2:
-        raise NotImplementedError("mel kernel: next slice")
+        S = cfg.mel.max_samples
+        B, total = audio.shape
+        if total % S:
+            raise ValueError(f"waveform length {total} must be a multiple of the {S}-sample "
+                             "window (pad on the host)")
+        n_windows = total // S
+        mel = mel_power.log_mel(audio.reshape(B * n_windows, S), cfg.mel)
+        enc = whisper_mod.encode(frozen["whisper"], cfg.whisper, mel, compute_dtype)
+        return enc.reshape(B, n_windows * enc.shape[1], enc.shape[2])
     mel = audio.squeeze(1) if audio.dim() == 4 else audio
     return whisper_mod.encode(frozen["whisper"], cfg.whisper, mel, compute_dtype)
 

@@ -1,23 +1,34 @@
 """Llama-3.x decoder with a static KV cache.
 
-Counterpart of `audio_llama_tpu/models/llama.py`, unquantized trees, one
-device (no tensor or sequence parallelism). Parameters keep the JAX tree:
-stacked `[L, ...]` layer leaves, linear weights `[in, out]` (forward is
-`x @ w`); the decoder body is a Python loop over the layer index.
+Counterpart of `audio_llama_tpu/models/llama.py` on one device (no tensor or
+sequence parallelism), for full-precision trees and the fused int4 tree of
+`models/llama_int4.py`. Parameters keep the JAX tree: stacked `[L, ...]`
+layer leaves, linear weights `[in, out]` (forward is `x @ w`); the decoder
+body is a Python loop over the layer index.
 
 Three call shapes, as `generate` uses them:
   - no cache: full causal self-attention over T positions (the causal
     kernel, `ops/causal_attention.py`);
   - fresh-cache prefill (`assume_fresh_cache=True`, T > 1): the T new K/V
-    rows are written into the cache at slot 0 and attention runs over the
-    fresh tokens with the causal kernel;
-  - T == 1 decode: the decode kernel (`ops/decode_attention_mono.py`)
-    appends the new row IN PLACE at the cache offset (`cache.length`, or
-    per-row `cache_offsets` [B]) and attends the slots `<= offset` that the
-    attention mask allows.
+    rows are written into the cache at slot 0 (quantized to int4 rows on an
+    int4 cache) and attention runs over the fresh tokens with the causal
+    kernel;
+  - T == 1 decode: the decode kernel (`ops/decode_attention_mono.py`, the
+    bf16 or the int4-KV one) appends the new row IN PLACE at the cache
+    offset (`cache.length`, or per-row `cache_offsets` [B]) and attends the
+    slots `<= offset` that the attention mask allows.
 The cache tensors are updated in place (PyTorch's counterpart of the JAX
 package's aliased scan carry); the returned `KVCache` holds the same tensors
 with the new length.
+
+On an int4 tree every projection runs the W4A16 kernel
+(`ops/int4_matmul.py`): q|k|v as one fused slab read as two column planes,
+o, and for more than 64 rows gate|up then down. Up to 64 rows with no LoRA
+on the MLP, the fused int4 MLP kernel (`ops/mlp_int4.py`) runs the whole
+MLP. The JAX package replaces the per-layer decode kernels at B = 1 with
+its whole-stack megakernel (`decode_megakernel`); that kernel is not ported
+yet (ROADMAP queue 2), so B = 1 takes the per-layer kernels too, which is
+the JAX package's own path with MEGA_DECODE=0.
 """
 
 from __future__ import annotations
@@ -29,8 +40,10 @@ import torch.nn.functional as F
 
 from ..bridge import ParamTree
 from ..config import LlamaConfig
+from ..ops import int4_matmul as i4
+from ..ops import mlp_int4 as mlp4
 from ..ops.causal_attention import causal_mha
-from ..ops.decode_attention_mono import decode_attention_mono
+from ..ops.decode_attention_mono import decode_attention_mono, decode_attention_quantized4_mono
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_for_config, rope_tables
 
@@ -94,11 +107,28 @@ def resize_embeddings(params: ParamTree, new_vocab: int, cfg: LlamaConfig) -> Pa
 class KVCache(NamedTuple):
     """Static-shape KV cache. k/v: [L, B, Hkv, max_len, hd] (each (batch,
     head) timeline a contiguous [max_len, hd] slab); length: int32 [] on the
-    cache's device, the current fill."""
+    cache's device, the current fill.
+
+    int4 mode (`zeros(quantized=4)`): `k` is ONE K/V-combined int8 slab
+    (byte d of a row: K's dim d offset-binary in the low nibble, V's signed
+    in the high nibble, `quantize_kv_rows4`), `v` is None, and k_scale /
+    v_scale [L, B, Hkv, max_len] f32 hold the per-row scales."""
 
     k: torch.Tensor
-    v: torch.Tensor
+    v: Optional[torch.Tensor]
     length: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def kv_bits(self) -> int:
+        if not self.quantized:
+            return 16
+        return 4 if self.v is None else 8
 
     @staticmethod
     def rounded_len(max_len: int) -> int:
@@ -107,37 +137,135 @@ class KVCache(NamedTuple):
 
     @classmethod
     def zeros(cls, cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-              device=None, kv_heads: Optional[int] = None) -> "KVCache":
+              device=None, kv_heads: Optional[int] = None, quantized=False) -> "KVCache":
+        """quantized: False (store `dtype`) or 4 (the combined int4 rows).
+        int8 rows (True / 8) wait for their decode kernel (ROADMAP queue 2,
+        `_kernel_mono_q8`)."""
         max_len = cls.rounded_len(max_len)
         heads = kv_heads if kv_heads is not None else cfg.num_kv_heads
         shape = (cfg.num_layers, batch, heads, max_len, cfg.head_dim)
+        length = torch.zeros((), dtype=torch.int32, device=device)
+        if quantized is not False and quantized != 4:
+            raise NotImplementedError(
+                "int8 KV rows are not ported yet (ROADMAP queue 2: _kernel_mono_q8)")
+        if quantized == 4:
+            return cls(
+                k=torch.zeros(shape, dtype=torch.int8, device=device), v=None, length=length,
+                k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            )
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
-            length=torch.zeros((), dtype=torch.int32, device=device),
+            length=length,
         )
 
 
+def quantize_kv_rows4(k: torch.Tensor, v: torch.Tensor):
+    """(k, v) [..., hd] -> (combined packed int8 [..., hd], k_scale f32 [...],
+    v_scale f32 [...]): symmetric per-row absmax / 7 for each; byte d holds
+    K's dim d offset-binary (k + 8) in the low nibble and V's signed in the
+    high nibble."""
+    def q4(x):
+        xf = x.to(torch.float32)
+        scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 7.0
+        q = torch.clamp(torch.round(xf / scale[..., None]), -7, 7).to(torch.int32)
+        return q, scale
+
+    kq, ks = q4(k)
+    vq, vs = q4(v)
+    packed = (((kq + 8) & 0xF) | ((vq & 0xF) << 4)).to(torch.int8)
+    return packed, ks, vs
+
+
+def unpack_kv4(packed: torch.Tensor):
+    """Combined int8 [..., hd] -> (k, v) int32 [..., hd], scales not applied."""
+    b = packed.to(torch.int32)
+    return (b & 0xF) - 8, b >> 4
+
+
 def embed_tokens(params: ParamTree, input_ids: torch.Tensor, compute_dtype=torch.bfloat16):
-    return params["embed"]["weight"][input_ids.long()].to(compute_dtype)
+    """Token-embedding lookup; an int8 table ({'weight' int8 [V, D], 'scale'
+    f32 [V]}) is scaled per gathered row."""
+    emb = params["embed"]
+    ids = input_ids.long()
+    rows = emb["weight"][ids].to(compute_dtype)
+    if "scale" in emb:
+        rows = rows * emb["scale"][ids][..., None].to(compute_dtype)
+    return rows
+
+
+def _logits_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype, vocab_major: bool):
+    """x [..., D] @ w ([V, D] if vocab_major, else [D, V]) with both operands
+    in compute_dtype, accumulated and returned in f32 with no rounding of the
+    output to compute_dtype. On the card the product is one bf16 x bf16 ->
+    f32 matmul (no f32 copy of the table); an int8 table is cast to
+    compute_dtype for it."""
+    x2 = x.reshape(-1, x.shape[-1]).to(compute_dtype)
+    wc = w.to(compute_dtype)
+    wt = wc.t() if vocab_major else wc
+    if x2.device.type == "cuda":
+        if compute_dtype == torch.float32:
+            y = x2 @ wt
+        else:
+            y = torch.mm(x2, wt, out_dtype=torch.float32)
+    else:
+        y = x2.to(torch.float32) @ wt.to(torch.float32)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def unembed(params: ParamTree, cfg: LlamaConfig, x: torch.Tensor, compute_dtype=torch.bfloat16):
-    """Hidden states -> vocab logits (tied or untied head), returned in f32.
-    The product runs in compute_dtype, so bf16 logits are bf16-rounded."""
+    """Hidden states -> vocab logits (tied or untied head), f32: the product
+    of the compute-dtype operands accumulates and stays in f32, as the JAX
+    package's `preferred_element_type=float32`. An int8 table's per-row
+    scales become per-logit scales; an int8 lm_head's per-column scales
+    likewise."""
     if cfg.tie_word_embeddings or "lm_head" not in params:
-        w = params["embed"]["weight"].to(compute_dtype)  # [V, D]
-        return (x.to(compute_dtype) @ w.t()).float()
-    return (x.to(compute_dtype) @ params["lm_head"].to(compute_dtype)).float()
+        emb = params["embed"]
+        logits = _logits_f32(x, emb["weight"], compute_dtype, vocab_major=True)
+        if "scale" in emb:
+            logits = logits * emb["scale"]
+        return logits
+    head = params["lm_head"]
+    if isinstance(head, ParamTree):
+        return _logits_f32(x, head["w_q"], compute_dtype, vocab_major=False) * head["w_s"]
+    return _logits_f32(x, head, compute_dtype, vocab_major=False)
+
+
+def _lora_delta(x, lora_branch, compute_dtype):
+    a, b, scaling = lora_branch
+    return (x @ a.to(compute_dtype)) @ b.to(compute_dtype) * scaling
 
 
 def _linear(x, w, lora_branch, compute_dtype):
     """x @ w, plus the LoRA delta x @ a @ b * scaling when given."""
     y = x @ w.to(compute_dtype)
     if lora_branch is not None:
-        a, b, scaling = lora_branch
-        y = y + (x @ a.to(compute_dtype)) @ b.to(compute_dtype) * scaling
+        y = y + _lora_delta(x, lora_branch, compute_dtype)
     return y
+
+
+def _vslice(lo: torch.Tensor, hi: torch.Tensor, start: int, size: int) -> torch.Tensor:
+    """Columns [start, start + size) of the virtual concatenation [lo | hi]
+    of a fused slab's two output planes."""
+    half = lo.shape[-1]
+    if start >= half:
+        return hi[..., start - half:start - half + size]
+    if start + size <= half:
+        return lo[..., start:start + size]
+    return torch.cat([lo[..., start:], hi[..., :start + size - half]], dim=-1)
+
+
+def _write_scales(ks_all, vs_all, k_s, v_s, layer, offset):
+    """The fresh rows' scales [B, Hkv] into slot offset[b] of the layer's
+    scale slabs (an offset outside the cache writes nothing)."""
+    B, S = ks_all.shape[1], ks_all.shape[3]
+    off = offset.reshape(-1).expand(B)
+    rows = torch.arange(B, device=ks_all.device)
+    inside = ((off >= 0) & (off < S))[:, None]
+    slot = off.clamp(0, S - 1).long()
+    ks_all[layer, rows, :, slot] = torch.where(inside, k_s, ks_all[layer, rows, :, slot])
+    vs_all[layer, rows, :, slot] = torch.where(inside, v_s, vs_all[layer, rows, :, slot])
 
 
 @torch.no_grad()
@@ -207,11 +335,24 @@ def llama_forward(
         attn_mask = attn_mask[:, :T]
 
     lp = params["layers"]
+    int4 = "qkv_proj" in lp
+    if not int4 and isinstance(lp["q_proj"], ParamTree):
+        raise NotImplementedError(
+            "unfused int4 and int8 decoder trees are not ported yet (ROADMAP queue 2)")
+    fmt = "obin" if "int4_obin" in params else "pair"
     lora_layers = lora["layers"] if lora is not None else None
     scale = cfg.head_dim ** -0.5
     eps = cfg.rms_norm_eps
+    hd = cfg.head_dim
     ck = kv_cache.k if kv_cache is not None else None
     cv = kv_cache.v if kv_cache is not None else None
+    kv4 = kv_cache is not None and kv_cache.kv_bits == 4
+    ks_all = kv_cache.k_scale if kv4 else None
+    vs_all = kv_cache.v_scale if kv4 else None
+    mlp_chunk = None
+    if int4:
+        mlp_chunk = mlp4.kernel_chunk(lp["gateup_proj"]["w_p"].shape[-1],
+                                      lp["down_proj"]["w_p"].shape[-1])
 
     for li in range(cfg.num_layers):
         def lb(name):
@@ -220,30 +361,81 @@ def llama_forward(
             br = lora_layers[name]
             return (br["a"][li], br["b"][li], lora["scaling"])
 
-        h = rms_norm(x, lp["input_ln"][li].to(cd), eps)
-        q = _linear(h, lp["q_proj"][li], lb("q_proj"), cd).view(B, T, -1, cfg.head_dim)
-        k = _linear(h, lp["k_proj"][li], lb("k_proj"), cd).view(B, T, -1, cfg.head_dim)
-        v = _linear(h, lp["v_proj"][li], lb("v_proj"), cd).view(B, T, -1, cfg.head_dim)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        def lora_add(y, name, x_in):
+            """LoRA stays per projection on the fused int4 slabs, added after
+            the fused output is split."""
+            br = lb(name)
+            return y if br is None else y + _lora_delta(x_in, br, cd)
 
-        if decode:
+        def int4_linear(x_in, name, lora_name=None):
+            w = lp[name]
+            y = i4.int4_matmul_stacked(x_in, w["w_p"], w["w_s"], li, fmt=fmt)
+            return lora_add(y, lora_name, x_in) if lora_name else y
+
+        h = rms_norm(x, lp["input_ln"][li].to(cd), eps)
+        if int4:
+            nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+            w = lp["qkv_proj"]
+            lo, hi = i4.int4_matmul_stacked(h, w["w_p"], w["w_s"], li, return_planes=True,
+                                            fmt=fmt)
+            q = lora_add(_vslice(lo, hi, 0, nq), "q_proj", h)
+            k = lora_add(_vslice(lo, hi, nq, nkv), "k_proj", h)
+            v = lora_add(_vslice(lo, hi, nq + nkv, nkv), "v_proj", h)
+        else:
+            q = _linear(h, lp["q_proj"][li], lb("q_proj"), cd)
+            k = _linear(h, lp["k_proj"][li], lb("k_proj"), cd)
+            v = _linear(h, lp["v_proj"][li], lb("v_proj"), cd)
+        q = apply_rope(q.reshape(B, T, -1, hd), cos, sin)
+        k = apply_rope(k.reshape(B, T, -1, hd), cos, sin)
+        v = v.reshape(B, T, -1, hd)
+
+        if decode and kv4:
+            kvp, kq_s, vq_s = quantize_kv_rows4(k[:, 0], v[:, 0])
+            # the append slot's scales go in BEFORE the kernel, which never
+            # reads them (the slot is dead in its slab pass)
+            _write_scales(ks_all, vs_all, kq_s, vq_s, li, offset)
+            attn, ck = decode_attention_quantized4_mono(
+                q[:, 0], kvp, ck, ks_all, vs_all, kq_s, vq_s, li, offset, valid, scale)
+            attn = attn[:, None]
+        elif decode:
             attn, ck, cv = decode_attention_mono(
                 q[:, 0], k[:, 0], v[:, 0], ck, cv, li, offset, valid, scale
             )
             attn = attn[:, None]
         else:
-            if fresh:  # in place: the fresh rows fill slots [0, T)
+            if fresh and kv4:  # in place: the fresh rows fill slots [0, T)
+                kvh, khs, vhs = quantize_kv_rows4(k.transpose(1, 2), v.transpose(1, 2))
+                ck[li, :, :, :T] = kvh
+                ks_all[li, :, :, :T] = khs
+                vs_all[li, :, :, :T] = vhs
+            elif fresh:
                 ck[li, :, :, :T] = k.transpose(1, 2).to(ck.dtype)
                 cv[li, :, :, :T] = v.transpose(1, 2).to(cv.dtype)
             attn = causal_mha(q, k, v, mask=attn_mask, scale=scale)
-        attn = _linear(attn.reshape(B, T, -1), lp["o_proj"][li], lb("o_proj"), cd)
+        attn = attn.reshape(B, T, -1)
+        if int4:
+            attn = int4_linear(attn, "o_proj", "o_proj")
+        else:
+            attn = _linear(attn, lp["o_proj"][li], lb("o_proj"), cd)
         x = x + attn
 
         h = rms_norm(x, lp["post_attn_ln"][li].to(cd), eps)
-        g = _linear(h, lp["gate_proj"][li], lb("gate_proj"), cd)
-        u = _linear(h, lp["up_proj"][li], lb("up_proj"), cd)
-        x = x + _linear(F.silu(g) * u, lp["down_proj"][li], lb("down_proj"), cd)
+        mlp_lora = any(lb(n) is not None for n in ("gate_proj", "up_proj", "down_proj"))
+        if int4 and B * T <= mlp4.MAX_M and not mlp_lora and mlp_chunk is not None:
+            gu, dn = lp["gateup_proj"], lp["down_proj"]
+            d = mlp4.mlp_int4_stacked(h, gu["w_p"], gu["w_s"], dn["w_p"], dn["w_s"], li,
+                                      chunk=mlp_chunk, fmt=fmt)
+        elif int4:  # the planes are exactly gate and up
+            gu = lp["gateup_proj"]
+            g, u = i4.int4_matmul_stacked(h, gu["w_p"], gu["w_s"], li, return_planes=True,
+                                          fmt=fmt)
+            g, u = lora_add(g, "gate_proj", h), lora_add(u, "up_proj", h)
+            d = int4_linear(F.silu(g) * u, "down_proj", "down_proj")
+        else:
+            g = _linear(h, lp["gate_proj"][li], lb("gate_proj"), cd)
+            u = _linear(h, lp["up_proj"][li], lb("up_proj"), cd)
+            d = _linear(F.silu(g) * u, lp["down_proj"][li], lb("down_proj"), cd)
+        x = x + d
 
     x = rms_norm(x, params["final_ln"].to(cd), eps)
     logits = unembed(params, cfg, x, cd) if unembed_logits else None
@@ -254,7 +446,8 @@ def llama_forward(
             new_len = offset + T
         else:
             new_len = offset.max() + T  # upper bound; the caller tracks rows
-        new_cache = KVCache(k=ck, v=cv, length=new_len.to(torch.int32))
+        new_cache = KVCache(k=ck, v=cv, length=new_len.to(torch.int32),
+                            k_scale=ks_all, v_scale=vs_all)
     if return_hidden:
         return logits, new_cache, x
     return logits, new_cache

@@ -57,3 +57,23 @@ def init_params(
 def with_scaling(lora_params: ParamTree, lora_cfg: LoraConfig) -> dict:
     """Attach the static scaling for `llama_forward`."""
     return {"layers": lora_params["layers"], "scaling": lora_cfg.scaling}
+
+
+def merge_into_llama(params: ParamTree, lora: dict, scaling=None) -> ParamTree:
+    """Fold the LoRA deltas into the frozen weights, w + a @ b * scaling
+    (summed in f32, cast back to w's dtype), one layer at a time. Returns a
+    new tree; the input is untouched. The inference CLI merges before it
+    quantizes, so serving pays no LoRA overhead."""
+    if scaling is None:
+        scaling = lora["scaling"]
+    tree = params.to_dict()
+    layers = dict(tree["layers"])
+    for name, br in lora["layers"].items():
+        w = layers[name]
+        merged = torch.empty_like(w)
+        for li in range(w.shape[0]):
+            delta = br["a"][li].to(torch.float32) @ br["b"][li].to(torch.float32) * scaling
+            merged[li] = (w[li].to(torch.float32) + delta).to(w.dtype)
+        layers[name] = merged
+    tree["layers"] = layers
+    return ParamTree(tree)

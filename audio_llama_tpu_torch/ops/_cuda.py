@@ -24,8 +24,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("layer_norm.cu", "enc_attention.cu", "causal_attention.cu", "decode_attention.cu")
-HEADERS = ("common.cuh", "attention_fwd.cuh")
+SOURCES = ("layer_norm.cu", "enc_attention.cu", "causal_attention.cu", "decode_attention.cu",
+           "mel_power.cu", "int4_matmul.cu", "mlp_int4.cu", "decode_attention_q4.cu")
+HEADERS = ("common.cuh", "attention_fwd.cuh", "int4_common.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -41,10 +42,15 @@ SIGNATURES = {
     "al_enc_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I] + _STRIDES + [_P],
     "al_causal_attention": [_P] * 7 + [_I] * 5 + _STRIDES + [_P],
     "al_decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P, _P],
+    "al_mel_power": [_P, _I, _L, _I, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P],
+    "al_int4_matmul": [_P, _I, _I, _P, _I, _P, _I, _P, _L, _L, _P, _P, _I, _I, _I, _P],
+    "al_mlp_int4": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "al_decode_attention_q4": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
+_counters = {}  # device -> int32 zeros shared by the split-sum kernels
 
 
 def nvcc_path() -> str:
@@ -123,6 +129,19 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def counters(device: torch.device, n: int) -> torch.Tensor:
+    """n int32 zeros on `device` for the kernels that add their blocks'
+    partial sums in a fixed order (ops/int4_matmul.py, ops/mlp_int4.py): the
+    last block of a sum finds itself by an atomic count and resets the count
+    to zero, so one buffer serves every launch on the stream."""
+    with _lock:
+        buf = _counters.get(device)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+            _counters[device] = buf
+    return buf
 
 
 def stream_handle(t: torch.Tensor) -> int:

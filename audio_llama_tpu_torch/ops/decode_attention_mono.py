@@ -1,11 +1,18 @@
-"""Single-token decode attention on a bf16/f32 KV cache, appending in place.
+"""Single-token decode attention, appending the fresh row in place: on a
+bf16/f32 KV cache, and on the K/V-combined int4 cache.
 
-Replaces `audio_llama_tpu/ops/decode_attention_mono.py::_kernel_mono_full`
-(`decode_attention_mono`). The CUDA kernel is `csrc/decode_attention.cu`
-(memory-bound; its source note gives the bound and the design).
-`decode_attention_plain` is the same arithmetic in PyTorch.
+`decode_attention_mono` replaces
+`audio_llama_tpu/ops/decode_attention_mono.py::_kernel_mono_full`; its CUDA
+kernel is `csrc/decode_attention.cu` and `decode_attention_plain` is the
+same arithmetic in PyTorch. `decode_attention_quantized4_mono` replaces
+`_kernel_mono4`; its CUDA kernel is `csrc/decode_attention_q4.cu` and
+`decode_attention_q4_plain` its arithmetic in PyTorch. Both kernels are
+memory-bound; their source notes give the bounds and the designs. The TPU
+kernel's DMA schedule knobs (MONO_DEPTH, MONO_HPD, MONO_ILP, MONO_KEPI,
+MONO_BB) have no counterpart here: they order Mosaic copies, which the CUDA
+kernels do not have.
 
-Contract, as in the JAX package: q [B, Hq, hd]; k_new/v_new [B, Hkv, hd];
+Contract of `decode_attention_mono`, as in the JAX package: q [B, Hq, hd]; k_new/v_new [B, Hkv, hd];
 cache_k/cache_v [L, B, Hkv, max_len, hd] with max_len % 32 == 0; `offset` a
 scalar or [B] int32 (per-row append slots); `valid` [B, max_len], nonzero
 where a slot may be attended (the caller folds `slot <= offset` into it).
@@ -25,6 +32,8 @@ import torch
 from . import _cuda
 
 launches = 0  # kernel launches through `decode_attention_mono`
+launches_q4 = 0  # kernel launches through `decode_attention_quantized4_mono`
+DEAD = -1e30  # the logit of a slot that is not attended, as in the TPU kernel
 
 
 def _offsets(offset: Union[int, torch.Tensor], B: int, device) -> torch.Tensor:
@@ -131,3 +140,123 @@ def decode_attention_mono(q, k_new, v_new, cache_k, cache_v, layer, offset, vali
     return decode_attention_cuda(
         q, k_new, v_new, cache_k, cache_v, layer, offset, valid, scale
     )
+
+
+def _layer_scales(scales: torch.Tensor, layer) -> torch.Tensor:
+    """[L, B, Hkv, S] stacked slabs (layer picked) or one layer's [B, Hkv, S]."""
+    return scales[layer] if scales.dim() == 4 else scales
+
+
+def decode_attention_q4_plain(q, kv_new, cache_kv, k_scales, v_scales, k_new_scale,
+                              v_new_scale, layer, offset, valid, scale):
+    """The int4 kernel's arithmetic in PyTorch (appends in place)."""
+    L, B, Hkv, S, hd = cache_kv.shape
+    Hq = q.shape[1]
+    G = Hq // Hkv
+    dev = cache_kv.device
+    off = _offsets(offset, B, dev)
+    slab = cache_kv[layer].to(torch.int32)  # [B, Hkv, S, hd], read before the append
+    k_q = ((slab & 0xF) - 8).to(torch.float32)  # K: offset-binary low nibble
+    v_q = (slab >> 4).to(torch.float32)  # V: signed high nibble
+    ks = _layer_scales(k_scales, layer).to(torch.float32)
+    vs = _layer_scales(v_scales, layer).to(torch.float32)
+    qg = q.reshape(B, Hkv, G, hd).to(torch.float32)
+    dead = (valid <= 0) | (torch.arange(S, device=dev)[None, :] == off[:, None])  # [B, S]
+    logits = torch.einsum("bhgd,bhsd->bhgs", qg, k_q) * (ks * scale)[:, :, None, :]
+    logits = torch.where(dead[:, None, None, :], DEAD, logits)
+    m1 = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m1)
+    l1 = p.sum(dim=-1, keepdim=True)
+    pv = (p * vs[:, :, None, :]).to(q.dtype).to(torch.float32)
+    acc1 = torch.einsum("bhgs,bhsd->bhgd", pv, v_q)
+    # the fresh row, analytically
+    n32 = kv_new.to(torch.int32)
+    k_n, v_n = ((n32 & 0xF) - 8).to(torch.float32), (n32 >> 4).to(torch.float32)
+    inside = (off >= 0) & (off < S)
+    slot = off.clamp(0, S - 1).long()
+    fresh_on = inside & (valid.gather(1, slot[:, None])[:, 0] > 0)  # [B]
+    lf = torch.einsum("bhgd,bhd->bhg", qg, k_n)[..., None]
+    lf = lf * (k_new_scale.to(torch.float32) * scale)[:, :, None, None]
+    lf = torch.where(fresh_on[:, None, None, None], lf, DEAD)
+    m = torch.maximum(m1, lf)
+    a1, pf = torch.exp(m1 - m), torch.exp(lf - m)
+    acc = a1 * acc1 + (pf * v_new_scale.to(torch.float32)[:, :, None, None]) * v_n[:, :, None, :]
+    out = (acc / (a1 * l1 + pf)).to(q.dtype).reshape(B, Hq, hd)
+    rows = torch.arange(B, device=dev)
+    keep = cache_kv[layer, rows, :, slot]  # [B, Hkv, hd]
+    cache_kv[layer, rows, :, slot] = torch.where(inside[:, None, None], kv_new, keep)
+    return out, cache_kv
+
+
+def decode_attention_q4_cuda(q, kv_new, cache_kv, k_scales, v_scales, k_new_scale,
+                             v_new_scale, layer, offset, valid, scale):
+    """Launch the int4 kernel (same arguments as the plain version)."""
+    global launches_q4
+    name = "decode_attention_quantized4_mono"
+    _cuda.require_cuda(name, q, kv_new, cache_kv, k_scales, v_scales, k_new_scale, v_new_scale,
+                       valid)
+    L, B, Hkv, S, hd = cache_kv.shape
+    Hq = q.shape[1]
+    code = _cuda.dtype_code(q, name)
+    if cache_kv.dtype != torch.int8 or kv_new.dtype != torch.int8:
+        raise TypeError(f"{name}: the cache and the fresh row must be int8")
+    for t in (k_scales, v_scales, k_new_scale, v_new_scale):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: scales must be float32")
+    _cuda.require_shape(name, q, (B, Hq, hd))
+    _cuda.require_shape(name, kv_new, (B, Hkv, hd))
+    _cuda.require_shape(name, k_new_scale, (B, Hkv))
+    _cuda.require_shape(name, v_new_scale, (B, Hkv))
+    _cuda.require_shape(name, valid, (B, S))
+    stacked = k_scales.dim() == 4
+    want = (L, B, Hkv, S) if stacked else (B, Hkv, S)
+    _cuda.require_shape(name, k_scales, want)
+    _cuda.require_shape(name, v_scales, want)
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"{name}: layer {layer} outside [0, {L})")
+    if Hq % Hkv or Hq // Hkv not in (1, 2, 3, 4, 6, 8):
+        raise ValueError(f"{name}: needs Hq/Hkv in (1, 2, 3, 4, 6, 8)")
+    if hd % 16 or 32 % (hd // 16):
+        raise ValueError(f"{name}: needs hd a multiple of 16 with hd/16 dividing 32")
+    if not all(t.is_contiguous() for t in (cache_kv, k_scales, v_scales)) \
+            or not _cuda.aligned16(cache_kv):
+        raise ValueError(f"{name}: the cache and scale slabs must be contiguous, the cache "
+                         "16-byte aligned")
+    G = Hq // Hkv
+    if 4 * (G * hd + G * S + 32 * G * hd) > 227 * 1024:
+        raise ValueError(f"{name}: max_len {S} exceeds the shared-memory budget")
+    off = _offsets(offset, B, q.device)
+    valid = valid.to(torch.int32).contiguous()
+    q = q.contiguous()
+    kv_new = kv_new.contiguous()
+    k_new_scale, v_new_scale = k_new_scale.contiguous(), v_new_scale.contiguous()
+    out = torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device)
+    err = _cuda.library().al_decode_attention_q4(
+        code, q.data_ptr(), kv_new.data_ptr(), k_new_scale.data_ptr(), v_new_scale.data_ptr(),
+        cache_kv.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(), off.data_ptr(),
+        valid.data_ptr(), int(layer), int(layer) if stacked else 0, B, Hq, Hkv, S, hd,
+        float(scale), out.data_ptr(), _cuda.stream_handle(q),
+    )
+    _cuda.check(err, name)
+    launches_q4 += 1
+    return out, cache_kv
+
+
+def decode_attention_quantized4_mono(q, kv_new, cache_kv, k_scales, v_scales, k_new_scale,
+                                     v_new_scale, layer, offset, valid, scale):
+    """int4-KV decode attention -> (out [B, Hq, hd], cache_kv), the cache
+    updated in place at slot `offset` (scalar or [B]) of layer `layer`.
+
+    q [B, Hq, hd]; kv_new [B, Hkv, hd] int8 (models/llama.py
+    quantize_kv_rows4); cache_kv [L, B, Hkv, max_len, hd] int8; k/v_scales
+    the stacked [L, B, Hkv, max_len] f32 slabs or one layer's [B, Hkv,
+    max_len]; k/v_new_scale [B, Hkv] f32; valid [B, max_len]. The caller
+    writes the append slot's scales before the call: the kernel never reads
+    them (the slot is dead in the slab; the fresh row enters from kv_new).
+    The kernel on CUDA tensors, the plain version on CPU tensors."""
+    max_len = cache_kv.shape[3]
+    if max_len % 32:
+        raise ValueError(f"max_len % 32 != 0 ({max_len})")
+    fn = decode_attention_q4_plain if q.device.type == "cpu" else decode_attention_q4_cuda
+    return fn(q, kv_new, cache_kv, k_scales, v_scales, k_new_scale, v_new_scale, layer,
+              offset, valid, scale)

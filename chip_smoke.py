@@ -2,27 +2,38 @@
 """Drive the PyTorch port (audio_llama_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
-    python3 chip_smoke.py --profile  # the same, plus a torch.profiler breakdown
+    python3 chip_smoke.py --profile  # the same, plus torch.profiler breakdowns
 
 Phases, each of which fails the run (non-zero exit, no result line):
-  1. device: CUDA present, the card's name and power limit, kernel build;
+  1. device: CUDA present, the card's name and power limit, kernel build
+     (one nvcc process per source, all started together);
   2. kernels: each hand-written kernel at its main-path shapes against its
-     plain PyTorch version on the same inputs (bf16, stated tolerance),
-     then each attention kernel on inputs with a planted one-key mask fault,
-     which the same check must reject; timed by device time (CUPTI) beside
-     the plain version, one library call as a yardstick (never used by the
-     port) and the least time the card could take (bound);
-  3. main path: `inference.generate.generate` at the full published widths
-     (Llama-3.2-3B decoder, Whisper-large-v3-turbo encoder, LoRA rank 64)
-     with seeded random weights: a 30 s log-mel clip and a 24-token prompt,
-     32 greedy tokens, then one sampled run; the kernels' launch counters
-     are zeroed before the greedy run and read after it;
-  4. card vs host: the same path cut to 2 Whisper and 2 Llama layers at full
-     width, last-position prefill logits on the card (bf16, kernels) against
-     the CPU plain path (f32) on the same weights.
-With `--profile`, phase 3 adds a torch.profiler breakdown of the main path
-(encode + prefill + first token, and per decode token) by device kernel
-group, with the device's busy share and launches.
+     plain PyTorch version on the same inputs (stated tolerance), then on
+     inputs with a planted one-element fault, which the same check must
+     reject; timed by device time (CUPTI) beside the plain version, one
+     library call as a yardstick (never used by the port) and the least time
+     the card could take (bound);
+  3. bf16 main path: `inference.generate.generate` at the full published
+     widths (Llama-3.2-3B decoder, Whisper-large-v3-turbo encoder, LoRA rank
+     64) with seeded random weights: a 30 s log-mel clip and a 24-token
+     prompt, 32 greedy tokens, then one sampled run; the kernels' launch
+     counters are zeroed before the greedy run and read after it;
+  4. int4 main path: the same model with LoRA merged and the decoder
+     quantized on the card to the fused int4 tree (as the inference CLI's
+     --int4_decoder does), B = 4 seeded 30 s waveforms with prompts of 24,
+     20, 16 and 12 tokens, right-padded, an int4 KV cache, 32 greedy tokens
+     and one sampled run; the counters are zeroed and read around the
+     greedy run;
+  5. CLI path: `inference.cli.generate_response` on a seeded 12 s, 44.1 kHz
+     stereo WAV (mixdown, resample, padding to 30 s) at full width on the
+     int4 tree, whose tokens must equal `generate`'s on the processed audio;
+  6. card vs host: the bf16 path and the int4 path cut to 2 Whisper and 2
+     Llama layers at full width, the card (kernels, bf16) against the CPU
+     plain path (f32) on the same weights: last-position prefill logits, and
+     for the int4 path one decode step's logits too.
+With `--profile`, phases 3 and 4 add a torch.profiler breakdown (encode +
+prefill + first token, and per decode token) by device kernel group, with
+the device's busy share and launches.
 
 Output: progress lines, then `{"kernels": [...]}`, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -115,6 +126,13 @@ ATOL_ROW_RMS_FRAC = {
     "enc_attention": 3e-2,
     "causal_attention": 3e-2,
     "decode_attention_mono": 2.5e-3,  # the same arithmetic on both sides
+    # f32 output: the same f32 products summed in another order (~1e-6)
+    "mel_power": 1e-4,
+    # bf16 outputs of the same f32 group sums in another order: a bf16
+    # flip of the output, or (MLP) of an activation, at most
+    "int4_matmul_stacked": 1e-3,
+    "mlp_int4_stacked": 1e-3,
+    "decode_attention_quantized4_mono": 2.5e-3,
 }
 
 
@@ -346,16 +364,299 @@ def kernel_checks(dev, gen):
     return rows
 
 
-def kernel_modules():
-    from audio_llama_tpu_torch.ops import causal_attention, decode_attention_mono
-    from audio_llama_tpu_torch.ops import enc_attention, layer_norm
+# kernel name -> (module of audio_llama_tpu_torch.ops, its launch counter)
+COUNTERS = {
+    "layer_norm": ("layer_norm", "launches"),
+    "enc_attention": ("enc_attention", "launches"),
+    "causal_attention": ("causal_attention", "launches"),
+    "decode_attention_mono": ("decode_attention_mono", "launches"),
+    "mel_power": ("mel_power", "launches"),
+    "int4_matmul_stacked": ("int4_matmul", "launches"),
+    "mlp_int4_stacked": ("mlp_int4", "launches"),
+    "decode_attention_quantized4_mono": ("decode_attention_mono", "launches_q4"),
+}
 
-    return {
-        "layer_norm": layer_norm,
-        "enc_attention": enc_attention,
-        "causal_attention": causal_attention,
-        "decode_attention_mono": decode_attention_mono,
+
+def _counter_module(name):
+    import importlib
+
+    return importlib.import_module(f"audio_llama_tpu_torch.ops.{COUNTERS[name][0]}")
+
+
+def zero_counters() -> None:
+    for name, (_, attr) in COUNTERS.items():
+        setattr(_counter_module(name), attr, 0)
+
+
+def read_counters() -> dict:
+    return {name: getattr(_counter_module(name), attr) for name, (_, attr) in COUNTERS.items()}
+
+
+def full_config():
+    """The model every phase runs: Llama-3.2-3B + Whisper-large-v3-turbo,
+    LoRA r64, at the published widths."""
+    from audio_llama_tpu_torch.config import AudioLLMConfig
+
+    return AudioLLMConfig()
+
+
+# the int4 path's batch: four right-padded prompts
+INT4_PROMPTS = (24, 20, 16, 12)
+
+
+def int4_kernel_checks(dev, gen):
+    """The four kernels of the int4 path at its shapes (B = 4): mel power,
+    the W4A16 matmul (decode and prefill shapes, both pack formats), the
+    fused int4 MLP and int4-KV decode attention."""
+    import torch.nn.functional as F
+
+    from audio_llama_tpu_torch.models.llama import KVCache
+    from audio_llama_tpu_torch.ops import decode_attention_mono as dm
+    from audio_llama_tpu_torch.ops import int4_matmul as i4
+    from audio_llama_tpu_torch.ops import mel_power as mp
+    from audio_llama_tpu_torch.ops import mlp_int4 as mlp4
+
+    cfg = full_config()
+    lc = cfg.llama
+    B = len(INT4_PROMPTS)
+    prefix = cfg.audio_seq_len + 2 + max(INT4_PROMPTS)
+    bf = torch.bfloat16
+    rows = []
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def rand_bytes(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int32
+                             ).to(torch.int8)
+
+    def rand_scales(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 0.02 + 0.002
+
+    # 5. mel power: B waveforms of one window, reflect-padded
+    mc = cfg.mel
+    n_fft, n_bins, n_mels, Fr = mc.n_fft, mc.n_fft // 2 + 1, mc.num_mel_bins, mc.num_frames
+    wav = randn(B, mc.max_samples) * 0.1
+    padded = mp.pad_waveform(wav, mc)
+    got, want = mp.mel_power_cuda(padded, mc, Fr), mp.mel_power_plain(padded, mc, Fr)
+    frac = ATOL_ROW_RMS_FRAC["mel_power"]
+    err, ratio = check_close("mel_power", got, want, frac)
+    faults = {"frame offset shifted by one sample": must_reject(
+        "mel_power", "frame offset shifted by one sample",
+        mp.mel_power_cuda(padded[:, 1:].contiguous(), mc, Fr), want, frac)}
+    flops = B * Fr * (2.0 * 2 * n_fft * n_bins + 3 * n_bins + 2.0 * n_bins * n_mels)
+    nbytes = 4.0 * (padded.numel() + B * Fr * n_mels + 2 * n_fft * n_bins + n_bins * n_mels)
+    bms, bby = bound(flops, nbytes, H100_F32_FLOPS)
+    window = torch.hann_window(n_fft, periodic=True, device=dev)
+    fb = torch.from_numpy(np.ascontiguousarray(mp._basis(mc)[2][:n_bins].T)).to(dev)
+
+    def library():
+        spec = torch.stft(wav, n_fft, mc.hop_length, window=window, center=True,
+                          pad_mode="reflect", return_complex=True)[..., :Fr]
+        return fb @ spec.abs().square()
+
+    rows.append(dict(
+        name="mel_power", route="cuda", source="audio_llama_tpu_torch/csrc/mel_power.cu",
+        replaces="audio_llama_tpu/ops/mel_pallas.py:84", max_abs_err=err,
+        tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
+        ms=time_ms(lambda: mp.mel_power_cuda(padded, mc, Fr)),
+        plain_ms=time_ms(lambda: mp.mel_power_plain(padded, mc, Fr)),
+        library_ms=time_ms(library), launches=None, bound_ms=bms, bound_by=bby,
+        shapes=f"waveform[{B},{mc.max_samples}] f32 -> [{B},{Fr},{n_mels}]",
+    ))
+    log(f"kernel mel_power ok: max_abs_err={err:.3e} tol_ratio={ratio:.3f} "
+        f"planted faults rejected: {faults}")
+    del wav, padded, got, want
+
+    # 6. W4A16 matmul: decode q|k|v (pair, planes) and o (obin) at M = B,
+    #    prefill gate|up (pair, planes) and down (obin) at M = B * prefix
+    L, D, Fd = lc.num_layers, lc.hidden_size, lc.intermediate_size
+    Nqkv = (lc.num_heads + 2 * lc.num_kv_heads) * lc.head_dim
+    cases = [  # (label, M, K, N, fmt, planes)
+        ("decode q|k|v", B, D, Nqkv, "pair", True),
+        ("decode o", B, lc.num_heads * lc.head_dim, D, "obin", False),
+        ("prefill gate|up", B * prefix, D, 2 * Fd, "pair", True),
+        ("prefill down", B * prefix, Fd, D, "obin", False),
+    ]
+    frac = ATOL_ROW_RMS_FRAC["int4_matmul_stacked"]
+    by_shape, faults, worst = [], {}, (0.0, 0.0)
+    li = min(5, L - 1)  # a layer inside the slab, picked by pointer offset
+    for label, M, K, N, fmt, planes in cases:
+        packed, scales = rand_bytes(L, K, N // 2), rand_scales(L, K // 128, N)
+        x = randn(M, K, dtype=bf)
+
+        def run(p=packed, s=scales, f=fmt, layer=li, xx=x):
+            out = i4.int4_matmul_stacked_cuda(xx, p, s, layer, return_planes=planes, fmt=f)
+            return torch.cat(out, dim=-1) if planes else out
+
+        def plain(p=packed, s=scales, f=fmt, layer=li, xx=x):
+            return i4.int4_matmul_stacked_plain(xx, p, s, layer, fmt=f)
+
+        want = plain()
+        err, ratio = check_close(f"int4_matmul_stacked {label}", run(), want, frac)
+        worst = max(worst, (ratio, err))
+        if label == "decode q|k|v":
+            faults["group g read with group g+1's scale"] = must_reject(
+                "int4_matmul_stacked", "group g+1's scale",
+                run(s=torch.roll(scales, -1, dims=1).contiguous()), want, frac)
+        if fmt == "obin":
+            faults[f"{label}: obin bytes decoded as pair"] = must_reject(
+                "int4_matmul_stacked", "obin decoded as pair", run(f="pair"), want, frac)
+        w_deq = i4.dequantize_ref(packed[li], scales[li], fmt=fmt).to(bf)
+        flops = 2.0 * M * K * N
+        nbytes = K * N / 2 + (K / 128) * N * 4 + 2.0 * M * (K + N)
+        bms, bby = bound(flops, nbytes)
+        turn = itertools.count()
+        shape_row = dict(
+            shape=label, M=M, K=K, N=N, fmt=fmt, tol_ratio=ratio, max_abs_err=err,
+            # decode calls rotate over the layers so each finds its slab in
+            # device memory, as a decode step does
+            ms=time_ms(lambda: run(layer=next(turn) % L), iters=56 if M <= 64 else 10),
+            plain_ms=time_ms(plain, iters=10 if M <= 64 else 3),
+            library_ms=time_ms(lambda: x @ w_deq, iters=56 if M <= 64 else 10),
+            bound_ms=bms, bound_by=bby)
+        by_shape.append(shape_row)
+        log(f"kernel int4_matmul_stacked {label} ok: {json.dumps(shape_row)}")
+        del packed, scales, x, want, w_deq
+    first = by_shape[0]
+    rows.append(dict(
+        name="int4_matmul_stacked", route="cuda",
+        source="audio_llama_tpu_torch/csrc/int4_matmul.cu",
+        replaces="audio_llama_tpu/ops/int4_matmul.py:370", max_abs_err=worst[1],
+        tol=tol_entry(frac), tol_ratio=worst[0], planted_fault_ratios=faults,
+        ms=first["ms"], plain_ms=first["plain_ms"], library_ms=first["library_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"], launches=None,
+        shapes="the row's times are the decode q|k|v call; by_shape has every shape",
+        by_shape=by_shape,
+    ))
+    log(f"kernel int4_matmul_stacked ok: planted faults rejected: {faults}")
+
+    # 7. fused int4 MLP at M = B (decode), pair
+    dh = D // 2
+    gup, gus = rand_bytes(L, D, Fd), rand_scales(L, D // 128, 2 * Fd)
+    dn, dns = rand_bytes(L, Fd, dh), rand_scales(L, Fd // 128, D)
+    x = randn(B, D, dtype=bf)
+    chunk = mlp4.kernel_chunk(Fd, dh)
+    want = mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, li, chunk=chunk)
+    frac = ATOL_ROW_RMS_FRAC["mlp_int4_stacked"]
+    err, ratio = check_close("mlp_int4_stacked",
+                             mlp4.mlp_int4_stacked_cuda(x, gup, gus, dn, dns, li, chunk=chunk),
+                             want, frac)
+    dropped = gus.clone()
+    dropped[li, :, Fd - chunk:Fd] = 0  # the last chunk's gate: a = 0, as if dropped
+    faults = {"last F-chunk dropped": must_reject(
+        "mlp_int4_stacked", "last F-chunk dropped",
+        mlp4.mlp_int4_stacked_cuda(x, gup, dropped, dn, dns, li, chunk=chunk), want, frac)}
+    wg = i4.dequantize_ref(gup[li], gus[li]).to(bf)
+    wd = i4.dequantize_ref(dn[li], dns[li]).to(bf)
+    nbytes = D * Fd + (D / 128) * 2 * Fd * 4 + Fd * dh + (Fd / 128) * D * 4 + 2.0 * B * 2 * D
+    flops = 2.0 * B * D * 2 * Fd + 2.0 * B * Fd * D
+    bms, bby = bound(flops, nbytes)
+    turn = itertools.count()
+    rows.append(dict(
+        name="mlp_int4_stacked", route="cuda", source="audio_llama_tpu_torch/csrc/mlp_int4.cu",
+        replaces="audio_llama_tpu/ops/mlp_int4.py:43", max_abs_err=err,
+        tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
+        ms=time_ms(lambda: mlp4.mlp_int4_stacked_cuda(x, gup, gus, dn, dns, next(turn) % L,
+                                                      chunk=chunk), iters=56),
+        plain_ms=time_ms(lambda: mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, li,
+                                                             chunk=chunk), iters=5),
+        library_ms=time_ms(lambda: (F.silu(x @ wg[:, :Fd]) * (x @ wg[:, Fd:])) @ wd, iters=56),
+        # the same kernel at the TPU kernel's chunk (16 blocks at F = 8192)
+        ms_at_tpu_chunk=time_ms(lambda: mlp4.mlp_int4_stacked_cuda(
+            x, gup, gus, dn, dns, next(turn) % L, chunk=mlp4.pick_chunk(Fd)), iters=56),
+        launches=None, bound_ms=bms, bound_by=bby,
+        shapes=f"x[{B},{D}] bf16, gate|up [{L},{D},{Fd}], down [{L},{Fd},{dh}] int8, "
+               f"chunk {chunk}",
+    ))
+    log(f"kernel mlp_int4_stacked ok: max_abs_err={err:.3e} tol_ratio={ratio:.3f} "
+        f"planted faults rejected: {faults}")
+    del gup, gus, dn, dns, wg, wd, dropped
+
+    # 8. int4-KV decode attention: the last decode step of the int4 path
+    Hkv, Hq, hd = lc.num_kv_heads, lc.num_heads, lc.head_dim
+    S = KVCache.rounded_len(prefix + N_NEW)
+    off = prefix + N_NEW - 2
+    ckv = rand_bytes(L, B, Hkv, S, hd)
+    ks, vs = rand_scales(L, B, Hkv, S), rand_scales(L, B, Hkv, S)
+    q = randn(B, Hq, hd, dtype=bf)
+    kvn, ksn, vsn = rand_bytes(B, Hkv, hd), rand_scales(B, Hkv), rand_scales(B, Hkv)
+    kpos = torch.arange(S, device=dev)[None, :]
+    scale = hd ** -0.5
+    frac = ATOL_ROW_RMS_FRAC["decode_attention_quantized4_mono"]
+
+    def attend(offsets, valid, cache=None, k_new=kvn, k_s=ksn, v_s=vsn, layer=li, fn=None):
+        fn = fn or dm.decode_attention_q4_cuda
+        c = ckv.clone() if cache is None else cache
+        return fn(q, k_new, c, ks, vs, k_s, v_s, layer, offsets, valid, scale)
+
+    results = {}
+    for kind, offsets in (("scalar", torch.tensor(off, dtype=torch.int32, device=dev)),
+                          ("[B]", torch.tensor([off - 3 * b for b in range(B)],
+                                               dtype=torch.int32, device=dev))):
+        valid = (kpos <= offsets.reshape(-1, 1)).to(torch.int32).expand(B, S).contiguous()
+        got, gc = attend(offsets, valid)
+        want, wc = attend(offsets, valid, fn=dm.decode_attention_q4_plain)
+        results[kind] = check_close(f"decode_attention_quantized4_mono {kind}", got, want, frac)
+        if not torch.equal(gc, wc):
+            raise AssertionError(f"decode_attention_quantized4_mono {kind}: in-place append "
+                                 "differs")
+    offsets = torch.full((B,), off, dtype=torch.int32, device=dev)
+    valid = (kpos <= offsets[:, None]).to(torch.int32)
+    want = attend(offsets, valid, fn=dm.decode_attention_q4_plain)[0]
+    not_off = valid.clone()
+    not_off[:, off] = 0
+    planted = {
+        "slot offset+1 attended": dict(valid=(kpos <= off + 1).to(torch.int32).expand(B, S)
+                                       .contiguous()),
+        "slot offset not attended": dict(valid=not_off),
+        "stale fresh row": dict(k_new=ckv[li, :, :, off].clone(),
+                                k_s=ks[li, :, :, off].clone(), v_s=vs[li, :, :, off].clone()),
+        # flipping bit 3 of every K nibble makes the offset-binary decode read
+        # the bytes as signed K
+        "K decoded as signed": dict(cache=ckv ^ 0x08, k_new=kvn ^ 0x08),
     }
+    faults = {}
+    for fault, kw in planted.items():
+        kw.setdefault("valid", valid)
+        faults[fault] = must_reject("decode_attention_quantized4_mono", fault,
+                                    attend(offsets, **kw)[0], want, frac)
+    err = max(e for e, _ in results.values())
+    ratio = max(r for _, r in results.values())
+    n_valid = off + 1
+    nbytes = (B * Hkv * n_valid * (hd + 8.0) + 2.0 * 2 * B * Hq * hd + B * Hkv * (hd + 8.0)
+              + 4.0 * B * S)
+    flops = 4.0 * B * Hq * n_valid * hd
+    bms, bby = bound(flops, nbytes)
+    # library: SDPA on K/V dequantized to bf16 ahead of time (all layers)
+    kd = ((ckv.to(torch.int32) & 0xF) - 8).to(bf) * ks[..., None].to(bf)
+    vd = (ckv.to(torch.int32) >> 4).to(bf) * vs[..., None].to(bf)
+    kd = kd.repeat_interleave(Hq // Hkv, dim=2)
+    vd = vd.repeat_interleave(Hq // Hkv, dim=2)
+    dmask = (valid != 0)[:, None, None, :]
+    turn = itertools.count()
+
+    def sdpa(layer):
+        return F.scaled_dot_product_attention(q[:, :, None, :], kd[layer], vd[layer],
+                                              attn_mask=dmask, scale=scale)
+
+    rows.append(dict(
+        name="decode_attention_quantized4_mono", route="cuda",
+        source="audio_llama_tpu_torch/csrc/decode_attention_q4.cu",
+        replaces="audio_llama_tpu/ops/decode_attention_mono.py:76", max_abs_err=err,
+        tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
+        ms=time_ms(lambda: dm.decode_attention_q4_cuda(
+            q, kvn, ckv, ks, vs, ksn, vsn, next(turn) % L, offsets, valid, scale), iters=112),
+        plain_ms=time_ms(lambda: dm.decode_attention_q4_plain(
+            q, kvn, ckv, ks, vs, ksn, vsn, next(turn) % L, offsets, valid, scale), iters=28),
+        library_ms=time_ms(lambda: sdpa(next(turn) % L), iters=112),
+        launches=None, bound_ms=bms, bound_by=bby,
+        shapes=f"cache[{L},{B},{Hkv},{S},{hd}] int4 K|V, q[{B},{Hq},{hd}] bf16, "
+               f"{n_valid} valid, scalar and [B] offsets",
+    ))
+    log(f"kernel decode_attention_quantized4_mono ok: max_abs_err={err:.3e} "
+        f"tol_ratio={ratio:.3f} planted faults rejected: {faults}")
+    return rows
 
 
 def synced_ms(fn) -> float:
@@ -367,19 +668,47 @@ def synced_ms(fn) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path at full width
+# phase 3: the bf16 main path at full width
 # ---------------------------------------------------------------------------
+
+# the kernels of the bf16 path; the others report their int4-path launches
+BF16_PATH_KERNELS = ("layer_norm", "enc_attention", "causal_attention", "decode_attention_mono")
 
 AUDIO_START, AUDIO_END, EOS = 128256, 128257, 128001  # resized vocab rows; Llama-3 <|end_of_text|>
 N_NEW, PROMPT = 32, 24
 
 
+def path_profile(run, label: str) -> None:
+    """torch.profiler breakdown of run(1) (encode + prefill + first token)
+    and, by difference with run(9), of one decode token."""
+    n = 9
+    prefill = device_profile(lambda: run(1))
+    whole = device_profile(lambda: run(n))
+    decode = {k: (whole["by_group_ms"].get(k, 0.0) - v) / (n - 1)
+              for k, v in prefill["by_group_ms"].items()}
+    for k, v in whole["by_group_ms"].items():
+        decode.setdefault(k, v / (n - 1))
+    log(json.dumps({"profile": {
+        "path": label,
+        "encode_prefill_first_token": prefill,
+        "decode_per_token_by_group_ms": decode,
+        "decode_per_token_wall_ms": (whole["wall_ms"] - prefill["wall_ms"]) / (n - 1),
+        "decode_per_token_device_ms": (whole["device_ms"] - prefill["device_ms"]) / (n - 1),
+        "decode_per_token_device_launches":
+            (whole["device_launches"] - prefill["device_launches"]) / (n - 1),
+    }}))
+
+
+def check_tokens(label, toks, shape, V):
+    if tuple(toks.shape) != shape or not bool(((toks >= 0) & (toks < V)).all()):
+        raise AssertionError(f"{label}: bad tokens {toks.tolist()}")
+
+
 def main_path(dev, profile: bool = False):
-    from audio_llama_tpu_torch.config import AudioLLMConfig
     from audio_llama_tpu_torch.inference.generate import generate
     from audio_llama_tpu_torch.models import allm, llama
 
-    cfg = AudioLLMConfig()  # Llama-3.2-3B + Whisper-large-v3-turbo, LoRA r64
+    cfg = full_config()
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     t0 = time.perf_counter()
@@ -406,20 +735,17 @@ def main_path(dev, profile: bool = False):
     enc_ms = min(synced_ms(lambda: allm.process_audio_features(frozen, cfg, mel)) for _ in range(3))
     first_ms = min(synced_ms(lambda: run(1)) for _ in range(3))
 
-    mods = kernel_modules()
-    for m in mods.values():
-        m.launches = 0
+    zero_counters()
     torch.cuda.reset_peak_memory_stats()
     result = {}
     total_ms = synced_ms(lambda: result.setdefault("greedy", run(N_NEW)))
-    launches = {name: m.launches for name, m in mods.items()}
+    launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     greedy = result["greedy"]
     V = cfg.llama.vocab_size + 2
     toks = greedy.tokens
-    if toks.shape != (1, N_NEW) or not bool(((toks >= 0) & (toks < V)).all()):
-        raise AssertionError(f"main: bad greedy tokens {toks.tolist()}")
+    check_tokens("main greedy", toks, (1, N_NEW), V)
     again = run(N_NEW)
     if not torch.equal(again.tokens, toks):
         raise AssertionError("main: greedy decoding is not deterministic")
@@ -436,8 +762,7 @@ def main_path(dev, profile: bool = False):
     g2 = torch.Generator(device=dev)
     g2.manual_seed(7)
     sampled = run(N_NEW, greedy=False, g=g2).tokens
-    if sampled.shape != (1, N_NEW) or not bool(((sampled >= 0) & (sampled < V)).all()):
-        raise AssertionError(f"main: bad sampled tokens {sampled.tolist()}")
+    check_tokens("main sampled", sampled, (1, N_NEW), V)
 
     stats = {
         "config": "Llama-3.2-3B (28 layers, vocab 128256+2) + Whisper-large-v3-turbo encoder "
@@ -449,30 +774,174 @@ def main_path(dev, profile: bool = False):
         "decode_ms_per_token": (total_ms - first_ms) / (N_NEW - 1),
         "generate_ms": total_ms, "peak_mem_gb": peak_gb,
         "greedy_tokens": toks[0].tolist(), "num_generated": int(greedy.num_generated[0]),
-        "sampled_tokens": sampled[0].tolist(),
+        "sampled_tokens": sampled[0].tolist(), "launches": launches,
     }
     log(json.dumps({"main_path": stats}))
     if profile:
-        n = 9
-        prefill = device_profile(lambda: run(1))
-        whole = device_profile(lambda: run(n))
-        decode = {k: (whole["by_group_ms"].get(k, 0.0) - v) / (n - 1)
-                  for k, v in prefill["by_group_ms"].items()}
-        for k, v in whole["by_group_ms"].items():
-            decode.setdefault(k, v / (n - 1))
-        log(json.dumps({"profile": {
-            "encode_prefill_first_token": prefill,
-            "decode_per_token_by_group_ms": decode,
-            "decode_per_token_wall_ms": (whole["wall_ms"] - prefill["wall_ms"]) / (n - 1),
-            "decode_per_token_device_ms":
-                (whole["device_ms"] - prefill["device_ms"]) / (n - 1),
-            "decode_per_token_device_launches":
-                (whole["device_launches"] - prefill["device_launches"]) / (n - 1),
-        }}))
+        path_profile(run, "bf16, B=1")
     return launches
 
 
-KERNEL_GROUPS = (  # substring of the device kernel's name -> group
+# ---------------------------------------------------------------------------
+# phases 4 and 5: the int4 path at full width, then the inference CLI on it
+# ---------------------------------------------------------------------------
+
+def int4_model(gen, cfg):
+    """Seeded bf16 weights with a non-zero LoRA r64 delta, merged and
+    quantized on the card to the fused int4 tree (`pair`), as the CLI's
+    --int4_decoder does -> (frozen, trainable without LoRA)."""
+    from audio_llama_tpu_torch.inference import cli
+    from audio_llama_tpu_torch.models import allm, llama
+
+    frozen = allm.init_frozen(cfg, gen, torch.bfloat16)
+    frozen["llama"] = llama.resize_embeddings(frozen["llama"], cfg.llama.vocab_size + 2,
+                                              cfg.llama)
+    trainable = allm.init_trainable(cfg, gen, torch.float32)
+    for br in trainable["lora"]["layers"].values():  # 'ref' init has a = 0
+        br["a"].data.copy_(torch.randn(br["a"].shape, generator=gen, device=br["a"].device)
+                           * 0.02)
+    return cli.quantize_decoder(cfg, frozen, trainable)
+
+
+def int4_path(dev, profile: bool = False):
+    from audio_llama_tpu_torch.inference.generate import generate
+    from audio_llama_tpu_torch.models import allm
+
+    cfg = full_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    t0 = time.perf_counter()
+    frozen, trainable = int4_model(gen, cfg)
+    torch.cuda.synchronize()
+    log(f"int4: LoRA merged and the decoder quantized on the card in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    B = len(INT4_PROMPTS)
+    wav = torch.randn((B, cfg.mel.max_samples), generator=gen, device=dev) * 0.1
+    ids = torch.randint(0, cfg.llama.vocab_size, (B, max(INT4_PROMPTS)), generator=gen,
+                        device=dev)
+    mask = torch.zeros_like(ids)
+    for b, n in enumerate(INT4_PROMPTS):
+        mask[b, :n] = 1
+    ids = ids * mask  # right-padded with pad id 0
+    kw = dict(eos_id=EOS, pad_id=0, audio_start_id=AUDIO_START, audio_end_id=AUDIO_END,
+              compute_dtype=torch.bfloat16, device=dev, kv_quant=4)
+
+    def run(n, greedy=True, g=None):
+        return generate(frozen, trainable, cfg, ids, mask, wav, g, max_new_tokens=n,
+                        greedy=greedy, temperature=0.7, top_p=0.9, **kw)
+
+    run(2)
+    enc_ms = min(synced_ms(lambda: allm.process_audio_features(frozen, cfg, wav))
+                 for _ in range(3))
+    first_ms = min(synced_ms(lambda: run(1)) for _ in range(3))
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    result = {}
+    total_ms = synced_ms(lambda: result.setdefault("greedy", run(N_NEW)))
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    V = cfg.llama.vocab_size + 2
+    toks = result["greedy"].tokens
+    check_tokens("int4 greedy", toks, (B, N_NEW), V)
+    if not torch.equal(run(N_NEW).tokens, toks):
+        raise AssertionError("int4: greedy decoding is not deterministic")
+    L, W = cfg.llama.num_layers, cfg.whisper.num_layers
+    want = {
+        "mel_power": 1, "layer_norm": 2 * W, "enc_attention": W, "causal_attention": L,
+        "int4_matmul_stacked": 4 * L + 2 * L * (N_NEW - 1),
+        "mlp_int4_stacked": L * (N_NEW - 1),
+        "decode_attention_quantized4_mono": L * (N_NEW - 1),
+        "decode_attention_mono": 0,
+    }
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"int4: {name} launched {launches[name]} times, want {n}")
+    g2 = torch.Generator(device=dev)
+    g2.manual_seed(7)
+    sampled = run(N_NEW, greedy=False, g=g2).tokens
+    check_tokens("int4 sampled", sampled, (B, N_NEW), V)
+
+    from audio_llama_tpu_torch.models import llama
+
+    hidden = torch.randn((B, 1, cfg.llama.hidden_size), generator=gen, device=dev).to(
+        torch.bfloat16)
+    stats = {
+        "label": "int4w+kv4, B=4",
+        "config": "Llama-3.2-3B (28 layers, vocab 128256+2, fused int4 tree, pair, LoRA r64 "
+                  "merged) + Whisper-large-v3-turbo encoder (32 layers), bf16 compute, int4 "
+                  "KV cache, seeded random weights",
+        "batch": B, "prompt_tokens": list(INT4_PROMPTS), "audio_samples": cfg.mel.max_samples,
+        "prefix_tokens": cfg.audio_seq_len + 2 + max(INT4_PROMPTS), "new_tokens": N_NEW,
+        "encode_ms": enc_ms, "prefill_ms": first_ms - enc_ms,
+        "decode_ms_per_token": (total_ms - first_ms) / (N_NEW - 1),
+        "generate_ms": total_ms, "peak_mem_gb": peak_gb,
+        # the int8 table's unembed: cast to bf16, then one bf16 x bf16 -> f32 product
+        "unembed_ms_per_step": time_ms(
+            lambda: llama.unembed(frozen["llama"], cfg.llama, hidden, torch.bfloat16), iters=10),
+        "greedy_tokens": toks.tolist(), "sampled_tokens": sampled.tolist(),
+        "launches": launches,
+    }
+    log(json.dumps({"int4_path": stats}))
+    if profile:
+        path_profile(run, "int4w+kv4, B=4")
+    return launches, (cfg, frozen, trainable)
+
+
+def cli_path(dev, model) -> None:
+    """`inference.cli.generate_response` on a seeded 12 s, 44.1 kHz stereo
+    16-bit WAV (mixdown, resample to 16 kHz, padding to 30 s), full width,
+    int4 tree, int4 KV, greedy, 16 tokens, B = 1: its tokens must equal
+    `generate`'s on `cli.process_audio` of the same file."""
+    import tempfile
+
+    from audio_llama_tpu_torch.data import audio_io
+    from audio_llama_tpu_torch.data.tokenizer import ByteTokenizer
+    from audio_llama_tpu_torch.inference import cli
+    from audio_llama_tpu_torch.inference.generate import generate
+
+    cfg, frozen, trainable = model
+    tk = ByteTokenizer()
+    sr, seconds, n_new = 44100, 12.0, 16
+    rng = np.random.default_rng(5)
+    t = np.arange(int(sr * seconds)) / sr
+    stereo = np.stack([0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.normal(size=t.shape),
+                       0.2 * np.sin(2 * np.pi * 330 * t) + 0.05 * rng.normal(size=t.shape)],
+                      axis=1).astype(np.float32)
+    prompt = "Transcribe the audio."
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/clip.wav"
+        audio_io.write_wav(path, stereo, sr)
+        t0 = time.perf_counter()
+        text, tokens = cli.generate_response(cfg, frozen, trainable, tk, prompt, audio_path=path,
+                                             max_new_tokens=n_new, greedy=True, kv_quant=4,
+                                             device=dev, return_tokens=True)
+        cli_ms = (time.perf_counter() - t0) * 1e3
+        wav = cli.process_audio(path, cfg.mel)
+    ids, mask = tk.encode(prompt)
+    want = generate(frozen, trainable, cfg, ids[None], mask[None], wav, max_new_tokens=n_new,
+                    greedy=True, eos_id=tk.eos_id, pad_id=tk.pad_id,
+                    audio_start_id=tk.token_to_id(cfg.audio_start_token),
+                    audio_end_id=tk.token_to_id(cfg.audio_end_token),
+                    compute_dtype=torch.bfloat16, kv_quant=4, device=dev)
+    if not torch.equal(tokens, want.tokens):
+        raise AssertionError(f"cli: tokens {tokens.tolist()} != generate's "
+                             f"{want.tokens.tolist()}")
+    nonzero = float(np.abs(wav).max())
+    tail = float(np.abs(wav[0, int(seconds * cfg.mel.sample_rate) + 16:]).max(initial=0.0))
+    if wav.shape != (1, cfg.mel.max_samples) or nonzero == 0 or tail != 0:
+        raise AssertionError(f"cli: processed audio {wav.shape}, max {nonzero}, tail {tail}")
+    log(json.dumps({"cli_path": {"wav": f"{seconds} s, {sr} Hz, stereo, 16-bit",
+                                 "new_tokens": n_new, "tokens": tokens[0].tolist(),
+                                 "text": text, "wall_ms": cli_ms,
+                                 "tokens_equal_generate": True}}))
+
+
+KERNEL_GROUPS = (  # substring of the device kernel's name -> group, first match wins
+    ("mel_power_kernel", "mel_power kernel"),
+    ("w4_decode_kernel", "int4_matmul kernel"), ("w4_prefill_kernel", "int4_matmul kernel"),
+    ("mlp4_kernel", "mlp_int4 kernel"),
+    ("decode4_kernel", "decode_attention_q4 kernel"),
     ("attn_fwd_kernel<64, false>", "enc_attention kernel"),
     ("attn_fwd_kernel<128, true>", "causal_attention kernel"),
     ("decode_kernel", "decode_attention kernel"),
@@ -500,22 +969,38 @@ def device_profile(fn) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: card (bf16, kernels) vs host (f32, plain) at 2 + 2 layers
+# phase 6: card (bf16, kernels) vs host (f32, plain) at 2 + 2 layers
 # ---------------------------------------------------------------------------
+
+def cut_config():
+    """full_config() with 2 Whisper and 2 Llama layers, widths unchanged."""
+    import dataclasses
+
+    full = full_config()
+    return dataclasses.replace(
+        full, llama=dataclasses.replace(full.llama, num_layers=2),
+        whisper=dataclasses.replace(full.whisper, num_layers=2))
+
+
+def compare_logits(label, card, host) -> dict:
+    rel = ((card - host).norm() / host.norm()).item()
+    stats = {"rel_l2": rel, "max_abs": (card - host).abs().max().item(),
+             "host_logit_absmax": host.abs().max().item(),
+             "argmax_agree": int(card.argmax()) == int(host.argmax())}
+    if not (torch.isfinite(card).all() and rel <= HOST_TOL and stats["argmax_agree"]):
+        raise AssertionError(f"{label}: card vs host logits {stats} (bar rel_l2 {HOST_TOL}, "
+                             "argmax equal)")
+    return stats
+
 
 def host_check(dev):
     import copy
-    import dataclasses
 
-    from audio_llama_tpu_torch.config import AudioLLMConfig
     from audio_llama_tpu_torch.device import make_generator
     from audio_llama_tpu_torch.inference.generate import build_prefix
     from audio_llama_tpu_torch.models import allm, llama, lora
 
-    full = AudioLLMConfig()
-    cfg = dataclasses.replace(
-        full, llama=dataclasses.replace(full.llama, num_layers=2),
-        whisper=dataclasses.replace(full.whisper, num_layers=2))
+    cfg = cut_config()
     t0 = time.perf_counter()
     gen = make_generator(2, "cpu")
     frozen = allm.init_frozen(cfg, gen, torch.bfloat16)
@@ -543,15 +1028,67 @@ def host_check(dev):
     card = last_logits(copy.deepcopy(frozen).to(dev), copy.deepcopy(trainable).to(dev),
                        torch.bfloat16, dev)
     host = last_logits(frozen.float(), trainable.float(), torch.float32, torch.device("cpu"))
-    rel = ((card - host).norm() / host.norm()).item()
-    max_abs = (card - host).abs().max().item()
-    top_agree = int(card.argmax()) == int(host.argmax())
-    stats = {"layers": "2 whisper + 2 llama, full width", "rel_l2": rel, "max_abs": max_abs,
-             "host_logit_absmax": host.abs().max().item(), "argmax_agree": top_agree,
-             "tol_rel_l2": HOST_TOL, "seconds": time.perf_counter() - t0}
+    stats = {"path": "bf16, log-mel input", "layers": "2 whisper + 2 llama, full width",
+             **compare_logits("host check", card, host), "tol_rel_l2": HOST_TOL,
+             "seconds": time.perf_counter() - t0}
     log(json.dumps({"host_check": stats}))
-    if not (torch.isfinite(card).all() and rel <= HOST_TOL):
-        raise AssertionError(f"host check: card vs host logits rel_l2={rel:.3e} > {HOST_TOL}")
+
+
+def host_check_int4(dev):
+    """The int4 path at 2 + 2 layers: waveform in, LoRA merged and the
+    decoder quantized once on the host, the same int4 tree on both sides;
+    the last position's prefill logits, then one decode step's on the int4
+    KV cache (the host's next token fed to both)."""
+    import copy
+
+    from audio_llama_tpu_torch.device import make_generator
+    from audio_llama_tpu_torch.inference import cli
+    from audio_llama_tpu_torch.inference.generate import build_prefix
+    from audio_llama_tpu_torch.models import allm, llama
+
+    cfg = cut_config()
+    t0 = time.perf_counter()
+    gen = make_generator(4, "cpu")
+    frozen = allm.init_frozen(cfg, gen, torch.bfloat16)
+    frozen["llama"] = llama.resize_embeddings(frozen["llama"], cfg.llama.vocab_size + 2,
+                                              cfg.llama)
+    trainable = allm.init_trainable(cfg, gen, torch.bfloat16)
+    rng = np.random.default_rng(4)
+    for br in trainable["lora"]["layers"].values():  # a non-zero LoRA delta
+        br["a"].data.copy_(torch.from_numpy(rng.normal(size=br["a"].shape) * 0.02))
+    frozen, trainable = cli.quantize_decoder(cfg, frozen, trainable)
+    wav = torch.from_numpy((rng.normal(size=(1, cfg.mel.max_samples)) * 0.1).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, cfg.llama.vocab_size, (1, PROMPT)))
+    mask = torch.ones_like(ids, dtype=torch.int32)
+
+    def logits(fz, tr, cd, d, token=None):
+        embeds, m = build_prefix(fz, tr, cfg, ids.to(d), mask.to(d), wav.to(d), AUDIO_START,
+                                 AUDIO_END, cd)
+        P = embeds.shape[1]
+        full_mask = torch.cat([m, torch.ones((1, 1), dtype=m.dtype, device=d)], dim=1)
+        cache = llama.KVCache.zeros(cfg.llama, 1, P + 1, dtype=cd, device=d, quantized=4)
+        _, cache, hidden = llama.llama_forward(
+            fz["llama"], cfg.llama, inputs_embeds=embeds, attention_mask=full_mask,
+            kv_cache=cache, compute_dtype=cd, assume_fresh_cache=True, return_hidden=True,
+            unembed_logits=False)
+        first = llama.unembed(fz["llama"], cfg.llama, hidden[:, -1:], cd)[0, 0].float().cpu()
+        tok = first.argmax() if token is None else token
+        step, _ = llama.llama_forward(
+            fz["llama"], cfg.llama, input_ids=tok.reshape(1, 1).to(d), attention_mask=full_mask,
+            positions=torch.full((1, 1), P, device=d), kv_cache=cache, compute_dtype=cd)
+        return first, step[0, 0].float().cpu(), tok
+
+    host_first, host_step, tok = logits(frozen.float(), trainable.float(), torch.float32,
+                                        torch.device("cpu"))
+    card_first, card_step, _ = logits(copy.deepcopy(frozen).to(dev),
+                                      copy.deepcopy(trainable).to(dev), torch.bfloat16, dev,
+                                      token=tok)
+    stats = {"path": "int4w+kv4, waveform input", "layers": "2 whisper + 2 llama, full width",
+             "prefill": compare_logits("int4 host check, prefill", card_first, host_first),
+             "decode_step": compare_logits("int4 host check, decode step", card_step,
+                                           host_step),
+             "tol_rel_l2": HOST_TOL, "seconds": time.perf_counter() - t0}
+    log(json.dumps({"host_check_int4": stats}))
 
 
 # bf16 activations through 2 + 2 layers against an f32 host path: each bf16
@@ -562,7 +1099,7 @@ HOST_TOL = 2e-2
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler breakdown of the main path")
+                    help="add torch.profiler breakdowns of the bf16 and int4 paths")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -579,13 +1116,24 @@ def main(argv=None) -> int:
     _cuda.library()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib_path}")
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions and host checks
+    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = kernel_checks(dev, gen)
-    launches = main_path(dev, profile=args.profile)
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+    rows += int4_kernel_checks(dev, gen)
+    torch.cuda.empty_cache()
+    bf16_launches = main_path(dev, profile=args.profile)
+    torch.cuda.empty_cache()
+    int4_launches, model = int4_path(dev, profile=args.profile)
+    cli_path(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    for row in rows:  # each kernel's count on the path that exercises it
+        path = bf16_launches if row["name"] in BF16_PATH_KERNELS else int4_launches
+        row["launches"] = path[row["name"]]
     host_check(dev)
+    host_check_int4(dev)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

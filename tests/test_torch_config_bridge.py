@@ -80,6 +80,11 @@ import sys
 import audio_llama_tpu_torch
 import audio_llama_tpu_torch.bridge, audio_llama_tpu_torch.inference.generate
 import audio_llama_tpu_torch.models.allm, audio_llama_tpu_torch.ops._cuda
+import audio_llama_tpu_torch.inference.cli, audio_llama_tpu_torch.data.audio_io
+import audio_llama_tpu_torch.data.tokenizer, audio_llama_tpu_torch.models.llama_int4
+import audio_llama_tpu_torch.models.llama_int8, audio_llama_tpu_torch.ops.mel
+import audio_llama_tpu_torch.ops.mel_power, audio_llama_tpu_torch.ops.int4_matmul
+import audio_llama_tpu_torch.ops.mlp_int4, audio_llama_tpu_torch.ops.decode_attention_mono
 sys.path.insert(0, {root!r})
 import chip_smoke
 bad = sorted(m for m in sys.modules

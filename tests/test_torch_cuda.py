@@ -7,11 +7,10 @@ This file imports torch only: the card's machine has no JAX. Run it there
 with `python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q`
 (the repo's conftest imports JAX).
 
-Tolerances: bf16 outputs within chip_smoke's per-kernel bar, one bf16 ulp
-relative plus a fraction of the output row's RMS
-(`chip_smoke.ATOL_ROW_RMS_FRAC`),
-which a one-key mask fault exceeds (the planted-fault tests below); f32
-within 1e-4.
+Tolerances: bf16 outputs (and the f32 mel power) within chip_smoke's
+per-kernel bar, one bf16 ulp relative plus a fraction of the output row's
+RMS (`chip_smoke.ATOL_ROW_RMS_FRAC`), which a one-element fault exceeds (the
+planted-fault tests below); f32 attention within 1e-4.
 """
 
 import copy
@@ -26,7 +25,10 @@ from chip_smoke import ATOL_ROW_RMS_FRAC, tol_ratio  # noqa: E402
 from audio_llama_tpu_torch.ops import causal_attention as ca  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_attention_mono as dm  # noqa: E402
 from audio_llama_tpu_torch.ops import enc_attention as ea  # noqa: E402
+from audio_llama_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from audio_llama_tpu_torch.ops import layer_norm as ln  # noqa: E402
+from audio_llama_tpu_torch.ops import mel_power as mp  # noqa: E402
+from audio_llama_tpu_torch.ops import mlp_int4 as mlp4  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -198,3 +200,171 @@ def test_tiny_generate_on_the_card_matches_the_host(dev):
     assert np.subtract(after, launches).tolist() == [W, L, L * 3, 2 * W]
     assert torch.equal(got.tokens[:, 0].cpu(), want.tokens[:, 0])
     assert ((got.tokens >= 0) & (got.tokens < 514)).all()
+
+
+def _bytes(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int32).to(
+        torch.int8)
+
+
+def _scales(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand(shape, generator=g, device=dev) * 0.02 + 0.002
+
+
+def _ratio(got, want, kernel):
+    return tol_ratio(got, want, ATOL_ROW_RMS_FRAC[kernel])
+
+
+@pytest.mark.parametrize("seconds,n_mels", [(30.0, 128), (1.28, 80)])
+def test_mel_power_kernel(dev, seconds, n_mels):
+    from audio_llama_tpu_torch.config import MelConfig
+
+    cfg = MelConfig(num_mel_bins=n_mels, max_audio_seconds=seconds)
+    wav = _randn(dev, 2, cfg.max_samples, dtype=torch.float32) * 0.1
+    padded = mp.pad_waveform(wav, cfg)
+    before = mp.launches
+    got = mp.mel_power(wav, cfg)
+    torch.cuda.synchronize()
+    assert mp.launches == before + 1
+    want = mp.mel_power_plain(padded, cfg, cfg.num_frames)
+    assert got.shape == (2, cfg.num_frames, n_mels)
+    assert _ratio(got, want, "mel_power") <= 1
+    shifted = mp.mel_power_cuda(padded[:, 1:].contiguous(), cfg, cfg.num_frames)
+    assert _ratio(shifted, want, "mel_power") > 1  # frame offset one sample off
+
+
+@pytest.mark.parametrize("fmt", ["pair", "obin"])
+@pytest.mark.parametrize("M,K,Nh", [(1, 3072, 2560), (2, 512, 256), (4, 3072, 1536),
+                                    (37, 512, 256), (64, 256, 128), (65, 256, 128),
+                                    (200, 512, 384), (6104, 3072, 128)])
+def test_int4_matmul_kernel(dev, fmt, M, K, Nh):
+    L = 3
+    packed, scales = _bytes(dev, L, K, Nh), _scales(dev, L, K // 128, 2 * Nh, seed=1)
+    x = _randn(dev, M, K, seed=2)
+    want = i4.int4_matmul_stacked_plain(x, packed, scales, 1, fmt=fmt)
+    for planes in (False, True):
+        before = i4.launches
+        got = i4.int4_matmul_stacked(x, packed, scales, 1, return_planes=planes, fmt=fmt)
+        torch.cuda.synchronize()
+        assert i4.launches == before + 1
+        got = torch.cat(got, dim=-1) if planes else got
+        assert _ratio(got, want, "int4_matmul_stacked") <= 1
+    rolled = torch.roll(scales, -1, dims=1).contiguous()  # group g with g+1's scale
+    assert _ratio(i4.int4_matmul_stacked(x, packed, rolled, 1, fmt=fmt), want,
+                  "int4_matmul_stacked") > 1
+    if fmt == "obin":
+        assert _ratio(i4.int4_matmul_stacked(x, packed, scales, 1, fmt="pair"), want,
+                      "int4_matmul_stacked") > 1
+
+
+@pytest.mark.parametrize("M,K,F,D", [(4, 3072, 8192, 3072), (1, 256, 1024, 256),
+                                     (9, 512, 1536, 512)])
+def test_mlp_int4_kernel(dev, M, K, F, D):
+    L = 2
+    gup, gus = _bytes(dev, L, K, F), _scales(dev, L, K // 128, 2 * F, seed=1)
+    dn, dns = _bytes(dev, L, F, D // 2, seed=2), _scales(dev, L, F // 128, D, seed=3)
+    x = _randn(dev, M, K, seed=4)
+    chunk = mlp4.kernel_chunk(F, D // 2)
+    want = mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, 1, chunk=chunk)
+    before = mlp4.launches
+    got = mlp4.mlp_int4_stacked(x, gup, gus, dn, dns, 1, chunk=chunk)
+    again = mlp4.mlp_int4_stacked(x, gup, gus, dn, dns, 1, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mlp4.launches == before + 2
+    assert torch.equal(got, again)  # the cross-block sum runs in a fixed order
+    assert _ratio(got, want, "mlp_int4_stacked") <= 1
+    gus[1, :, F - chunk:F] = 0  # the last chunk dropped
+    assert _ratio(mlp4.mlp_int4_stacked(x, gup, gus, dn, dns, 1, chunk=chunk), want,
+                  "mlp_int4_stacked") > 1
+
+
+def _q4_case(dev, dtype, per_row, S=1568):
+    L, B, Hkv, hd, Hq = 3, 2, 8, 128, 24
+    ckv = _bytes(dev, L, B, Hkv, S, hd)
+    ks, vs = _scales(dev, L, B, Hkv, S, seed=1), _scales(dev, L, B, Hkv, S, seed=2)
+    q = _randn(dev, B, Hq, hd, dtype=dtype, seed=3)
+    kvn = _bytes(dev, B, Hkv, hd, seed=4)
+    ksn, vsn = _scales(dev, B, Hkv, seed=5), _scales(dev, B, Hkv, seed=6)
+    off = torch.tensor([1200, 37] if per_row else [900], dtype=torch.int32, device=dev)
+    valid = (torch.arange(S, device=dev)[None, :] <= off.reshape(-1, 1)).to(torch.int32)
+    valid = valid.expand(B, S).contiguous()
+    valid[0, 10:20] = 0
+    return q, kvn, ckv, ks, vs, ksn, vsn, off, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_decode_attention_q4_kernel(dev, dtype, per_row):
+    q, kvn, ckv, ks, vs, ksn, vsn, off, valid = _q4_case(dev, dtype, per_row)
+    ck2 = ckv.clone()
+    before = dm.launches_q4
+    got, gc = dm.decode_attention_quantized4_mono(q, kvn, ckv, ks, vs, ksn, vsn, 2, off, valid,
+                                                  128 ** -0.5)
+    want, wc = dm.decode_attention_q4_plain(q, kvn, ck2, ks, vs, ksn, vsn, 2, off, valid,
+                                            128 ** -0.5)
+    torch.cuda.synchronize()
+    assert dm.launches_q4 == before + 1
+    assert gc.data_ptr() == ckv.data_ptr() and torch.equal(gc, wc)  # appended in place
+    _close(got, want, dtype, "decode_attention_quantized4_mono")
+
+
+@pytest.mark.parametrize("fault", ["slot offset+1 attended", "slot offset not attended",
+                                   "stale fresh row", "K decoded as signed"])
+def test_decode_attention_q4_check_rejects_a_one_slot_fault(dev, fault):
+    q, kvn, ckv, ks, vs, ksn, vsn, off, valid = _q4_case(dev, torch.bfloat16, False, S=512)
+    off = torch.tensor([400], dtype=torch.int32, device=dev)
+    kpos = torch.arange(512, device=dev)[None, :]
+    valid = (kpos <= off).to(torch.int32).expand(2, 512).contiguous()
+    want = dm.decode_attention_q4_plain(q, kvn, ckv.clone(), ks, vs, ksn, vsn, 0, off, valid,
+                                        128 ** -0.5)[0]
+    if fault == "slot offset+1 attended":
+        valid = (kpos <= 401).to(torch.int32).expand(2, 512).contiguous()
+    elif fault == "slot offset not attended":
+        valid = valid.clone()
+        valid[:, 400] = 0
+    elif fault == "stale fresh row":
+        kvn, ksn, vsn = ckv[0, :, :, 400].clone(), ks[0, :, :, 400].clone(), vs[0, :, :, 400].clone()
+    else:
+        ckv, kvn = ckv ^ 0x08, kvn ^ 0x08
+    wrong = dm.decode_attention_q4_cuda(q, kvn, ckv.clone(), ks, vs, ksn, vsn, 0, off, valid,
+                                        128 ** -0.5)[0]
+    assert _ratio(wrong, want, "decode_attention_quantized4_mono") > 1
+
+
+def test_tiny_int4_generate_on_the_card_matches_the_host(dev):
+    """Waveform audio through the int4 slice (LoRA merged, fused int4 tree,
+    int4 KV) on the card at bf16 against the host's plain path at f32 on the
+    same tree: the first greedy token of each row agrees, every kernel of
+    the path launched."""
+    import dataclasses
+
+    from audio_llama_tpu_torch.config import AudioLLMConfig, LlamaConfig
+    from audio_llama_tpu_torch.device import make_generator
+    from audio_llama_tpu_torch.inference import cli
+    from audio_llama_tpu_torch.inference.generate import generate
+    from audio_llama_tpu_torch.models import allm, llama
+
+    lc = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                     num_heads=4, num_kv_heads=2, head_dim=64, rope_scaling=None)
+    cfg = dataclasses.replace(AudioLLMConfig.tiny(), llama=lc)
+    host = allm.init_frozen(cfg, make_generator(0, "cpu"), torch.bfloat16)
+    host["llama"] = llama.resize_embeddings(host["llama"], 514, lc)
+    train = allm.init_trainable(cfg, make_generator(1, "cpu"), torch.bfloat16)
+    host, train = cli.quantize_decoder(cfg, host, train)
+    on_card = [copy.deepcopy(t).to(dev) for t in (host, train)]
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 512, (2, 5))
+    mask = np.ones_like(ids)
+    wav = (rng.normal(size=(2, cfg.mel.max_samples)) * 0.1).astype(np.float32)
+    kw = dict(max_new_tokens=4, greedy=True, eos_id=-1, audio_start_id=512, audio_end_id=513,
+              kv_quant=4)
+    counts = mp.launches, i4.launches, mlp4.launches, dm.launches_q4
+    got = generate(*on_card, cfg, ids, mask, wav, compute_dtype=torch.bfloat16, device=dev, **kw)
+    want = generate(host.float(), train.float(), cfg, ids, mask, wav,
+                    compute_dtype=torch.float32, device="cpu", **kw)
+    after = mp.launches, i4.launches, mlp4.launches, dm.launches_q4
+    L = lc.num_layers
+    assert np.subtract(after, counts).tolist() == [1, 4 * L + 2 * L * 3, L * 3, L * 3]
+    assert torch.equal(got.tokens[:, 0].cpu(), want.tokens[:, 0])

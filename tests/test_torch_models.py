@@ -24,6 +24,7 @@ from audio_llama_tpu.models import whisper as j_whisper  # noqa: E402
 from audio_llama_tpu_torch import bridge  # noqa: E402
 from audio_llama_tpu_torch.config import AudioLLMConfig  # noqa: E402
 from audio_llama_tpu_torch.models import allm, llama, lora, projector, whisper  # noqa: E402
+from audio_llama_tpu_torch.ops import mel_power  # noqa: E402
 
 JCFG = JCfg.tiny()
 CFG = AudioLLMConfig.tiny()
@@ -190,6 +191,28 @@ def test_splices(params):
 
 
 def test_waveform_input_waits_for_the_mel_kernel(params):
+    """Waveform input runs the mel kernel's path: the encoder states equal
+    those of its log-mel fed directly."""
     _, _, tf, _ = params
-    with pytest.raises(NotImplementedError, match="mel kernel"):
-        allm.process_audio_features(tf, CFG, torch.zeros(1, 16000), torch.float32)
+    wav = torch.from_numpy(
+        np.random.default_rng(6).normal(size=(2, CFG.mel.max_samples)).astype(np.float32))
+    got = allm.process_audio_features(tf, CFG, wav, torch.float32)
+    want = allm.process_audio_features(tf, CFG, mel_power.log_mel(wav, CFG.mel), torch.float32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_unembed_logits_stay_f32_at_bf16(params, tied):
+    """bf16 hidden states and weights: the port's logits equal JAX
+    `unembed`'s (bf16 x bf16 products accumulated and kept in f32) within
+    1e-5 relative; rounding them to bf16 would miss by ~4e-3."""
+    jf, _, tf, _ = params
+    jcfg = JCFG.llama.replace(tie_word_embeddings=tied)
+    cfg = CFG.llama.replace(tie_word_embeddings=tied)
+    x = np.random.default_rng(7).normal(size=(2, 3, CFG.llama.hidden_size)).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    want = np.asarray(j_llama.unembed(jf["llama"], jcfg, xj, jnp.bfloat16), np.float32)
+    got = llama.unembed(tf["llama"], cfg, bridge.to_tensor(np.asarray(xj), torch.device("cpu")),
+                        torch.bfloat16)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
