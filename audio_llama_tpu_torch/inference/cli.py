@@ -7,16 +7,18 @@ Counterpart of `audio_llama_tpu/inference/cli.py`, with the same flags:
 
 Audio is decoded, mixed down to mono, resampled to 16 kHz and padded or cut
 to one 30 s window on the host; log-mel, the encoder and KV-cached decode
-run on the device (the card unless `--platform cpu`). `--int4_decoder`
-merges LoRA into the frozen Llama, then quantizes it to the fused int4 tree.
+run on the device (the card unless `--platform cpu`). `--int4_decoder` and
+`--int8_decoder` merge LoRA into the frozen Llama, rotate it with `--rotate`
+(QuaRot, a rotation drawn from a generator seeded 7), then quantize it to
+the fused int4 tree or the weight-only int8 tree. `--kv_quant` keeps an int8
+KV cache, or int4 with `--kv_bits 4`.
 
 Not ported yet, and refused with NotImplementedError: `--checkpoint_path`
 (waits for training/checkpoint.py, ROADMAP queue 1 training),
 `--llama_path` / `--whisper_path` (wait for models/hf_loader.py and
-checkpoints on disk), `--int8_decoder` (queue 2, int8 trees), `--rotate`
-(queue 2, QuaRot), `--draft_llama_path` (queue 1 serving: speculative
-decoding), `--kv_bits 8` (queue 2, int8 KV rows) and a `--decode_impl` other
-than `auto` (queue 2's A/B decode kernels).
+checkpoints on disk), `--draft_llama_path` (queue 1 serving: speculative
+decoding) and a `--decode_impl` other than `auto` (queue 2's A/B decode
+kernels).
 """
 
 from __future__ import annotations
@@ -71,19 +73,34 @@ def process_audio(audio_path: str, mel_cfg) -> np.ndarray:
     return out[None, :]
 
 
-def quantize_decoder(cfg, frozen, trainable):
-    """Merge LoRA into the frozen Llama, then quantize it to the fused int4
-    tree (`models/llama_int4.py`). Returns (frozen, trainable without LoRA)."""
-    from ..bridge import ParamTree
-    from ..models import llama_int4, lora as lora_mod
+ROTATE_SEED = 7  # the JAX CLI rotates with PRNGKey(7)
 
+
+def quantize_decoder(cfg, frozen, trainable, bits: int = 4, rotate: bool = False):
+    """Merge LoRA into the frozen Llama, rotate it (QuaRot, a generator seeded
+    ROTATE_SEED on the weights' device) when asked, then quantize it to the
+    fused int4 tree (`models/llama_int4.py`, bits 4) or the weight-only int8
+    tree (`models/llama_int8.py`, bits 8). Returns (frozen, trainable without
+    LoRA)."""
+    from ..bridge import ParamTree
+    from ..models import llama_int4, llama_int8, llama_rotate, lora as lora_mod
+
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
     frozen = ParamTree(dict(frozen.items()))
     llama = frozen["llama"]
     if cfg.lora is not None and "lora" in trainable:
         llama = lora_mod.merge_into_llama(llama, lora_mod.with_scaling(trainable["lora"],
                                                                        cfg.lora))
         trainable = ParamTree({k: v for k, v in trainable.items() if k != "lora"})
-    frozen["llama"] = llama_int4.quantize_llama_int4(llama)
+    if rotate:  # LoRA is merged, so only the base tree rotates
+        gen = torch.Generator(device=llama["embed"]["weight"].device)
+        gen.manual_seed(ROTATE_SEED)
+        llama = llama_rotate.rotate_llama(llama, cfg.llama, gen)
+    if bits == 4:
+        frozen["llama"] = llama_int4.quantize_llama_int4(llama)
+    else:
+        frozen["llama"] = llama_int8.quantize_llama(llama)
     return frozen, trainable
 
 
@@ -145,16 +162,18 @@ def parse_args(argv=None):
                    help="'cpu' runs the plain PyTorch versions on the host; the default "
                         "is the CUDA card")
     p.add_argument("--kv_quant", action="store_true",
-                   help="quantized KV cache during generation (pair with --kv_bits 4)")
+                   help="quantized KV cache during generation (int8 rows; int4 with "
+                        "--kv_bits 4)")
     p.add_argument("--kv_bits", type=int, default=8, choices=[8, 4],
-                   help="KV-cache precision with --kv_quant: int8 rows (not ported yet) or "
-                        "K/V-combined int4 rows")
+                   help="KV-cache precision with --kv_quant: int8 rows or K/V-combined int4 "
+                        "rows")
     p.add_argument("--int4_decoder", action="store_true",
                    help="weight-only int4 (W4A16) frozen decoder, LoRA merged first")
     p.add_argument("--rotate", action="store_true",
-                   help="QuaRot rotation before quantization (not ported yet)")
+                   help="QuaRot residual-stream rotation before the decoder is quantized "
+                        "(with --int4_decoder or --int8_decoder)")
     p.add_argument("--int8_decoder", action="store_true",
-                   help="weight-only int8 frozen decoder (not ported yet)")
+                   help="weight-only int8 (W8A16) frozen decoder, LoRA merged first")
     p.add_argument("--draft_llama_path", type=str, default=None,
                    help="speculative decoding draft model (not ported yet)")
     p.add_argument("--gamma", type=int, default=4)
@@ -166,29 +185,23 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.int8_decoder:
-        raise NotImplementedError("--int8_decoder: int8 trees are not ported yet "
-                                  "(ROADMAP queue 2)")
-    if args.rotate:
-        raise NotImplementedError("--rotate: QuaRot (models/llama_rotate.py) is not ported "
-                                  "yet (ROADMAP queue 2)")
     if args.draft_llama_path:
         raise NotImplementedError("--draft_llama_path: speculative decoding is not ported "
                                   "yet (ROADMAP queue 1, serving)")
-    if args.kv_quant and args.kv_bits == 8:
-        raise NotImplementedError("--kv_bits 8: int8 KV rows are not ported yet "
-                                  "(ROADMAP queue 2, _kernel_mono_q8)")
     device = "cpu" if args.platform == "cpu" else None
     cfg, frozen, trainable, tk = load_audio_llm(
         args.checkpoint_path, llama_path=args.llama_path, whisper_path=args.whisper_path,
         tokenizer=args.tokenizer, toy_model=args.toy_model, seed=args.seed, device=device)
-    if args.int4_decoder:
-        frozen, trainable = quantize_decoder(cfg, frozen, trainable)
+    if args.int4_decoder or args.int8_decoder:
+        frozen, trainable = quantize_decoder(cfg, frozen, trainable,
+                                             bits=4 if args.int4_decoder else 8,
+                                             rotate=args.rotate)
     text = generate_response(
         cfg, frozen, trainable, tk, prompt=args.prompt, audio_path=args.audio,
         max_new_tokens=args.max_new_tokens, temperature=args.temperature, top_p=args.top_p,
         top_k=args.top_k, greedy=args.greedy, seed=args.seed,
-        kv_quant=4 if args.kv_quant else False, decode_impl=args.decode_impl, device=device)
+        kv_quant=(4 if args.kv_bits == 4 else True) if args.kv_quant else False,
+        decode_impl=args.decode_impl, device=device)
     print(text)
     return text
 

@@ -81,15 +81,18 @@ def generate(
     has_audio: bool = True,
     kv_quant=False,
     device: DeviceLike = None,
+    megakernel: bool = True,
 ) -> GenerateResult:
     """Sampling defaults mirror the reference CLI (temperature 0.7, top_p
     0.9, 256 new tokens). Runs on `device` (the card unless the caller asks
     for the CPU), where the weights must already be. Sampling draws from
     `generator`, which must live on that device.
 
-    kv_quant: False (a compute-dtype cache) or 4 (K/V-combined int4 rows
-    with per-row scales, decoded by the int4-KV kernel). True / 8 (int8
-    rows) raise NotImplementedError until their decode kernel is ported."""
+    kv_quant: False (a compute-dtype cache), True or 8 (int8 rows with
+    per-row scales, decoded by the int8-KV kernel) or 4 (K/V-combined int4
+    rows, decoded by the int4-KV kernel, or at B = 1 on the fused int4 tree
+    by the decode megakernel; `megakernel=False` keeps those steps on the
+    per-layer kernels)."""
     dev = resolve_device(device)
     weights_dev = frozen["llama"]["embed"]["weight"].device
     if weights_dev.type != dev.type:
@@ -147,7 +150,7 @@ def generate(
         step_logits, cache = llama_mod.llama_forward(
             frozen["llama"], cfg.llama,
             input_ids=tok[:, None], attention_mask=full_mask, positions=positions,
-            kv_cache=cache, lora=lora, compute_dtype=compute_dtype,
+            kv_cache=cache, lora=lora, compute_dtype=compute_dtype, megakernel=megakernel,
         )
         nxt = sample(step_logits[:, 0])
         nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)

@@ -1,20 +1,24 @@
 """Llama-3.x decoder with a static KV cache.
 
 Counterpart of `audio_llama_tpu/models/llama.py` on one device (no tensor or
-sequence parallelism), for full-precision trees and the fused int4 tree of
-`models/llama_int4.py`. Parameters keep the JAX tree: stacked `[L, ...]`
-layer leaves, linear weights `[in, out]` (forward is `x @ w`); the decoder
-body is a Python loop over the layer index.
+sequence parallelism), for full-precision trees, the weight-only int8 tree
+of `models/llama_int8.py` and the fused int4 tree of `models/llama_int4.py`,
+rotated (`models/llama_rotate.py`) or not. Parameters keep the JAX tree:
+stacked `[L, ...]` layer leaves, linear weights `[in, out]` (forward is
+`x @ w`); the decoder body is a Python loop over the layer index. A rotated
+tree carries its rotation as `params["rot"]`: the stream is rotated once
+after the embedding and un-rotated once before the final norm (the QuaRot
+sandwich).
 
 Three call shapes, as `generate` uses them:
   - no cache: full causal self-attention over T positions (the causal
     kernel, `ops/causal_attention.py`);
   - fresh-cache prefill (`assume_fresh_cache=True`, T > 1): the T new K/V
-    rows are written into the cache at slot 0 (quantized to int4 rows on an
-    int4 cache) and attention runs over the fresh tokens with the causal
-    kernel;
+    rows are written into the cache at slot 0 (quantized to int8 or int4
+    rows on a quantized cache) and attention runs over the fresh tokens with
+    the causal kernel;
   - T == 1 decode: the decode kernel (`ops/decode_attention_mono.py`, the
-    bf16 or the int4-KV one) appends the new row IN PLACE at the cache
+    bf16, int8-KV or int4-KV one) appends the new row IN PLACE at the cache
     offset (`cache.length`, or per-row `cache_offsets` [B]) and attends the
     slots `<= offset` that the attention mask allows.
 The cache tensors are updated in place (PyTorch's counterpart of the JAX
@@ -25,10 +29,13 @@ On an int4 tree every projection runs the W4A16 kernel
 (`ops/int4_matmul.py`): q|k|v as one fused slab read as two column planes,
 o, and for more than 64 rows gate|up then down. Up to 64 rows with no LoRA
 on the MLP, the fused int4 MLP kernel (`ops/mlp_int4.py`) runs the whole
-MLP. The JAX package replaces the per-layer decode kernels at B = 1 with
-its whole-stack megakernel (`decode_megakernel`); that kernel is not ported
-yet (ROADMAP queue 2), so B = 1 takes the per-layer kernels too, which is
-the JAX package's own path with MEGA_DECODE=0.
+MLP. A single-token step of one request (B * T == 1) on a fused int4 tree
+with an int4 KV cache and no LoRA runs the whole layer stack as one launch
+of the decode megakernel (`ops/decode_megakernel.py`) where its gate
+`ok_for` passes; `megakernel=False` takes the per-layer kernels instead (the
+JAX package's MEGA_DECODE=0). On an int8 tree the projections are
+`(x @ w_q) * w_s` in the compute dtype, as the JAX package leaves them to
+XLA.
 """
 
 from __future__ import annotations
@@ -43,7 +50,9 @@ from ..config import LlamaConfig
 from ..ops import int4_matmul as i4
 from ..ops import mlp_int4 as mlp4
 from ..ops.causal_attention import causal_mha
-from ..ops.decode_attention_mono import decode_attention_mono, decode_attention_quantized4_mono
+from ..ops import decode_megakernel as mk
+from ..ops.decode_attention_mono import (decode_attention_mono, decode_attention_quantized4_mono,
+                                         decode_attention_quantized_mono)
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_for_config, rope_tables
 
@@ -109,16 +118,23 @@ class KVCache(NamedTuple):
     head) timeline a contiguous [max_len, hd] slab); length: int32 [] on the
     cache's device, the current fill.
 
-    int4 mode (`zeros(quantized=4)`): `k` is ONE K/V-combined int8 slab
-    (byte d of a row: K's dim d offset-binary in the low nibble, V's signed
-    in the high nibble, `quantize_kv_rows4`), `v` is None, and k_scale /
-    v_scale [L, B, Hkv, max_len] f32 hold the per-row scales."""
+    int8 mode (`zeros(quantized=True)` or 8): `k` and `v` are int8 slabs
+    (`quantize_kv_rows`). int4 mode (`zeros(quantized=4)`): `k` is ONE
+    K/V-combined int8 slab (byte d of a row: K's dim d offset-binary in the
+    low nibble, V's signed in the high nibble, `quantize_kv_rows4`) and `v`
+    is None. Both keep per-row scales in k_scale / v_scale [L, B, Hkv,
+    max_len] f32.
+
+    host_length: the fill as a Python int where the host knows it (None
+    otherwise); the megakernel's gate reads it instead of syncing on
+    `length`."""
 
     k: torch.Tensor
     v: Optional[torch.Tensor]
     length: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    host_length: Optional[int] = None
 
     @property
     def quantized(self) -> bool:
@@ -138,27 +154,37 @@ class KVCache(NamedTuple):
     @classmethod
     def zeros(cls, cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
               device=None, kv_heads: Optional[int] = None, quantized=False) -> "KVCache":
-        """quantized: False (store `dtype`) or 4 (the combined int4 rows).
-        int8 rows (True / 8) wait for their decode kernel (ROADMAP queue 2,
-        `_kernel_mono_q8`)."""
+        """quantized: False (store `dtype`), True or 8 (int8 rows) or 4 (the
+        combined int4 rows)."""
         max_len = cls.rounded_len(max_len)
         heads = kv_heads if kv_heads is not None else cfg.num_kv_heads
         shape = (cfg.num_layers, batch, heads, max_len, cfg.head_dim)
         length = torch.zeros((), dtype=torch.int32, device=device)
-        if quantized is not False and quantized != 4:
-            raise NotImplementedError(
-                "int8 KV rows are not ported yet (ROADMAP queue 2: _kernel_mono_q8)")
-        if quantized == 4:
+        if quantized is not False and quantized not in (True, 4, 8):
+            raise ValueError(f"quantized must be False, True, 8 or 4; got {quantized!r}")
+        if quantized is False:
             return cls(
-                k=torch.zeros(shape, dtype=torch.int8, device=device), v=None, length=length,
-                k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-                v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                k=torch.zeros(shape, dtype=dtype, device=device),
+                v=torch.zeros(shape, dtype=dtype, device=device),
+                length=length, host_length=0,
             )
         return cls(
-            k=torch.zeros(shape, dtype=dtype, device=device),
-            v=torch.zeros(shape, dtype=dtype, device=device),
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=None if quantized == 4 else torch.zeros(shape, dtype=torch.int8, device=device),
             length=length,
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            host_length=0,
         )
+
+
+def quantize_kv_rows(x: torch.Tensor):
+    """[..., hd] -> (int8 [..., hd], f32 scales [...]): symmetric per-row
+    absmax / 127."""
+    xf = x.to(torch.float32)
+    scale = i4.absmax_scale(xf.abs().amax(dim=-1), 127.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def quantize_kv_rows4(k: torch.Tensor, v: torch.Tensor):
@@ -168,7 +194,7 @@ def quantize_kv_rows4(k: torch.Tensor, v: torch.Tensor):
     high nibble."""
     def q4(x):
         xf = x.to(torch.float32)
-        scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 7.0
+        scale = i4.absmax_scale(xf.abs().amax(dim=-1), 7.0)
         q = torch.clamp(torch.round(xf / scale[..., None]), -7, 7).to(torch.int32)
         return q, scale
 
@@ -237,9 +263,22 @@ def _lora_delta(x, lora_branch, compute_dtype):
     return (x @ a.to(compute_dtype)) @ b.to(compute_dtype) * scaling
 
 
+def _layer_weight(w, li: int):
+    """Layer li of a stacked linear leaf: a tensor [in, out], or the int8
+    tree's (w_q int8 [in, out], w_s f32 [out])."""
+    if isinstance(w, ParamTree):
+        return w["w_q"][li], w["w_s"][li]
+    return w[li]
+
+
 def _linear(x, w, lora_branch, compute_dtype):
-    """x @ w, plus the LoRA delta x @ a @ b * scaling when given."""
-    y = x @ w.to(compute_dtype)
+    """x @ w, plus the LoRA delta x @ a @ b * scaling when given. An int8
+    weight (w_q, w_s) computes (x @ w_q) * w_s in the compute dtype."""
+    if isinstance(w, tuple):
+        w_q, w_s = w
+        y = (x @ w_q.to(compute_dtype)) * w_s.to(compute_dtype)
+    else:
+        y = x @ w.to(compute_dtype)
     if lora_branch is not None:
         y = y + _lora_delta(x, lora_branch, compute_dtype)
     return y
@@ -284,15 +323,20 @@ def llama_forward(
     return_hidden: bool = False,
     assume_fresh_cache: bool = False,
     unembed_logits: bool = True,
+    megakernel: bool = True,
 ):
     """Decoder forward. Without a cache returns (logits [B, T, V], None);
     with one, (logits, cache). `return_hidden` appends the final-norm hidden
     states; `unembed_logits=False` returns None for the logits (a caller that
-    needs only some positions unembeds them itself)."""
+    needs only some positions unembeds them itself). `megakernel=False`
+    keeps single-request int4 decode steps on the per-layer kernels."""
     cd = compute_dtype
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids, cd)
     x = inputs_embeds.to(cd)
+    rot = params.get("rot")
+    if rot is not None:  # into the rotated basis (QuaRot sandwich)
+        x = x @ rot.to(cd)
     B, T, _ = x.shape
     dev = x.device
 
@@ -307,9 +351,12 @@ def llama_forward(
         raise NotImplementedError(
             "cached forward supports a fresh-cache prefill or T == 1 decode steps"
         )
+    host_offset = None
     if kv_cache is not None:
         offset = kv_cache.length if cache_offsets is None else cache_offsets
         offset = offset.to(device=dev, dtype=torch.int32)
+        if cache_offsets is None:
+            host_offset = 0 if fresh else kv_cache.host_length
         Tk = kv_cache.k.shape[3]
         if attention_mask is not None and attention_mask.shape[1] < Tk:
             attention_mask = F.pad(attention_mask, (0, Tk - attention_mask.shape[1]))
@@ -336,9 +383,9 @@ def llama_forward(
 
     lp = params["layers"]
     int4 = "qkv_proj" in lp
-    if not int4 and isinstance(lp["q_proj"], ParamTree):
+    if not int4 and isinstance(lp["q_proj"], ParamTree) and "w_q" not in lp["q_proj"]:
         raise NotImplementedError(
-            "unfused int4 and int8 decoder trees are not ported yet (ROADMAP queue 2)")
+            "unfused int4 decoder trees are not ported yet (ROADMAP queue 2)")
     fmt = "obin" if "int4_obin" in params else "pair"
     lora_layers = lora["layers"] if lora is not None else None
     scale = cfg.head_dim ** -0.5
@@ -346,15 +393,30 @@ def llama_forward(
     hd = cfg.head_dim
     ck = kv_cache.k if kv_cache is not None else None
     cv = kv_cache.v if kv_cache is not None else None
-    kv4 = kv_cache is not None and kv_cache.kv_bits == 4
-    ks_all = kv_cache.k_scale if kv4 else None
-    vs_all = kv_cache.v_scale if kv4 else None
+    kv_bits = kv_cache.kv_bits if kv_cache is not None else 16
+    ks_all = kv_cache.k_scale if kv_cache is not None else None
+    vs_all = kv_cache.v_scale if kv_cache is not None else None
     mlp_chunk = None
     if int4:
         mlp_chunk = mlp4.kernel_chunk(lp["gateup_proj"]["w_p"].shape[-1],
                                       lp["down_proj"]["w_p"].shape[-1])
 
-    for li in range(cfg.num_layers):
+    use_mega = (megakernel and decode and int4 and kv_bits == 4 and B == 1 and lora is None
+                and cache_offsets is None)
+    if use_mega:
+        if host_offset is None:  # a cache built by hand: read its fill once
+            host_offset = int(offset.reshape(-1)[0])
+        use_mega = mk.ok_for(cfg, lp, Tk, host_offset, dev)
+    if use_mega:
+        # the whole layer stack in one launch; the scale slabs and the cache
+        # are written in place at the offset
+        hidden, ck, _ = mk.decode_megakernel(
+            x[0], lp["qkv_proj"], lp["o_proj"], lp["gateup_proj"], lp["down_proj"],
+            lp["input_ln"], lp["post_attn_ln"], cos[0, 0], sin[0, 0], ck, ks_all, vs_all,
+            offset, valid, eps=eps, scale=scale, fmt=fmt)
+        x = hidden[None]
+
+    for li in range(0 if use_mega else cfg.num_layers):
         def lb(name):
             if lora_layers is None or name not in lora_layers:
                 return None
@@ -372,6 +434,9 @@ def llama_forward(
             y = i4.int4_matmul_stacked(x_in, w["w_p"], w["w_s"], li, fmt=fmt)
             return lora_add(y, lora_name, x_in) if lora_name else y
 
+        def linear(x_in, name):
+            return _linear(x_in, _layer_weight(lp[name], li), lb(name), cd)
+
         h = rms_norm(x, lp["input_ln"][li].to(cd), eps)
         if int4:
             nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -382,14 +447,12 @@ def llama_forward(
             k = lora_add(_vslice(lo, hi, nq, nkv), "k_proj", h)
             v = lora_add(_vslice(lo, hi, nq + nkv, nkv), "v_proj", h)
         else:
-            q = _linear(h, lp["q_proj"][li], lb("q_proj"), cd)
-            k = _linear(h, lp["k_proj"][li], lb("k_proj"), cd)
-            v = _linear(h, lp["v_proj"][li], lb("v_proj"), cd)
+            q, k, v = linear(h, "q_proj"), linear(h, "k_proj"), linear(h, "v_proj")
         q = apply_rope(q.reshape(B, T, -1, hd), cos, sin)
         k = apply_rope(k.reshape(B, T, -1, hd), cos, sin)
         v = v.reshape(B, T, -1, hd)
 
-        if decode and kv4:
+        if decode and kv_bits == 4:
             kvp, kq_s, vq_s = quantize_kv_rows4(k[:, 0], v[:, 0])
             # the append slot's scales go in BEFORE the kernel, which never
             # reads them (the slot is dead in its slab pass)
@@ -397,26 +460,39 @@ def llama_forward(
             attn, ck = decode_attention_quantized4_mono(
                 q[:, 0], kvp, ck, ks_all, vs_all, kq_s, vq_s, li, offset, valid, scale)
             attn = attn[:, None]
+        elif decode and kv_bits == 8:
+            kq, kq_s = quantize_kv_rows(k[:, 0])
+            vq, vq_s = quantize_kv_rows(v[:, 0])
+            _write_scales(ks_all, vs_all, kq_s, vq_s, li, offset)  # before, as above
+            attn, ck, cv = decode_attention_quantized_mono(
+                q[:, 0], kq, vq, ck, cv, ks_all, vs_all, kq_s, vq_s, li, offset, valid, scale)
+            attn = attn[:, None]
         elif decode:
             attn, ck, cv = decode_attention_mono(
                 q[:, 0], k[:, 0], v[:, 0], ck, cv, li, offset, valid, scale
             )
             attn = attn[:, None]
         else:
-            if fresh and kv4:  # in place: the fresh rows fill slots [0, T)
-                kvh, khs, vhs = quantize_kv_rows4(k.transpose(1, 2), v.transpose(1, 2))
+            kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+            if fresh and kv_bits == 4:  # in place: the fresh rows fill slots [0, T)
+                kvh, khs, vhs = quantize_kv_rows4(kh, vh)
                 ck[li, :, :, :T] = kvh
                 ks_all[li, :, :, :T] = khs
                 vs_all[li, :, :, :T] = vhs
+            elif fresh and kv_bits == 8:
+                (khq, khs), (vhq, vhs) = quantize_kv_rows(kh), quantize_kv_rows(vh)
+                ck[li, :, :, :T], cv[li, :, :, :T] = khq, vhq
+                ks_all[li, :, :, :T] = khs
+                vs_all[li, :, :, :T] = vhs
             elif fresh:
-                ck[li, :, :, :T] = k.transpose(1, 2).to(ck.dtype)
-                cv[li, :, :, :T] = v.transpose(1, 2).to(cv.dtype)
+                ck[li, :, :, :T] = kh.to(ck.dtype)
+                cv[li, :, :, :T] = vh.to(cv.dtype)
             attn = causal_mha(q, k, v, mask=attn_mask, scale=scale)
         attn = attn.reshape(B, T, -1)
         if int4:
             attn = int4_linear(attn, "o_proj", "o_proj")
         else:
-            attn = _linear(attn, lp["o_proj"][li], lb("o_proj"), cd)
+            attn = linear(attn, "o_proj")
         x = x + attn
 
         h = rms_norm(x, lp["post_attn_ln"][li].to(cd), eps)
@@ -432,11 +508,12 @@ def llama_forward(
             g, u = lora_add(g, "gate_proj", h), lora_add(u, "up_proj", h)
             d = int4_linear(F.silu(g) * u, "down_proj", "down_proj")
         else:
-            g = _linear(h, lp["gate_proj"][li], lb("gate_proj"), cd)
-            u = _linear(h, lp["up_proj"][li], lb("up_proj"), cd)
-            d = _linear(F.silu(g) * u, lp["down_proj"][li], lb("down_proj"), cd)
+            g, u = linear(h, "gate_proj"), linear(h, "up_proj")
+            d = linear(F.silu(g) * u, "down_proj")
         x = x + d
 
+    if rot is not None:  # out of the rotated basis
+        x = x @ rot.to(cd).T
     x = rms_norm(x, params["final_ln"].to(cd), eps)
     logits = unembed(params, cfg, x, cd) if unembed_logits else None
 
@@ -447,7 +524,8 @@ def llama_forward(
         else:
             new_len = offset.max() + T  # upper bound; the caller tracks rows
         new_cache = KVCache(k=ck, v=cv, length=new_len.to(torch.int32),
-                            k_scale=ks_all, v_scale=vs_all)
+                            k_scale=ks_all, v_scale=vs_all,
+                            host_length=None if host_offset is None else host_offset + T)
     if return_hidden:
         return logits, new_cache, x
     return logits, new_cache

@@ -25,7 +25,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("layer_norm.cu", "enc_attention.cu", "causal_attention.cu", "decode_attention.cu",
-           "mel_power.cu", "int4_matmul.cu", "mlp_int4.cu", "decode_attention_q4.cu")
+           "mel_power.cu", "int4_matmul.cu", "mlp_int4.cu", "decode_attention_q4.cu",
+           "decode_megakernel.cu")
 HEADERS = ("common.cuh", "attention_fwd.cuh", "int4_common.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -46,11 +47,15 @@ SIGNATURES = {
     "al_int4_matmul": [_P, _I, _I, _P, _I, _P, _I, _P, _L, _L, _P, _P, _I, _I, _I, _P],
     "al_mlp_int4": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "al_decode_attention_q4": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P, _P],
+    "al_decode_attention_q8": [_I] + [_P] * 11 + [_I] * 7 + [_F, _P, _P],
+    "al_decode_megakernel": [_P] * 24 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    "al_megakernel_blocks_per_sm": [_I, _I],
 }
 
 _lock = threading.Lock()
 _lib = None
 _counters = {}  # device -> int32 zeros shared by the split-sum kernels
+_barriers = {}  # device -> the megakernel's grid-barrier words
 
 
 def nvcc_path() -> str:
@@ -141,6 +146,18 @@ def counters(device: torch.device, n: int) -> torch.Tensor:
         if buf is None or buf.numel() < n:
             buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
             _counters[device] = buf
+    return buf
+
+
+def barrier_words(device: torch.device) -> torch.Tensor:
+    """Two int32 words on `device` for the megakernel's grid barrier: an
+    arrival count, zero between launches, and a generation that only
+    grows. Launches on one stream run in turn, so one pair serves them all."""
+    with _lock:
+        buf = _barriers.get(device)
+        if buf is None:
+            buf = torch.zeros(2, dtype=torch.int32, device=device)
+            _barriers[device] = buf
     return buf
 
 

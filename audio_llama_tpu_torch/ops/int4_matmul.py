@@ -48,6 +48,15 @@ def _fmt(fmt: Optional[str]) -> str:
     return fmt
 
 
+def absmax_scale(absmax: torch.Tensor, qmax: float) -> torch.Tensor:
+    """max(absmax, 1e-8) / qmax, the symmetric quantizers' scale, by true
+    division on every device. For a Python-scalar divisor PyTorch's CUDA
+    kernel multiplies by the reciprocal instead, one f32 ulp away from the
+    quotient that the CUDA kernels, the CPU and the JAX package compute; one
+    ulp of a scale can flip the rounding of a quantized value."""
+    return torch.clamp(absmax, min=1e-8) / absmax.new_full((), qmax)
+
+
 def pack_nibbles(lo: torch.Tensor, hi: torch.Tensor, fmt: Optional[str] = None) -> torch.Tensor:
     """int4 planes (values in [-7, 7]) -> packed int8, one byte per column pair."""
     lo32 = lo.to(torch.int32)
@@ -69,7 +78,7 @@ def quantize_pack(w: torch.Tensor, group: int = GROUP,
         raise ValueError(f"int4 pack needs even N and group|K; got {tuple(w.shape)}")
     g = w.to(torch.float32).reshape(K // group, group, N)
     absmax = g.abs().amax(dim=1)  # [K/g, N]
-    scales = torch.clamp(absmax, min=1e-8) / 7.0
+    scales = absmax_scale(absmax, 7.0)
     if clip_cands:
         cands = torch.tensor(clip_cands, dtype=torch.float32, device=w.device)
         errs = []

@@ -9,10 +9,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (one nvcc process per source, all started together);
   2. kernels: each hand-written kernel at its main-path shapes against its
      plain PyTorch version on the same inputs (stated tolerance), then on
-     inputs with a planted one-element fault, which the same check must
-     reject; timed by device time (CUPTI) beside the plain version, one
-     library call as a yardstick (never used by the port) and the least time
-     the card could take (bound);
+     inputs with planted faults, which the same check must reject (the
+     decode megakernel's and the int8-KV kernel's by FAULT_MARGIN; the
+     megakernel layer by layer, and its one-launch stack against its layers
+     launched one by one, bit for bit); timed by device time (CUPTI) beside
+     the plain version, one library call as a yardstick where one exists
+     (never used by the port) and the least time the card could take
+     (bound); the megakernel also with its grid barriers alone;
   3. bf16 main path: `inference.generate.generate` at the full published
      widths (Llama-3.2-3B decoder, Whisper-large-v3-turbo encoder, LoRA rank
      64) with seeded random weights: a 30 s log-mel clip and a 24-token
@@ -26,14 +29,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
      greedy run;
   5. CLI path: `inference.cli.generate_response` on a seeded 12 s, 44.1 kHz
      stereo WAV (mixdown, resample, padding to 30 s) at full width on the
-     int4 tree, whose tokens must equal `generate`'s on the processed audio;
-  6. card vs host: the bf16 path and the int4 path cut to 2 Whisper and 2
-     Llama layers at full width, the card (kernels, bf16) against the CPU
-     plain path (f32) on the same weights: last-position prefill logits, and
-     for the int4 path one decode step's logits too.
-With `--profile`, phases 3 and 4 add a torch.profiler breakdown (encode +
-prefill + first token, and per decode token) by device kernel group, with
-the device's busy share and launches.
+     int4 tree, B = 1, whose tokens must equal `generate`'s on the processed
+     audio; each decode step is one megakernel launch;
+  6. int4w+kv4, B = 1: one 30 s waveform, the tree rotated (QuaRot, as
+     --rotate) before it is quantized, 32 greedy tokens: 31 megakernel
+     launches and no per-layer decode kernel; then the same request with
+     the megakernel off, its decode time and its logits step by step;
+  7. int8w+kv8, B = 4: the int4 path's request on the weight-only int8 tree
+     with an int8 KV cache (--int8_decoder --kv_quant): 868 int8-KV kernel
+     launches;
+  8. card vs host: the bf16 path and the quantized paths (int4 + int4 KV,
+     rotated or not, through the megakernel; int8 + int8 KV) cut to 2
+     Whisper and 2 Llama layers at full width, the card (kernels, bf16)
+     against the CPU plain path (f32) on the same weights: last-position
+     prefill logits, and for the quantized paths one decode step's too.
+With `--profile`, phases 3, 4, 6 (megakernel off) and 7 add a torch.profiler
+breakdown (encode + prefill + first token, and per decode token) by device
+kernel group, with the device's busy share and launches; phase 6 always
+reports its megakernel breakdown.
 
 Output: progress lines, then `{"kernels": [...]}`, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -133,6 +146,12 @@ ATOL_ROW_RMS_FRAC = {
     "int4_matmul_stacked": 1e-3,
     "mlp_int4_stacked": 1e-3,
     "decode_attention_quantized4_mono": 2.5e-3,
+    "decode_attention_quantized_mono": 2.5e-3,  # the same arithmetic on both sides
+    # one layer's output from the same input (`mega_layerwise`): bf16
+    # roundings of the planes, the activation and the residual flip where
+    # the f32 sums are ordered otherwise, and a flip can move a nibble of the
+    # fresh int4 row
+    "decode_megakernel": 2e-2,
 }
 
 
@@ -157,13 +176,17 @@ def check_close(name, got, want, frac):
     return err, ratio
 
 
-def must_reject(name, fault, got, want, frac) -> float:
-    """The kernel run on a planted fault must fail the check it passed."""
+def must_reject(name, fault, got, want, frac, margin: float = 1.0) -> float:
+    """The kernel run on a planted fault must fail the check it passed, by
+    more than `margin` times its bar."""
     ratio = tol_ratio(got, want, frac)
-    if not ratio > 1:
-        raise AssertionError(f"{name}: the check passes the planted fault '{fault}' "
-                             f"(ratio {ratio:.3f}); the tolerance is too loose")
+    if not ratio > margin:
+        raise AssertionError(f"{name}: the planted fault '{fault}' lands at {ratio:.3f} of the "
+                             f"bar, not above {margin}; the tolerance is too loose")
     return ratio
+
+
+FAULT_MARGIN = 10.0  # the megakernel's and the int8-KV kernel's faults land this far out
 
 
 def tol_entry(frac) -> dict:
@@ -374,6 +397,8 @@ COUNTERS = {
     "int4_matmul_stacked": ("int4_matmul", "launches"),
     "mlp_int4_stacked": ("mlp_int4", "launches"),
     "decode_attention_quantized4_mono": ("decode_attention_mono", "launches_q4"),
+    "decode_attention_quantized_mono": ("decode_attention_mono", "launches_q8"),
+    "decode_megakernel": ("decode_megakernel", "launches"),
 }
 
 
@@ -659,6 +684,318 @@ def int4_kernel_checks(dev, gen):
     return rows
 
 
+def megakernel_case(dev, gen, fmt, L, Tk, off, cfg=None):
+    """Arguments of `decode_megakernel` at the widths of `cfg` (the full
+    model by default): seeded random int4 slabs and scales, LayerNorm scales
+    near 1, a random int4 cache and scale slabs, the embedded token, the rope
+    row at `off` and slots [0, off] valid. Every nibble is drawn from
+    [-7, 7], the range the quantizers write: a nibble drawn from [-8, 7] has
+    mean -1/2, and 28 layers of such weights grow one shared offset in every
+    column of h that buries what attention adds."""
+    from audio_llama_tpu_torch.ops.int4_matmul import pack_nibbles
+    from audio_llama_tpu_torch.ops.rope import rope_for_config, rope_tables
+
+    lc = (cfg or full_config()).llama
+    D, Fd, Hq, Hkv, hd = (lc.hidden_size, lc.intermediate_size, lc.num_heads, lc.num_kv_heads,
+                          lc.head_dim)
+
+    def nibbles(*shape):
+        return torch.randint(-7, 8, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    def rand_scales(*shape, lo=0.002, span=0.02):
+        return torch.rand(shape, generator=gen, device=dev) * span + lo
+
+    def rand_kv(*shape):  # K offset-binary in the low nibble, V signed in the high
+        return pack_nibbles(nibbles(*shape), nibbles(*shape), "obin")
+
+    slabs = [{"w_p": pack_nibbles(nibbles(L, K, N // 2), nibbles(L, K, N // 2), fmt),
+              "w_s": rand_scales(L, K // 128, N, span=0.01)}
+             for K, N in ((D, (Hq + 2 * Hkv) * hd), (Hq * hd, D), (D, 2 * Fd), (Fd, D))]
+    lns = [(1 + 0.1 * torch.randn((L, D), generator=gen, device=dev)).to(torch.bfloat16)
+           for _ in range(2)]
+    cos, sin = rope_tables(torch.tensor([[off]], device=dev), rope_for_config(lc))
+    return dict(
+        x=(torch.randn((1, D), generator=gen, device=dev) * 0.02).to(torch.bfloat16),
+        qkv=slabs[0], o=slabs[1], gu=slabs[2], dn=slabs[3], input_ln=lns[0],
+        post_attn_ln=lns[1], cos=cos[0, 0], sin=sin[0, 0],
+        cache_kv=rand_kv(L, 1, Hkv, Tk, hd), k_scales=rand_scales(L, 1, Hkv, Tk, lo=0.4, span=0.6),
+        v_scales=rand_scales(L, 1, Hkv, Tk, lo=0.4, span=0.6),
+        offset=torch.tensor(off, dtype=torch.int32, device=dev),
+        valid=(torch.arange(Tk, device=dev)[None, :] <= off).to(torch.int32),
+        eps=lc.rms_norm_eps, scale=hd ** -0.5, fmt=fmt)
+
+
+def mega_run(fn, case, **over):
+    """fn (the kernel or the plain version) on a copy of the case's cache
+    and scale slabs -> (hidden, cache, k_scales, v_scales, fresh)."""
+    kw = _cache_copy({**case, **over})
+    hidden, cache, fresh = fn(**kw)
+    return hidden, cache, kw["k_scales"], kw["v_scales"], fresh
+
+
+def _cache_copy(case):
+    return {**case, **{k: case[k].clone() for k in ("cache_kv", "k_scales", "v_scales")}}
+
+
+def layer_case(case, li, x):
+    """Layer li of a megakernel case as a one-layer case with input x (views:
+    the layer's appends land in the case's cache and scale slabs)."""
+    out = {k: {n: t[li:li + 1] for n, t in case[k].items()} for k in ("qkv", "o", "gu", "dn")}
+    out.update({k: case[k][li:li + 1]
+                for k in ("input_ln", "post_attn_ln", "cache_kv", "k_scales", "v_scales")})
+    return {**case, **out, "x": x}
+
+
+def mega_layerwise(case, **fault):
+    """The kernel launched one layer at a time on a copy of the case's cache,
+    each layer fed the kernel's previous output, beside the plain version of
+    the same layer on the same input and cache. A deep stack of random
+    weights carries one bf16 rounding flip on and grows it, so the kernel is
+    held to its plain version layer by layer, and the whole-stack launch to
+    these launches bit for bit (`megakernel_checks`). `fault` overrides
+    arguments of the kernel's launches only. -> (worst per-layer tol_ratio,
+    max abs err, the kernel's (hidden, cache, k_scales, v_scales, fresh) and
+    the plain version's, whose hidden is its last layer's output)."""
+    from audio_llama_tpu_torch.ops import decode_megakernel as mk
+
+    frac = ATOL_ROW_RMS_FRAC["decode_megakernel"]
+    want_case, got_case = _cache_copy(case), _cache_copy({**case, **fault})
+    x, worst, err, fresh = case["x"], 0.0, 0.0, ([], [])
+    for li in range(case["cache_kv"].shape[0]):
+        want, _, wf = mk.decode_megakernel_plain(**layer_case(want_case, li, x))
+        x, _, gf = mk.decode_megakernel_cuda(**layer_case(got_case, li, x))
+        worst = max(worst, tol_ratio(x, want, frac))
+        err = max(err, (x.float() - want.float()).abs().max().item())
+        fresh[0].append(gf)
+        fresh[1].append(wf)
+    return worst, err, *((h, c["cache_kv"], c["k_scales"], c["v_scales"], torch.cat(f))
+                         for h, c, f in ((x, got_case, fresh[0]), (want, want_case, fresh[1])))
+
+
+def megakernel_faults(case):
+    """The planted faults of the megakernel check (run through the kernel)
+    -> {fault: worst per-layer tol_ratio}: the fresh row not attended, slot
+    offset + 1 attended, and one layer's down residual skipped (its scales
+    zeroed)."""
+    off = int(case["offset"])
+    Tk = case["valid"].shape[1]
+    kpos = torch.arange(Tk, device=case["valid"].device)[None, :]
+    not_off = case["valid"].clone()
+    not_off[:, off] = 0
+    dn = dict(case["dn"])
+    dn["w_s"] = dn["w_s"].clone()
+    dn["w_s"][dn["w_s"].shape[0] // 2] = 0
+    planted = {
+        "fresh row not attended": dict(valid=not_off),
+        "slot offset+1 attended": dict(valid=(kpos <= off + 1).to(torch.int32)),
+        "one layer's down residual skipped": dict(dn=dn),
+    }
+    out = {}
+    for fault, kw in planted.items():
+        ratio = mega_layerwise(case, **kw)[0]
+        if not ratio > FAULT_MARGIN:
+            raise AssertionError(f"decode_megakernel: the planted fault '{fault}' lands at "
+                                 f"{ratio:.3f} of the bar, not above {FAULT_MARGIN}")
+        out[fault] = ratio
+    return out
+
+
+def megakernel_checks(dev, gen):
+    """The decode megakernel at the full model's widths against its plain
+    version (both pack formats) at the B = 1 path's last decode step (offset
+    1556 of 1568 slots): layer by layer, and the whole-stack launch against
+    its layers launched one by one, bit for bit. Then 4 layers at offset 2,
+    where one slot carries a third of the attention, on planted faults."""
+    from audio_llama_tpu_torch.ops import decode_megakernel as mk
+
+    cfg = full_config()
+    lc = cfg.llama
+    L, hd, Hkv = lc.num_layers, lc.head_dim, lc.num_kv_heads
+    prefix = cfg.audio_seq_len + 2 + PROMPT
+    Tk = _rounded_len(prefix + N_NEW)
+    frac = ATOL_ROW_RMS_FRAC["decode_megakernel"]
+    results, faults, cache_flips, scale_err = {}, {}, {}, 0.0
+    for fmt in ("pair", "obin"):
+        case = megakernel_case(dev, gen, fmt, L, Tk, prefix + N_NEW - 2)
+        ratio, err, got, want = mega_layerwise(case)
+        if ratio > 1:
+            raise AssertionError(f"decode_megakernel {fmt}: a layer is outside tolerance "
+                                 f"(ratio {ratio:.3f}); max_abs_err={err:.3e}")
+        results[fmt] = (err, ratio)
+        stack = mega_run(mk.decode_megakernel_cuda, case)
+        if not all(torch.equal(a, b) for a, b in zip(stack, got)):
+            raise AssertionError(f"decode_megakernel {fmt}: the one-launch stack differs from "
+                                 "its layers launched one by one")
+        # the appended rows: nibbles within +-1 of the plain version's on under
+        # 1% of their bytes (an ulp can flip a rounding), the rest untouched;
+        # the fresh scales within a bf16 rounding of the row's absmax
+        gc, wc = got[1].to(torch.int32), want[1].to(torch.int32)
+        d = ((gc & 0xF) - (wc & 0xF)).abs() + ((gc >> 4) - (wc >> 4)).abs()
+        flips = (d > 0).float().mean().item() * Tk  # share of the appended rows' bytes
+        if d.max() > 2 or flips >= 0.01:
+            raise AssertionError(f"decode_megakernel {fmt}: cache rows differ ({flips:.4f})")
+        cache_flips[fmt] = flips
+        for g, w in zip(got[2:], want[2:]):
+            scale_err = max(scale_err, ((g - w).abs() / w.abs()).max().item())
+        if scale_err > 2.0 ** -7:
+            raise AssertionError(f"decode_megakernel {fmt}: fresh scales differ ({scale_err})")
+        short = megakernel_case(dev, gen, fmt, 4, Tk, 2)
+        ratio = mega_layerwise(short)[0]
+        if ratio > 1:
+            raise AssertionError(f"decode_megakernel {fmt} offset 2: outside tolerance "
+                                 f"(ratio {ratio:.3f})")
+        faults.update({f"{fmt}: {k}": v for k, v in megakernel_faults(short).items()})
+        if fmt == "pair":
+            timed = case
+        del short, got, want, stack
+    case = timed
+    slab_bytes = sum(w["w_p"].numel() + 4.0 * w["w_s"].numel()
+                     for w in (case["qkv"], case["o"], case["gu"], case["dn"]))
+    n_valid = prefix + N_NEW - 1
+    nbytes = (slab_bytes + L * Hkv * n_valid * (hd + 8.0) + 2.0 * 2 * L * lc.hidden_size
+              + L * Hkv * (hd + 16.0) + 4.0 * Tk + 2.0 * 2 * lc.hidden_size)
+    flops = 2.0 * L * (lc.hidden_size * (lc.num_heads + 2 * Hkv) * hd + lc.num_heads * hd
+                       * lc.hidden_size + 3.0 * lc.hidden_size * lc.intermediate_size
+                       + 2.0 * lc.num_heads * n_valid * hd)
+    bms, bby = bound(flops, nbytes)
+
+    def run(**over):
+        return mk.decode_megakernel_cuda(**{**case, **over})
+
+    row = dict(
+        name="decode_megakernel", route="cuda",
+        source="audio_llama_tpu_torch/csrc/decode_megakernel.cu",
+        replaces="audio_llama_tpu/ops/decode_megakernel.py:84",
+        max_abs_err=max(e for e, _ in results.values()), tol=tol_entry(frac),
+        tol_ratio=max(r for _, r in results.values()), planted_fault_ratios=faults,
+        cache_byte_flip_share=cache_flips, fresh_scale_rel_err=scale_err,
+        ms=time_ms(run, iters=10), plain_ms=time_ms(lambda: mk.decode_megakernel_plain(**case),
+                                                    iters=1, warmup=1),
+        library_ms=None,  # no one PyTorch call computes a decoder step
+        barriers_only_ms=time_ms(lambda: run(barriers_only=True), iters=10),
+        grid_barriers=5 * L - 1, launches=None, bound_ms=bms, bound_by=bby,
+        shapes=f"x[1,{lc.hidden_size}] bf16, {L} layers of fused int4 slabs, cache "
+               f"[{L},1,{Hkv},{Tk},{hd}] int4 K|V, {n_valid} valid, pair and obin",
+    )
+    log(f"kernel decode_megakernel ok: {json.dumps(row)}")
+    return row
+
+
+def q8_kernel_checks(dev, gen):
+    """int8-KV decode attention at the int8 path's last decode step (B = 4,
+    cache [28, 4, 8, 1568, 128] int8 twice), scalar and [B] offsets."""
+    import torch.nn.functional as F
+
+    from audio_llama_tpu_torch.ops import decode_attention_mono as dm
+
+    lc = full_config().llama
+    L, B, Hkv, Hq, hd = lc.num_layers, len(INT4_PROMPTS), lc.num_kv_heads, lc.num_heads, \
+        lc.head_dim
+    prefix = full_config().audio_seq_len + 2 + max(INT4_PROMPTS)
+    S = _rounded_len(prefix + N_NEW)
+    off = prefix + N_NEW - 2
+    bf = torch.bfloat16
+
+    def rand_bytes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int32
+                             ).to(torch.int8)
+
+    def rand_scales(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 0.002 + 0.0002
+
+    ck, cv = rand_bytes(L, B, Hkv, S, hd), rand_bytes(L, B, Hkv, S, hd)
+    ks, vs = rand_scales(L, B, Hkv, S), rand_scales(L, B, Hkv, S)
+    q = torch.randn((B, Hq, hd), generator=gen, device=dev).to(bf)
+    kn, vn = rand_bytes(B, Hkv, hd), rand_bytes(B, Hkv, hd)
+    ksn, vsn = rand_scales(B, Hkv), rand_scales(B, Hkv)
+    kpos = torch.arange(S, device=dev)[None, :]
+    scale, li = hd ** -0.5, min(5, L - 1)
+    frac = ATOL_ROW_RMS_FRAC["decode_attention_quantized_mono"]
+
+    def attend(offsets, valid, k_new=kn, v_new=vn, k_s=ksn, v_s=vsn, fn=None):
+        fn = fn or dm.decode_attention_q8_cuda
+        return fn(q, k_new, v_new, ck.clone(), cv.clone(), ks, vs, k_s, v_s, li, offsets, valid,
+                  scale)
+
+    results = {}
+    for kind, offsets in (("scalar", torch.tensor(off, dtype=torch.int32, device=dev)),
+                          ("[B]", torch.tensor([off - 3 * b for b in range(B)],
+                                               dtype=torch.int32, device=dev))):
+        valid = (kpos <= offsets.reshape(-1, 1)).to(torch.int32).expand(B, S).contiguous()
+        got, gk, gv = attend(offsets, valid)
+        want, wk, wv = attend(offsets, valid, fn=dm.decode_attention_q8_plain)
+        results[kind] = check_close(f"decode_attention_quantized_mono {kind}", got, want, frac)
+        if not (torch.equal(gk, wk) and torch.equal(gv, wv)):
+            raise AssertionError(f"decode_attention_quantized_mono {kind}: append differs")
+    # planted faults early in a request (offset 40), where one slot of 41
+    # carries weight; the same check must reject each by FAULT_MARGIN
+    short = 40
+    offsets = torch.full((B,), short, dtype=torch.int32, device=dev)
+    valid = (kpos <= offsets[:, None]).to(torch.int32)
+    want = attend(offsets, valid, fn=dm.decode_attention_q8_plain)[0]
+    check_close("decode_attention_quantized_mono offset 40", attend(offsets, valid)[0], want,
+                frac)
+    not_off = valid.clone()
+    not_off[:, short] = 0
+    planted = {
+        "slot offset+1 attended": dict(valid=(kpos <= short + 1).to(torch.int32).expand(B, S)
+                                       .contiguous()),
+        "slot offset not attended": dict(valid=not_off),
+        "stale fresh row": dict(k_new=ck[li, :, :, short].clone(),
+                                v_new=cv[li, :, :, short].clone(),
+                                k_s=ks[li, :, :, short].clone(), v_s=vs[li, :, :, short].clone()),
+        "stale append scale": dict(k_s=ks[li, :, :, short].clone(),
+                                   v_s=vs[li, :, :, short].clone()),
+    }
+    faults = {}
+    for fault, kw in planted.items():
+        kw.setdefault("valid", valid)
+        faults[fault] = must_reject("decode_attention_quantized_mono", fault,
+                                    attend(offsets, **kw)[0], want, frac, FAULT_MARGIN)
+    offsets = torch.full((B,), off, dtype=torch.int32, device=dev)
+    valid = (kpos <= offsets[:, None]).to(torch.int32)
+    n_valid = off + 1
+    nbytes = (B * Hkv * n_valid * (2 * hd + 8.0) + 2.0 * 2 * B * Hq * hd
+              + B * Hkv * (2 * hd + 8.0) + 4.0 * B * S)
+    flops = 4.0 * B * Hq * n_valid * hd
+    bms, bby = bound(flops, nbytes)
+    # library: SDPA on K/V dequantized to bf16 ahead of time (all layers)
+    kd = (ck.to(bf) * ks[..., None].to(bf)).repeat_interleave(Hq // Hkv, dim=2)
+    vd = (cv.to(bf) * vs[..., None].to(bf)).repeat_interleave(Hq // Hkv, dim=2)
+    dmask = (valid != 0)[:, None, None, :]
+    turn = itertools.count()
+
+    def sdpa(layer):
+        return F.scaled_dot_product_attention(q[:, :, None, :], kd[layer], vd[layer],
+                                              attn_mask=dmask, scale=scale)
+
+    row = dict(
+        name="decode_attention_quantized_mono", route="cuda",
+        source="audio_llama_tpu_torch/csrc/decode_attention_q4.cu",
+        replaces="audio_llama_tpu/ops/decode_attention_mono.py:407",
+        max_abs_err=max(e for e, _ in results.values()), tol=tol_entry(frac),
+        tol_ratio=max(r for _, r in results.values()), planted_fault_ratios=faults,
+        ms=time_ms(lambda: dm.decode_attention_q8_cuda(
+            q, kn, vn, ck, cv, ks, vs, ksn, vsn, next(turn) % L, offsets, valid, scale),
+            iters=112),
+        plain_ms=time_ms(lambda: dm.decode_attention_q8_plain(
+            q, kn, vn, ck, cv, ks, vs, ksn, vsn, next(turn) % L, offsets, valid, scale),
+            iters=28),
+        library_ms=time_ms(lambda: sdpa(next(turn) % L), iters=112),
+        launches=None, bound_ms=bms, bound_by=bby,
+        shapes=f"caches[{L},{B},{Hkv},{S},{hd}] int8 K and V, q[{B},{Hq},{hd}] bf16, "
+               f"{n_valid} valid, scalar and [B] offsets",
+    )
+    log(f"kernel decode_attention_quantized_mono ok: {json.dumps(row)}")
+    return row
+
+
+def _rounded_len(n: int) -> int:
+    from audio_llama_tpu_torch.models.llama import KVCache
+
+    return KVCache.rounded_len(n)
+
+
 def synced_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -671,8 +1008,12 @@ def synced_ms(fn) -> float:
 # phase 3: the bf16 main path at full width
 # ---------------------------------------------------------------------------
 
-# the kernels of the bf16 path; the others report their int4-path launches
-BF16_PATH_KERNELS = ("layer_norm", "enc_attention", "causal_attention", "decode_attention_mono")
+# the path whose launches each kernel's row reports (the int4 path otherwise)
+KERNEL_PATH = {
+    "layer_norm": "bf16", "enc_attention": "bf16", "causal_attention": "bf16",
+    "decode_attention_mono": "bf16", "decode_megakernel": "b1",
+    "decode_attention_quantized_mono": "int8",
+}
 
 AUDIO_START, AUDIO_END, EOS = 128256, 128257, 128001  # resized vocab rows; Llama-3 <|end_of_text|>
 N_NEW, PROMPT = 32, 24
@@ -786,10 +1127,12 @@ def main_path(dev, profile: bool = False):
 # phases 4 and 5: the int4 path at full width, then the inference CLI on it
 # ---------------------------------------------------------------------------
 
-def int4_model(gen, cfg):
-    """Seeded bf16 weights with a non-zero LoRA r64 delta, merged and
-    quantized on the card to the fused int4 tree (`pair`), as the CLI's
-    --int4_decoder does -> (frozen, trainable without LoRA)."""
+def int4_model(gen, cfg, bits=4, rotate=False):
+    """Seeded bf16 weights with a non-zero LoRA r64 delta, merged, rotated
+    with `rotate` (a generator seeded 7, as the CLI's --rotate) and quantized
+    on the card to the fused int4 tree (`pair`, bits 4) or the int8 tree
+    (bits 8), as the CLI's --int4_decoder / --int8_decoder do -> (frozen,
+    trainable without LoRA)."""
     from audio_llama_tpu_torch.inference import cli
     from audio_llama_tpu_torch.models import allm, llama
 
@@ -800,7 +1143,7 @@ def int4_model(gen, cfg):
     for br in trainable["lora"]["layers"].values():  # 'ref' init has a = 0
         br["a"].data.copy_(torch.randn(br["a"].shape, generator=gen, device=br["a"].device)
                            * 0.02)
-    return cli.quantize_decoder(cfg, frozen, trainable)
+    return cli.quantize_decoder(cfg, frozen, trainable, bits=bits, rotate=rotate)
 
 
 def int4_path(dev, profile: bool = False):
@@ -912,11 +1255,13 @@ def cli_path(dev, model) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/clip.wav"
         audio_io.write_wav(path, stereo, sr)
+        zero_counters()
         t0 = time.perf_counter()
         text, tokens = cli.generate_response(cfg, frozen, trainable, tk, prompt, audio_path=path,
                                              max_new_tokens=n_new, greedy=True, kv_quant=4,
                                              device=dev, return_tokens=True)
         cli_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counters()
         wav = cli.process_audio(path, cfg.mel)
     ids, mask = tk.encode(prompt)
     want = generate(frozen, trainable, cfg, ids[None], mask[None], wav, max_new_tokens=n_new,
@@ -927,6 +1272,11 @@ def cli_path(dev, model) -> None:
     if not torch.equal(tokens, want.tokens):
         raise AssertionError(f"cli: tokens {tokens.tolist()} != generate's "
                              f"{want.tokens.tolist()}")
+    # B = 1 on the fused int4 tree with an int4 cache: every decode step is
+    # one megakernel launch, and no per-layer decode kernel runs
+    per_layer = launches["mlp_int4_stacked"] + launches["decode_attention_quantized4_mono"]
+    if launches["decode_megakernel"] != n_new - 1 or per_layer:
+        raise AssertionError(f"cli: launches {launches}")
     nonzero = float(np.abs(wav).max())
     tail = float(np.abs(wav[0, int(seconds * cfg.mel.sample_rate) + 16:]).max(initial=0.0))
     if wav.shape != (1, cfg.mel.max_samples) or nonzero == 0 or tail != 0:
@@ -934,14 +1284,206 @@ def cli_path(dev, model) -> None:
     log(json.dumps({"cli_path": {"wav": f"{seconds} s, {sr} Hz, stereo, 16-bit",
                                  "new_tokens": n_new, "tokens": tokens[0].tolist(),
                                  "text": text, "wall_ms": cli_ms,
+                                 "megakernel_launches": launches["decode_megakernel"],
                                  "tokens_equal_generate": True}}))
+
+
+def logit_trail(frozen, trainable, cfg, ids, mask, wav, tokens, megakernel, kv_quant=4):
+    """Prefill one request, then feed it `tokens` (teacher-forced) one decode
+    step at a time -> the f32 logits of every step."""
+    from audio_llama_tpu_torch.inference.generate import build_prefix
+    from audio_llama_tpu_torch.models import llama
+
+    dev = ids.device
+    embeds, m = build_prefix(frozen, trainable, cfg, ids, mask, wav, AUDIO_START, AUDIO_END,
+                             torch.bfloat16)
+    P, n = embeds.shape[1], tokens.shape[1]
+    full_mask = torch.cat([m, torch.ones((1, n), dtype=m.dtype, device=dev)], dim=1)
+    cache = llama.KVCache.zeros(cfg.llama, 1, P + n, device=dev, quantized=kv_quant)
+    _, cache = llama.llama_forward(frozen["llama"], cfg.llama, inputs_embeds=embeds,
+                                   attention_mask=full_mask, kv_cache=cache,
+                                   assume_fresh_cache=True, unembed_logits=False)
+    trail = []
+    for i in range(n - 1):
+        logits, cache = llama.llama_forward(
+            frozen["llama"], cfg.llama, input_ids=tokens[:, i:i + 1], attention_mask=full_mask,
+            positions=torch.full((1, 1), P + i, device=dev), kv_cache=cache,
+            megakernel=megakernel)
+        trail.append(logits[0, 0].float())
+    return trail
+
+
+def b1_path(dev, profile: bool = False):
+    """int4w+kv4, B = 1: one 30 s waveform, a 24-token prompt, 32 greedy
+    tokens; LoRA merged, the full-width tree rotated (QuaRot, a generator
+    seeded 7) and quantized on the card, as the CLI's --int4_decoder --rotate
+    does. Every decode step is one megakernel launch. Then the same request
+    with the megakernel off: decode time, and logits step by step."""
+    from audio_llama_tpu_torch.inference.generate import generate
+    from audio_llama_tpu_torch.models import allm
+
+    cfg = full_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    t0 = time.perf_counter()
+    frozen, trainable = int4_model(gen, cfg, rotate=True)
+    torch.cuda.synchronize()
+    log(f"b1: LoRA merged, the decoder rotated and quantized on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    wav = torch.randn((1, cfg.mel.max_samples), generator=gen, device=dev) * 0.1
+    ids = torch.randint(0, cfg.llama.vocab_size, (1, PROMPT), generator=gen, device=dev)
+    mask = torch.ones_like(ids)
+    kw = dict(eos_id=EOS, pad_id=0, audio_start_id=AUDIO_START, audio_end_id=AUDIO_END,
+              compute_dtype=torch.bfloat16, device=dev, kv_quant=4)
+
+    def run(n, greedy=True, g=None, megakernel=True):
+        return generate(frozen, trainable, cfg, ids, mask, wav, g, max_new_tokens=n,
+                        greedy=greedy, temperature=0.7, top_p=0.9, megakernel=megakernel, **kw)
+
+    run(2)
+    run(2, megakernel=False)
+    enc_ms = min(synced_ms(lambda: allm.process_audio_features(frozen, cfg, wav))
+                 for _ in range(3))
+    first_ms = min(synced_ms(lambda: run(1)) for _ in range(3))
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    result = {}
+    total_ms = synced_ms(lambda: result.setdefault("greedy", run(N_NEW)))
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    V = cfg.llama.vocab_size + 2
+    toks = result["greedy"].tokens
+    check_tokens("b1 greedy", toks, (1, N_NEW), V)
+    if not torch.equal(run(N_NEW).tokens, toks):
+        raise AssertionError("b1: greedy decoding is not deterministic")
+    L, W = cfg.llama.num_layers, cfg.whisper.num_layers
+    want = {
+        "mel_power": 1, "layer_norm": 2 * W, "enc_attention": W, "causal_attention": L,
+        "int4_matmul_stacked": 4 * L,  # prefill only
+        "decode_megakernel": N_NEW - 1,
+        "mlp_int4_stacked": 0, "decode_attention_quantized4_mono": 0,
+        "decode_attention_quantized_mono": 0, "decode_attention_mono": 0,
+    }
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"b1: {name} launched {launches[name]} times, want {n}")
+
+    # the same request with the megakernel off (the per-layer kernels)
+    first_off = min(synced_ms(lambda: run(1, megakernel=False)) for _ in range(2))
+    total_off = synced_ms(lambda: result.setdefault("off", run(N_NEW, megakernel=False)))
+    trails = [logit_trail(frozen, trainable, cfg, ids, mask, wav, toks, mega)
+              for mega in (True, False)]
+    steps = [compare_logits(f"b1 megakernel vs per-layer, step {i}", a, b)
+             for i, (a, b) in enumerate(zip(*trails))]
+    g2 = torch.Generator(device=dev)
+    g2.manual_seed(7)
+    sampled = run(N_NEW, greedy=False, g=g2).tokens
+    check_tokens("b1 sampled", sampled, (1, N_NEW), V)
+    stats = {
+        "label": "int4w+kv4, B=1",
+        "config": "Llama-3.2-3B (28 layers, vocab 128256+2, LoRA r64 merged, QuaRot-rotated, "
+                  "fused int4 tree, pair) + Whisper-large-v3-turbo encoder (32 layers), bf16 "
+                  "compute, int4 KV cache, seeded random weights",
+        "batch": 1, "prompt_tokens": PROMPT, "audio_samples": cfg.mel.max_samples,
+        "prefix_tokens": cfg.audio_seq_len + 2 + PROMPT, "new_tokens": N_NEW,
+        "encode_ms": enc_ms, "prefill_ms": first_ms - enc_ms,
+        "decode_ms_per_token": (total_ms - first_ms) / (N_NEW - 1),
+        "generate_ms": total_ms, "peak_mem_gb": peak_gb,
+        "megakernel_off": {"decode_ms_per_token": (total_off - first_off) / (N_NEW - 1),
+                           "generate_ms": total_off,
+                           "tokens_equal": bool(torch.equal(result["off"].tokens, toks))},
+        "logits_vs_per_layer": {"steps": len(steps),
+                                "max_rel_l2": max(st["rel_l2"] for st in steps),
+                                "argmax_agree": all(st["argmax_agree"] for st in steps)},
+        "greedy_tokens": toks.tolist(), "sampled_tokens": sampled.tolist(),
+        "launches": launches,
+    }
+    log(json.dumps({"b1_path": stats}))
+    path_profile(run, "int4w+kv4, B=1 (megakernel)")
+    if profile:
+        path_profile(lambda n: run(n, megakernel=False), "int4w+kv4, B=1 (per-layer)")
+    return launches
+
+
+def int8_path(dev, profile: bool = False):
+    """int8w+kv8, B = 4: four 30 s waveforms with the int4 path's prompts,
+    LoRA merged and the decoder quantized on the card to the weight-only
+    int8 tree (the CLI's --int8_decoder), an int8 KV cache (--kv_quant), 32
+    greedy tokens."""
+    from audio_llama_tpu_torch.inference.generate import generate
+    from audio_llama_tpu_torch.models import allm
+
+    cfg = full_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    t0 = time.perf_counter()
+    frozen, trainable = int4_model(gen, cfg, bits=8)
+    torch.cuda.synchronize()
+    log(f"int8: LoRA merged and the decoder quantized on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    B = len(INT4_PROMPTS)
+    wav = torch.randn((B, cfg.mel.max_samples), generator=gen, device=dev) * 0.1
+    ids = torch.randint(0, cfg.llama.vocab_size, (B, max(INT4_PROMPTS)), generator=gen,
+                        device=dev)
+    mask = torch.zeros_like(ids)
+    for b, n in enumerate(INT4_PROMPTS):
+        mask[b, :n] = 1
+    ids = ids * mask
+    kw = dict(eos_id=EOS, pad_id=0, audio_start_id=AUDIO_START, audio_end_id=AUDIO_END,
+              compute_dtype=torch.bfloat16, device=dev, kv_quant=True)
+
+    def run(n, greedy=True, g=None):
+        return generate(frozen, trainable, cfg, ids, mask, wav, g, max_new_tokens=n,
+                        greedy=greedy, temperature=0.7, top_p=0.9, **kw)
+
+    run(2)
+    enc_ms = min(synced_ms(lambda: allm.process_audio_features(frozen, cfg, wav))
+                 for _ in range(3))
+    first_ms = min(synced_ms(lambda: run(1)) for _ in range(3))
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    result = {}
+    total_ms = synced_ms(lambda: result.setdefault("greedy", run(N_NEW)))
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = result["greedy"].tokens
+    check_tokens("int8 greedy", toks, (B, N_NEW), cfg.llama.vocab_size + 2)
+    if not torch.equal(run(N_NEW).tokens, toks):
+        raise AssertionError("int8: greedy decoding is not deterministic")
+    L, W = cfg.llama.num_layers, cfg.whisper.num_layers
+    want = {
+        "mel_power": 1, "layer_norm": 2 * W, "enc_attention": W, "causal_attention": L,
+        "decode_attention_quantized_mono": L * (N_NEW - 1),
+        "int4_matmul_stacked": 0, "mlp_int4_stacked": 0, "decode_megakernel": 0,
+        "decode_attention_quantized4_mono": 0, "decode_attention_mono": 0,
+    }
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"int8: {name} launched {launches[name]} times, want {n}")
+    stats = {
+        "label": "int8w+kv8, B=4",
+        "config": "Llama-3.2-3B (28 layers, vocab 128256+2, LoRA r64 merged, weight-only int8 "
+                  "tree) + Whisper-large-v3-turbo encoder (32 layers), bf16 compute, int8 KV "
+                  "cache, seeded random weights",
+        "batch": B, "prompt_tokens": list(INT4_PROMPTS), "new_tokens": N_NEW,
+        "encode_ms": enc_ms, "prefill_ms": first_ms - enc_ms,
+        "decode_ms_per_token": (total_ms - first_ms) / (N_NEW - 1),
+        "generate_ms": total_ms, "peak_mem_gb": peak_gb,
+        "greedy_tokens": toks.tolist(), "launches": launches,
+    }
+    log(json.dumps({"int8_path": stats}))
+    if profile:
+        path_profile(run, "int8w+kv8, B=4")
+    return launches
 
 
 KERNEL_GROUPS = (  # substring of the device kernel's name -> group, first match wins
     ("mel_power_kernel", "mel_power kernel"),
     ("w4_decode_kernel", "int4_matmul kernel"), ("w4_prefill_kernel", "int4_matmul kernel"),
     ("mlp4_kernel", "mlp_int4 kernel"),
-    ("decode4_kernel", "decode_attention_q4 kernel"),
+    ("megakernel", "decode_megakernel"),
+    ("decode_quant_kernel<__nv_bfloat16, 3, true>", "decode_attention_q8 kernel"),
+    ("decode_quant_kernel", "decode_attention_q4 kernel"),
     ("attn_fwd_kernel<64, false>", "enc_attention kernel"),
     ("attn_fwd_kernel<128, true>", "causal_attention kernel"),
     ("decode_kernel", "decode_attention kernel"),
@@ -1034,11 +1576,12 @@ def host_check(dev):
     log(json.dumps({"host_check": stats}))
 
 
-def host_check_int4(dev):
-    """The int4 path at 2 + 2 layers: waveform in, LoRA merged and the
-    decoder quantized once on the host, the same int4 tree on both sides;
-    the last position's prefill logits, then one decode step's on the int4
-    KV cache (the host's next token fed to both)."""
+def host_check_quant(dev, label, bits=4, rotate=False, kv_quant=4, seed=4, want=None):
+    """A quantized path at 2 + 2 layers: waveform in, LoRA merged, the
+    decoder rotated (with `rotate`) and quantized once on the host, the same
+    tree on both sides; the last position's prefill logits, then one decode
+    step's on the quantized KV cache (the host's next token fed to both).
+    `want`: {kernel: launches} of the card's decode step."""
     import copy
 
     from audio_llama_tpu_torch.device import make_generator
@@ -1048,15 +1591,15 @@ def host_check_int4(dev):
 
     cfg = cut_config()
     t0 = time.perf_counter()
-    gen = make_generator(4, "cpu")
+    gen = make_generator(seed, "cpu")
     frozen = allm.init_frozen(cfg, gen, torch.bfloat16)
     frozen["llama"] = llama.resize_embeddings(frozen["llama"], cfg.llama.vocab_size + 2,
                                               cfg.llama)
     trainable = allm.init_trainable(cfg, gen, torch.bfloat16)
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(seed)
     for br in trainable["lora"]["layers"].values():  # a non-zero LoRA delta
         br["a"].data.copy_(torch.from_numpy(rng.normal(size=br["a"].shape) * 0.02))
-    frozen, trainable = cli.quantize_decoder(cfg, frozen, trainable)
+    frozen, trainable = cli.quantize_decoder(cfg, frozen, trainable, bits=bits, rotate=rotate)
     wav = torch.from_numpy((rng.normal(size=(1, cfg.mel.max_samples)) * 0.1).astype(np.float32))
     ids = torch.from_numpy(rng.integers(0, cfg.llama.vocab_size, (1, PROMPT)))
     mask = torch.ones_like(ids, dtype=torch.int32)
@@ -1066,13 +1609,14 @@ def host_check_int4(dev):
                                  AUDIO_END, cd)
         P = embeds.shape[1]
         full_mask = torch.cat([m, torch.ones((1, 1), dtype=m.dtype, device=d)], dim=1)
-        cache = llama.KVCache.zeros(cfg.llama, 1, P + 1, dtype=cd, device=d, quantized=4)
+        cache = llama.KVCache.zeros(cfg.llama, 1, P + 1, dtype=cd, device=d, quantized=kv_quant)
         _, cache, hidden = llama.llama_forward(
             fz["llama"], cfg.llama, inputs_embeds=embeds, attention_mask=full_mask,
             kv_cache=cache, compute_dtype=cd, assume_fresh_cache=True, return_hidden=True,
             unembed_logits=False)
         first = llama.unembed(fz["llama"], cfg.llama, hidden[:, -1:], cd)[0, 0].float().cpu()
         tok = first.argmax() if token is None else token
+        zero_counters()
         step, _ = llama.llama_forward(
             fz["llama"], cfg.llama, input_ids=tok.reshape(1, 1).to(d), attention_mask=full_mask,
             positions=torch.full((1, 1), P, device=d), kv_cache=cache, compute_dtype=cd)
@@ -1083,12 +1627,17 @@ def host_check_int4(dev):
     card_first, card_step, _ = logits(copy.deepcopy(frozen).to(dev),
                                       copy.deepcopy(trainable).to(dev), torch.bfloat16, dev,
                                       token=tok)
-    stats = {"path": "int4w+kv4, waveform input", "layers": "2 whisper + 2 llama, full width",
-             "prefill": compare_logits("int4 host check, prefill", card_first, host_first),
-             "decode_step": compare_logits("int4 host check, decode step", card_step,
-                                           host_step),
+    launches = read_counters()
+    for name, n in (want or {}).items():
+        if launches[name] != n:
+            raise AssertionError(f"{label}: the card's decode step launched {name} "
+                                 f"{launches[name]} times, want {n}")
+    stats = {"path": label, "layers": "2 whisper + 2 llama, full width",
+             "prefill": compare_logits(f"{label}, prefill", card_first, host_first),
+             "decode_step": compare_logits(f"{label}, decode step", card_step, host_step),
+             "decode_step_launches": {k: launches[k] for k in (want or {})},
              "tol_rel_l2": HOST_TOL, "seconds": time.perf_counter() - t0}
-    log(json.dumps({"host_check_int4": stats}))
+    log(json.dumps({"host_check_quant": stats}))
 
 
 # bf16 activations through 2 + 2 layers against an f32 host path: each bf16
@@ -1099,7 +1648,8 @@ HOST_TOL = 2e-2
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add torch.profiler breakdowns of the bf16 and int4 paths")
+                    help="add torch.profiler breakdowns of the bf16, int4, B = 1 per-layer "
+                         "and int8 paths")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1122,18 +1672,29 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     rows = kernel_checks(dev, gen)
     rows += int4_kernel_checks(dev, gen)
+    rows.append(megakernel_checks(dev, gen))
+    rows.append(q8_kernel_checks(dev, gen))
     torch.cuda.empty_cache()
-    bf16_launches = main_path(dev, profile=args.profile)
+    paths = {"bf16": main_path(dev, profile=args.profile)}
     torch.cuda.empty_cache()
-    int4_launches, model = int4_path(dev, profile=args.profile)
+    paths["int4"], model = int4_path(dev, profile=args.profile)
     cli_path(dev, model)
     del model
     torch.cuda.empty_cache()
+    paths["b1"] = b1_path(dev, profile=args.profile)
+    torch.cuda.empty_cache()
+    paths["int8"] = int8_path(dev, profile=args.profile)
+    torch.cuda.empty_cache()
     for row in rows:  # each kernel's count on the path that exercises it
-        path = bf16_launches if row["name"] in BF16_PATH_KERNELS else int4_launches
-        row["launches"] = path[row["name"]]
+        row["launches"] = paths[KERNEL_PATH.get(row["name"], "int4")][row["name"]]
     host_check(dev)
-    host_check_int4(dev)
+    L = cut_config().llama.num_layers
+    host_check_quant(dev, "int4w+kv4, B=1 (megakernel)", seed=4,
+                     want={"decode_megakernel": 1, "mlp_int4_stacked": 0})
+    host_check_quant(dev, "int4w+kv4 rotated, B=1 (megakernel)", rotate=True, seed=5,
+                     want={"decode_megakernel": 1, "mlp_int4_stacked": 0})
+    host_check_quant(dev, "int8w+kv8, B=1", bits=8, kv_quant=True, seed=6,
+                     want={"decode_attention_quantized_mono": L})
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

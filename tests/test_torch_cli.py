@@ -5,6 +5,8 @@ JAX's `audio_io` (the same numpy and scipy calls). Tokenizers: identical ids
 and text. The CLI runs end to end on the host (`--platform cpu`) with the
 toy model and the int4 KV cache, and `--int4_decoder` on the toy model
 refuses the same way as JAX's (hidden 64 is not a multiple of group 128).
+`--kv_quant` (int8 rows), `--int8_decoder` and `--rotate` run; the flags of
+parts not ported yet name their ROADMAP queue.
 """
 
 from pathlib import Path
@@ -107,6 +109,41 @@ def test_cli_main_runs_on_the_host(tmp_path, capsys):
     assert text2 == text and tokens.shape == (1, 4)
 
 
+@pytest.mark.parametrize("flags", [
+    ["--kv_quant"],
+    ["--int8_decoder", "--kv_quant"],
+    ["--int8_decoder", "--rotate", "--kv_quant", "--kv_bits", "4"],
+])
+def test_cli_quantized_configs_match_generate(tmp_path, monkeypatch, flags):
+    """The CLI's int8-KV, int8-weight and rotated configurations: its greedy
+    tokens equal `generate_response`'s on the tree built the same way."""
+    wav = tmp_path / "a.wav"
+    audio_io.write_wav(str(wav), _stereo(1.0, 22050), 22050)
+    seen = []
+    real = cli.generate_response
+
+    def recorded(*a, **k):
+        text, tokens = real(*a, **{**k, "return_tokens": True})
+        seen.append(tokens)
+        return text
+
+    monkeypatch.setattr(cli, "generate_response", recorded)
+    text = cli.main(["--platform", "cpu", "--toy_model", "--tokenizer", "byte", "--audio",
+                     str(wav), "--prompt", "Transcribe:", "--greedy", "--max_new_tokens", "4"]
+                    + flags)
+    cfg, frozen, trainable, tk = cli.load_audio_llm(None, toy_model=True, device="cpu")
+    if "--int8_decoder" in flags:
+        frozen, trainable = cli.quantize_decoder(cfg, frozen, trainable, bits=8,
+                                                 rotate="--rotate" in flags)
+        assert "rot" in frozen["llama"] or "--rotate" not in flags
+    text2, tokens = real(cfg, frozen, trainable, tk, "Transcribe:", audio_path=str(wav),
+                         max_new_tokens=4, greedy=True,
+                         kv_quant=4 if "4" in flags else True, device="cpu",
+                         return_tokens=True)
+    assert text2 == text
+    np.testing.assert_array_equal(seen[0].numpy(), tokens.numpy())
+
+
 def test_cli_refusals_match_jax_or_name_the_queue():
     with pytest.raises(ValueError, match="int4 pack needs even N and group"):
         cli.main(["--platform", "cpu", "--toy_model", "--prompt", "x", "--int4_decoder",
@@ -114,8 +151,12 @@ def test_cli_refusals_match_jax_or_name_the_queue():
     with pytest.raises(ValueError, match="int4 pack needs even N and group"):
         j_cli.main(["--platform", "cpu", "--toy_model", "--prompt", "x", "--int4_decoder",
                     "--max_new_tokens", "1"])
-    for flags in (["--int8_decoder"], ["--rotate"], ["--draft_llama_path", "toy"],
-                  ["--kv_quant"], ["--checkpoint_path", "ckpt"], ["--llama_path", "x"]):
+    for flags in (["--int8_decoder"], ["--rotate"], ["--kv_quant"]):  # ported: they run
+        text = cli.main(["--platform", "cpu", "--toy_model", "--prompt", "x", "--greedy",
+                         "--max_new_tokens", "2"] + flags)
+        assert isinstance(text, str)
+    for flags in (["--draft_llama_path", "toy"], ["--checkpoint_path", "ckpt"],
+                  ["--llama_path", "x"]):
         with pytest.raises(NotImplementedError, match="ROADMAP queue"):
             cli.main(["--platform", "cpu", "--prompt", "x"]
                      + (["--toy_model"] if "--llama_path" not in flags else []) + flags)

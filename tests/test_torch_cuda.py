@@ -368,3 +368,150 @@ def test_tiny_int4_generate_on_the_card_matches_the_host(dev):
     L = lc.num_layers
     assert np.subtract(after, counts).tolist() == [1, 4 * L + 2 * L * 3, L * 3, L * 3]
     assert torch.equal(got.tokens[:, 0].cpu(), want.tokens[:, 0])
+
+
+def _q8_case(dev, dtype, per_row, S=1568):
+    L, B, Hkv, hd, Hq = 3, 2, 8, 128, 24
+    ck, cv = _bytes(dev, L, B, Hkv, S, hd), _bytes(dev, L, B, Hkv, S, hd, seed=7)
+    ks, vs = _scales(dev, L, B, Hkv, S, seed=1) * 0.1, _scales(dev, L, B, Hkv, S, seed=2) * 0.1
+    q = _randn(dev, B, Hq, hd, dtype=dtype, seed=3)
+    kn, vn = _bytes(dev, B, Hkv, hd, seed=4), _bytes(dev, B, Hkv, hd, seed=8)
+    ksn, vsn = _scales(dev, B, Hkv, seed=5) * 0.1, _scales(dev, B, Hkv, seed=6) * 0.1
+    off = torch.tensor([1200, 37] if per_row else [900], dtype=torch.int32, device=dev)
+    valid = (torch.arange(S, device=dev)[None, :] <= off.reshape(-1, 1)).to(torch.int32)
+    valid = valid.expand(B, S).contiguous()
+    valid[0, 10:20] = 0
+    return q, kn, vn, ck, cv, ks, vs, ksn, vsn, off, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_decode_attention_q8_kernel(dev, dtype, per_row):
+    q, kn, vn, ck, cv, ks, vs, ksn, vsn, off, valid = _q8_case(dev, dtype, per_row)
+    ck2, cv2 = ck.clone(), cv.clone()
+    before = dm.launches_q8
+    got, gk, gv = dm.decode_attention_quantized_mono(q, kn, vn, ck, cv, ks, vs, ksn, vsn, 2, off,
+                                                     valid, 128 ** -0.5)
+    want, wk, wv = dm.decode_attention_q8_plain(q, kn, vn, ck2, cv2, ks, vs, ksn, vsn, 2, off,
+                                                valid, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert dm.launches_q8 == before + 1
+    assert gk.data_ptr() == ck.data_ptr() and gv.data_ptr() == cv.data_ptr()  # in place
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    _close(got, want, dtype, "decode_attention_quantized_mono")
+
+
+@pytest.mark.parametrize("fault", ["slot offset+1 attended", "slot offset not attended",
+                                   "stale fresh row", "stale append scale"])
+def test_decode_attention_q8_check_rejects_a_one_slot_fault(dev, fault):
+    q, kn, vn, ck, cv, ks, vs, ksn, vsn, off, valid = _q8_case(dev, torch.bfloat16, False)
+    off = torch.tensor([40], dtype=torch.int32, device=dev)
+    kpos = torch.arange(ck.shape[3], device=dev)[None, :]
+    valid = (kpos <= off).to(torch.int32).expand(2, -1).contiguous()
+    want = dm.decode_attention_q8_plain(q, kn, vn, ck.clone(), cv.clone(), ks, vs, ksn, vsn, 0,
+                                        off, valid, 128 ** -0.5)[0]
+    if fault == "slot offset+1 attended":
+        valid = (kpos <= 41).to(torch.int32).expand(2, -1).contiguous()
+    elif fault == "slot offset not attended":
+        valid = valid.clone()
+        valid[:, 40] = 0
+    elif fault == "stale fresh row":
+        kn, vn = ck[0, :, :, 40].clone(), cv[0, :, :, 40].clone()
+        ksn, vsn = ks[0, :, :, 40].clone(), vs[0, :, :, 40].clone()
+    else:
+        ksn, vsn = ks[0, :, :, 40].clone(), vs[0, :, :, 40].clone()
+    wrong = dm.decode_attention_q8_cuda(q, kn, vn, ck.clone(), cv.clone(), ks, vs, ksn, vsn, 0,
+                                        off, valid, 128 ** -0.5)[0]
+    assert _ratio(wrong, want, "decode_attention_quantized_mono") > 1
+
+
+class _Widths:
+    """A stand-in for AudioLLMConfig carrying only `llama` (megakernel_case)."""
+
+    def __init__(self, **dims):
+        from audio_llama_tpu_torch.config import LlamaConfig
+
+        self.llama = LlamaConfig(**dims)
+
+
+# the full model's widths at 2 layers, and the JAX megakernel test's geometry
+MK_WIDTHS = {
+    "3b": dict(hidden_size=3072, intermediate_size=8192, num_heads=24, num_kv_heads=8),
+    "tiny": dict(hidden_size=256, intermediate_size=256, num_heads=2, num_kv_heads=1,
+                 rope_scaling=None),
+}
+
+
+@pytest.mark.parametrize("widths", ["3b", "tiny"])
+@pytest.mark.parametrize("fmt", ["pair", "obin"])
+def test_megakernel_kernel(dev, widths, fmt):
+    """Each layer within the bar of the plain version on the same input, and
+    the one-launch stack equal to its layers launched one by one."""
+    from chip_smoke import mega_layerwise, mega_run, megakernel_case
+    from audio_llama_tpu_torch.ops import decode_megakernel as mk
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cfg = _Widths(num_layers=2, head_dim=128, **MK_WIDTHS[widths])
+    case = megakernel_case(dev, gen, fmt, 2, 256, 200, cfg=cfg)
+    before = mk.launches
+    stack = mega_run(mk.decode_megakernel, case)
+    torch.cuda.synchronize()
+    assert mk.launches == before + 1
+    ratio, _, got, want = mega_layerwise(case)
+    assert ratio <= 1
+    for a, b in zip(stack, got):
+        assert torch.equal(a, b)
+    gc, wc = got[1].to(torch.int32), want[1].to(torch.int32)
+    d = ((gc & 0xF) - (wc & 0xF)).abs() + ((gc >> 4) - (wc >> 4)).abs()
+    assert d.max() <= 2 and (d > 0).float().mean().item() * 256 < 0.01
+    for g, w in zip(got[2:], want[2:]):  # the scale slabs, then the fresh scales
+        torch.testing.assert_close(g, w, rtol=2.0 ** -7, atol=0)
+    # barriers only: the same launch shape runs and is not counted
+    before = mk.launches
+    mk.decode_megakernel_cuda(**case, barriers_only=True)
+    torch.cuda.synchronize()
+    assert mk.launches == before
+
+
+@pytest.mark.parametrize("fmt", ["pair", "obin"])
+def test_megakernel_check_rejects_planted_faults(dev, fmt):
+    from chip_smoke import FAULT_MARGIN, mega_layerwise, megakernel_case, megakernel_faults
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cfg = _Widths(num_layers=4, head_dim=128, **MK_WIDTHS["3b"])
+    case = megakernel_case(dev, gen, fmt, 4, 256, 2, cfg=cfg)
+    assert mega_layerwise(case)[0] <= 1
+    assert min(megakernel_faults(case).values()) > FAULT_MARGIN
+
+
+def test_megakernel_gate_on_the_card(dev):
+    """ok_for asks the occupancy API on the card; a refused geometry (a full
+    cache) keeps the per-layer path."""
+    from audio_llama_tpu_torch.config import LlamaConfig
+    from audio_llama_tpu_torch.ops import decode_megakernel as mk
+
+    lc = LlamaConfig(num_layers=2)
+    slabs = {n: {"w_p": torch.empty((2, K, N // 2), dtype=torch.int8, device=dev),
+                 "w_s": torch.empty((2, K // 128, N), device=dev)}
+             for n, K, N in (("qkv_proj", 3072, 5120), ("o_proj", 3072, 3072),
+                             ("gateup_proj", 3072, 16384), ("down_proj", 8192, 3072))}
+    assert mk.ok_for(lc, slabs, 1568, 1556, dev)
+    assert not mk.ok_for(lc, slabs, 1568, 1568, dev)
+
+
+def test_quantizers_divide_as_the_host_does(dev):
+    """The symmetric quantizers on the card give the host's bytes and scales:
+    their scale is a true quotient (a Python-scalar divisor would make the
+    card multiply by its reciprocal, an ulp off, and flip roundings)."""
+    from audio_llama_tpu_torch.models import llama, llama_int8
+
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn((4, 8, 64, 128), generator=gen)
+    y = torch.randn((4, 8, 64, 128), generator=gen)
+    for fn, args in ((llama.quantize_kv_rows4, (x, y)), (llama.quantize_kv_rows, (x,)),
+                     (llama_int8._quantize_rows, (x[0, 0],)),
+                     (lambda w: tuple(i4.quantize_pack(w)), (x[0, 0].T.contiguous(),))):
+        host = fn(*args)
+        card = fn(*(a.to(dev) for a in args))
+        for h, c in zip(host, card):
+            assert torch.equal(h, c.cpu()), fn

@@ -9,8 +9,8 @@
   ignore: the slot is dead in the slab pass).
 - The slice: the port's greedy `generate` equals JAX `generate` token for
   token at f32, on waveform audio, a fused int4 tree bridged from JAX (both
-  pack formats) and kv_quant=4, B = 2 with a right-padded row, with and
-  without audio.
+  pack formats) with an int4 KV cache (kv_quant=4) and with an int8 one
+  (kv_quant=True), B = 2 with a right-padded row, with and without audio.
 """
 
 import dataclasses
@@ -54,8 +54,13 @@ def test_quantize_kv_rows4_bit_identical():
     cache = llama.KVCache.zeros(LlamaConfig.tiny(), 2, 40, quantized=4)
     assert cache.v is None and cache.kv_bits == 4 and cache.k.dtype == torch.int8
     assert cache.k_scale.shape == (2, 2, 2, 64)
-    with pytest.raises(NotImplementedError, match="_kernel_mono_q8"):
-        llama.KVCache.zeros(LlamaConfig.tiny(), 2, 40, quantized=True)
+    for q8 in (True, 8):  # int8 rows: separate K and V slabs, as JAX's zeros
+        cache = llama.KVCache.zeros(LlamaConfig.tiny(), 2, 40, quantized=q8)
+        want = j_llama.KVCache.zeros(JLlamaCfg.tiny(), 2, 40, quantized=q8)
+        assert cache.kv_bits == want.kv_bits == 8
+        for g, w in zip((cache.k, cache.v, cache.k_scale, cache.v_scale),
+                        (want.k, want.v, want.k_scale, want.v_scale)):
+            assert tuple(g.shape) == w.shape and str(g.dtype).endswith(str(w.dtype))
 
 
 def _decode_case(seed, per_row, fresh_valid=True, poison=False):
@@ -146,5 +151,11 @@ def test_int4_slice_greedy_tokens_match_jax(slice_model, with_audio):
                          device="cpu", **kw)
     np.testing.assert_array_equal(got.tokens.numpy(), _np(want.tokens))
     np.testing.assert_array_equal(got.num_generated.numpy(), _np(want.num_generated))
-    with pytest.raises(NotImplementedError, match="_kernel_mono_q8"):
-        t_gen.generate(tf, tt, cfg, ids, mask, None, device="cpu", **{**kw, "kv_quant": True})
+    # int8 KV rows on the same tree (the int8-KV kernel's plain version)
+    kw["kv_quant"] = True
+    want = j_gen.generate(jf, jt, jcfg, jnp.asarray(ids), jnp.asarray(mask),
+                          None if audio is None else jnp.asarray(audio), jax.random.PRNGKey(0),
+                          compute_dtype=jnp.float32, **kw)
+    got = t_gen.generate(tf, tt, cfg, ids, mask, audio, compute_dtype=torch.float32,
+                         device="cpu", **kw)
+    np.testing.assert_array_equal(got.tokens.numpy(), _np(want.tokens))
