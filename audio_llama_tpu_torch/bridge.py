@@ -6,7 +6,8 @@ The JAX package keeps its parameters as nested dicts of arrays with stacked
 same tree, leaf for leaf, as a `ParamTree`: an `nn.Module` whose children are
 the sub-dicts and whose parameters are the leaves, under the same names. So
 `from_jax` copies each leaf as it is, and `frozen["llama"]["layers"]["q_proj"]`
-means the same tensor in both packages.
+means the same tensor in both packages. `to_numpy` is the way back: a nested
+dict of numpy arrays, as the JAX package's checkpoints and tests hold them.
 """
 
 from __future__ import annotations
@@ -21,20 +22,22 @@ from .device import DeviceLike, resolve_device
 
 
 class ParamTree(nn.Module):
-    """A nested parameter dict as an `nn.Module`. Leaves are frozen
-    `nn.Parameter`s (this slice runs inference only); sub-dicts are child
-    `ParamTree`s. Indexing by name mirrors the JAX pytree."""
+    """A nested parameter dict as an `nn.Module`. Leaves are `nn.Parameter`s,
+    frozen unless `requires_grad` (the trainable tree: projector + LoRA);
+    sub-dicts are child `ParamTree`s with the same flag. Indexing by name
+    mirrors the JAX pytree."""
 
-    def __init__(self, tree: Mapping[str, Any]):
+    def __init__(self, tree: Mapping[str, Any], requires_grad: bool = False):
         super().__init__()
         self._names = []
+        self._requires_grad = requires_grad
         for name, val in tree.items():
             if isinstance(val, ParamTree):
                 self.add_module(name, val)
             elif isinstance(val, Mapping):
-                self.add_module(name, ParamTree(val))
+                self.add_module(name, ParamTree(val, requires_grad))
             elif isinstance(val, torch.Tensor):
-                self.register_parameter(name, nn.Parameter(val, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(val, requires_grad=requires_grad))
             else:
                 raise TypeError(f"ParamTree leaf {name!r}: {type(val).__name__}")
             self._names.append(name)
@@ -46,7 +49,7 @@ class ParamTree(nn.Module):
 
     def __setitem__(self, name: str, val) -> None:
         if isinstance(val, Mapping):
-            val = ParamTree(val)
+            val = ParamTree(val, self._requires_grad)
         if isinstance(val, ParamTree):
             if name in self._parameters:
                 del self._parameters[name]
@@ -54,7 +57,7 @@ class ParamTree(nn.Module):
         else:
             if name in self._modules:
                 del self._modules[name]
-            self.register_parameter(name, nn.Parameter(val, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(val, requires_grad=self._requires_grad))
         if name not in self._names:
             self._names.append(name)
 
@@ -110,3 +113,18 @@ def from_jax(
         return to_tensor(node, dev, dtype)
 
     return ParamTree(conv(tree))
+
+
+def to_numpy(tree) -> dict:
+    """A ParamTree (or nested dict of tensors) -> nested dict of numpy
+    arrays on the host, copies that share no memory with the tensors.
+    bfloat16 leaves become `ml_dtypes.bfloat16` arrays with the same bits
+    (as JAX hands them out), which needs ml_dtypes."""
+    if isinstance(tree, (ParamTree, Mapping)):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()

@@ -13,12 +13,16 @@ run on the device (the card unless `--platform cpu`). `--int4_decoder` and
 the fused int4 tree or the weight-only int8 tree. `--kv_quant` keeps an int8
 KV cache, or int4 with `--kv_bits 4`.
 
-Not ported yet, and refused with NotImplementedError: `--checkpoint_path`
-(waits for training/checkpoint.py, ROADMAP queue 1 training),
-`--llama_path` / `--whisper_path` (wait for models/hf_loader.py and
-checkpoints on disk), `--draft_llama_path` (queue 1 serving: speculative
-decoding) and a `--decode_impl` other than `auto` (queue 2's A/B decode
-kernels).
+`--checkpoint_path` loads a trainer's checkpoint (either package's): the
+model config from its `config.json`, the toy or synthetic frozen tree
+rebuilt from the seed the trainer recorded (on the same kind of device the
+trainer ran on: CPU and CUDA generators draw different numbers), and the
+trained projector + LoRA.
+
+Not ported yet, and refused with NotImplementedError: `--llama_path` /
+`--whisper_path` (wait for models/hf_loader.py and checkpoints on disk),
+`--draft_llama_path` (queue 1 serving: speculative decoding) and a
+`--decode_impl` other than `auto` (queue 2's A/B decode kernels).
 """
 
 from __future__ import annotations
@@ -36,27 +40,38 @@ logger = logging.getLogger("audio_llama_tpu_torch")
 def load_audio_llm(checkpoint_path: Optional[str], llama_path: Optional[str] = None,
                    whisper_path: Optional[str] = None, tokenizer: Optional[str] = None,
                    toy_model: bool = False, seed: int = 0, device=None):
-    """-> (cfg, frozen, trainable, tokenizer). Only the toy model (random
-    `AudioLLMConfig.tiny()` weights from `seed`, bf16 frozen and f32
-    trainables) loads today."""
+    """-> (cfg, frozen, trainable, tokenizer): bf16 frozen and f32
+    trainables. Without a checkpoint, the toy model (`AudioLLMConfig.tiny()`
+    weights drawn from `seed`); with one, its config, the frozen tree of its
+    toy or synthetic run rebuilt from the run's seed, and its trainables."""
     from ..config import AudioLLMConfig
     from ..data.tokenizer import load_tokenizer
     from ..device import make_generator
     from ..models import allm
+    from ..training import checkpoint as ckpt
+    from ..training.train import build_frozen
 
-    if checkpoint_path:
-        raise NotImplementedError(
-            "--checkpoint_path: training/checkpoint.py is not ported yet (ROADMAP queue 1, "
-            "training)")
-    if not toy_model:
+    meta = ckpt.load_metadata(checkpoint_path) if checkpoint_path else {}
+    meta_args = meta.get("args", {})
+    cfg = AudioLLMConfig.from_dict(meta["model_config"]) if meta.get("model_config") else None
+    seeded_run = meta_args.get("toy_model") or meta_args.get("synthetic_flagship")
+    small = cfg is not None and llama_path is None and cfg.llama.num_layers <= 4
+    if not (toy_model or seeded_run or small):
         raise NotImplementedError(
             "--llama_path / --whisper_path: models/hf_loader.py is not ported yet and needs "
-            "the checkpoints on disk (ROADMAP queue 1); use --toy_model")
-    del llama_path, whisper_path
+            "the checkpoints on disk (ROADMAP queue 1); use --toy_model or a checkpoint of a "
+            "--toy_model / --synthetic_flagship run")
+    if meta_args.get("toy_outliers"):
+        raise NotImplementedError("the checkpoint's frozen tree has injected outliers: "
+                                  "models/outliers.py is not ported yet")
+    del whisper_path
     tk = load_tokenizer(tokenizer or "byte")
-    cfg = AudioLLMConfig.tiny()
-    frozen = allm.init_frozen(cfg, make_generator(seed, device), torch.bfloat16)
+    cfg = cfg or AudioLLMConfig.tiny()
+    frozen = build_frozen(cfg, meta_args.get("seed", seed), device)
     trainable = allm.init_trainable(cfg, make_generator(seed + 1, device), torch.float32)
+    if checkpoint_path:
+        trainable, _, step, _ = ckpt.load_checkpoint(checkpoint_path, trainable_template=trainable)
+        logger.info("loaded checkpoint %s (step %d)", checkpoint_path, step)
     return cfg, frozen, trainable, tk
 
 

@@ -1,7 +1,7 @@
 """AudioLLM: frozen Whisper encoder + projector + frozen Llama with LoRA.
 
-Counterpart of `audio_llama_tpu/models/allm.py` (the parts generation
-uses). Two parameter trees, as in the JAX package:
+Counterpart of `audio_llama_tpu/models/allm.py`. Two parameter trees, as in
+the JAX package:
 
     frozen    = {"llama": ..., "whisper": ...}
     trainable = {"projector": ..., "lora": ...}
@@ -12,12 +12,16 @@ splice (<audio> ++ audio ++ </audio> ++ text) -> llama_forward.
 `process_audio_features` takes a waveform [B, S] (log-mel through the mel
 kernel, `ops/mel_power.py`; audio longer than one 30 s window as N windows
 folded into the batch) or precomputed log-mel ([B, n_mels, F] or
-[B, 1, n_mels, F]).
+[B, 1, n_mels, F]). It runs without autograd, the counterpart of the JAX
+package's `stop_gradient`: gradients reach the projector and LoRA only.
+`forward` is the training forward: audio path, splice ('prepend' or
+'inplace'), the decoder with LoRA and the shifted cross-entropy (dense, or
+in sequence chunks with `loss_chunk_size`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,6 +36,15 @@ from ..ops import mel_power
 IGNORE_INDEX = -100
 
 
+class AudioLLMBatch(NamedTuple):
+    """One training batch of static shapes (collate pads to them)."""
+
+    input_ids: torch.Tensor  # [B, T] prompt (+ response) tokens
+    attention_mask: torch.Tensor  # [B, T] 1 = real
+    audio_features: Optional[torch.Tensor]  # [B, S] waveform, [B, n_mels, F] log-mel, or None
+    labels: torch.Tensor  # [B, T], -100 = ignored
+
+
 def init_trainable(cfg: AudioLLMConfig, generator: torch.Generator,
                    dtype=torch.float32) -> ParamTree:
     """Projector + (optional) LoRA on the generator's device."""
@@ -39,6 +52,10 @@ def init_trainable(cfg: AudioLLMConfig, generator: torch.Generator,
     if cfg.lora is not None:
         tree["lora"] = lora_mod.init_params(cfg.llama, cfg.lora, generator, dtype)
     return ParamTree(tree)
+
+
+def num_trainable_params(trainable: ParamTree) -> int:
+    return int(sum(p.numel() for p in trainable.parameters()))
 
 
 def init_frozen(cfg: AudioLLMConfig, generator: torch.Generator,
@@ -153,3 +170,57 @@ def splice_inplace(
         out_labels = torch.where(in_audio, torch.full_like(text_labels, IGNORE_INDEX),
                                  text_labels)
     return embeds, mask, out_labels
+
+
+def extend_labels(labels: torch.Tensor, audio_block_len: int) -> torch.Tensor:
+    """Prepend -100 over the audio block ('prepend' splice)."""
+    pad = torch.full((labels.shape[0], audio_block_len), IGNORE_INDEX, dtype=labels.dtype,
+                     device=labels.device)
+    return torch.cat([pad, labels], dim=1)
+
+
+def forward(
+    frozen: ParamTree,
+    trainable: ParamTree,
+    cfg: AudioLLMConfig,
+    batch: AudioLLMBatch,
+    audio_start_id: int,
+    audio_end_id: int,
+    compute_dtype=torch.bfloat16,
+    loss_chunk_size: int = 0,
+    remat: bool = False,
+):
+    """Full multimodal forward -> (loss, logits [B, T', V] f32 or None).
+    Without audio it is the text-only LM step; `loss_chunk_size` > 0 takes
+    the chunked cross-entropy and returns no logits."""
+    lora = trainable.get("lora")
+    if lora is not None:
+        lora = lora_mod.with_scaling(lora, cfg.lora)
+    lcfg, lparams = cfg.llama, frozen["llama"]
+    if batch.audio_features is None:
+        kw = dict(input_ids=batch.input_ids, attention_mask=batch.attention_mask)
+        labels = batch.labels
+    else:
+        enc = process_audio_features(frozen, cfg, batch.audio_features, compute_dtype)
+        audio_embeds = proj_mod.project(trainable["projector"], enc, compute_dtype)
+        if cfg.splice_mode == "inplace":
+            text = llama_mod.embed_tokens(lparams, batch.input_ids, compute_dtype)
+            embeds, mask, labels = splice_inplace(text, audio_embeds, batch.input_ids,
+                                                  batch.attention_mask, batch.labels,
+                                                  audio_start_id)
+        else:  # 'prepend'
+            embeds, mask = combine_text_and_audio_embeddings(
+                frozen, trainable, cfg, batch.input_ids, batch.attention_mask, audio_embeds,
+                audio_start_id, audio_end_id, compute_dtype)
+            labels = extend_labels(batch.labels, audio_embeds.shape[1] + 2)
+        kw = dict(inputs_embeds=embeds, attention_mask=mask)
+    if loss_chunk_size:
+        _, _, hidden = llama_mod.llama_forward(lparams, lcfg, lora=lora,
+                                               compute_dtype=compute_dtype, return_hidden=True,
+                                               unembed_logits=False, remat=remat, **kw)
+        loss = llama_mod.causal_lm_loss_from_hidden(lparams, lcfg, hidden, labels,
+                                                    loss_chunk_size, compute_dtype)
+        return loss, None
+    logits, _ = llama_mod.llama_forward(lparams, lcfg, lora=lora, compute_dtype=compute_dtype,
+                                        remat=remat, **kw)
+    return llama_mod.causal_lm_loss(logits, labels), logits

@@ -25,6 +25,14 @@ The cache tensors are updated in place (PyTorch's counterpart of the JAX
 package's aliased scan carry); the returned `KVCache` holds the same tensors
 with the new length.
 
+Training differentiates the no-cache call: `llama_forward` keeps autograd on
+(`generate` turns it off for itself), the causal kernel's backward kernels
+serve attention, and `remat=True` runs each layer under
+`torch.utils.checkpoint`, so its activations are recomputed in the backward
+(the causal forward kernel then runs twice per layer). `causal_lm_loss` and
+`causal_lm_loss_from_hidden` (sequence chunks under `torch.utils.checkpoint`,
+no [B, T, V] logits) are the JAX package's two shifted cross-entropies.
+
 On an int4 tree every projection runs the W4A16 kernel
 (`ops/int4_matmul.py`): q|k|v as one fused slab read as two column planes,
 o, and for more than 64 rows gate|up then down. Up to 64 rows with no LoRA
@@ -44,6 +52,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..bridge import ParamTree
 from ..config import LlamaConfig
@@ -221,12 +230,34 @@ def embed_tokens(params: ParamTree, input_ids: torch.Tensor, compute_dtype=torch
     return rows
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """x [N, D] @ wt [D, V] in a 16-bit type, accumulated and returned in
+    f32 (one cuBLAS call, no f32 copy of the table). The backward gives x's
+    gradient only: the table is frozen. The f32 cotangent is rounded to the
+    table's type for the product dy @ wt^T, which accumulates in f32 and is
+    rounded to x's type, as the JAX package's f32 cotangent meets its bf16
+    table in one product and lands in x's type."""
+
+    @staticmethod
+    def forward(ctx, x, wt):
+        ctx.save_for_backward(wt)
+        return torch.mm(x, wt, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (wt,) = ctx.saved_tensors
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError("the unembedding table is frozen: no gradient for it")
+        dx = torch.mm(dy.to(wt.dtype), wt.t(), out_dtype=torch.float32)
+        return dx.to(wt.dtype), None
+
+
 def _logits_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype, vocab_major: bool):
     """x [..., D] @ w ([V, D] if vocab_major, else [D, V]) with both operands
     in compute_dtype, accumulated and returned in f32 with no rounding of the
     output to compute_dtype. On the card the product is one bf16 x bf16 ->
-    f32 matmul (no f32 copy of the table); an int8 table is cast to
-    compute_dtype for it."""
+    f32 matmul (no f32 copy of the table; `_MatmulF32Out`); an int8 table is
+    cast to compute_dtype for it."""
     x2 = x.reshape(-1, x.shape[-1]).to(compute_dtype)
     wc = w.to(compute_dtype)
     wt = wc.t() if vocab_major else wc
@@ -234,7 +265,7 @@ def _logits_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype, vocab_major: bo
         if compute_dtype == torch.float32:
             y = x2 @ wt
         else:
-            y = torch.mm(x2, wt, out_dtype=torch.float32)
+            y = _MatmulF32Out.apply(x2, wt)
     else:
         y = x2.to(torch.float32) @ wt.to(torch.float32)
     return y.reshape(*x.shape[:-1], y.shape[-1])
@@ -307,7 +338,6 @@ def _write_scales(ks_all, vs_all, k_s, v_s, layer, offset):
     vs_all[layer, rows, :, slot] = torch.where(inside, v_s, vs_all[layer, rows, :, slot])
 
 
-@torch.no_grad()
 def llama_forward(
     params: ParamTree,
     cfg: LlamaConfig,
@@ -324,12 +354,15 @@ def llama_forward(
     assume_fresh_cache: bool = False,
     unembed_logits: bool = True,
     megakernel: bool = True,
+    remat: bool = False,
 ):
     """Decoder forward. Without a cache returns (logits [B, T, V], None);
     with one, (logits, cache). `return_hidden` appends the final-norm hidden
     states; `unembed_logits=False` returns None for the logits (a caller that
     needs only some positions unembeds them itself). `megakernel=False`
-    keeps single-request int4 decode steps on the per-layer kernels."""
+    keeps single-request int4 decode steps on the per-layer kernels.
+    `remat=True` (no cache) recomputes each layer in the backward
+    (`torch.utils.checkpoint`), as the JAX package's `jax.checkpoint`."""
     cd = compute_dtype
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids, cd)
@@ -387,7 +420,13 @@ def llama_forward(
         raise NotImplementedError(
             "unfused int4 decoder trees are not ported yet (ROADMAP queue 2)")
     fmt = "obin" if "int4_obin" in params else "pair"
-    lora_layers = lora["layers"] if lora is not None else None
+    # each stacked LoRA leaf split into its layers once: under autograd the
+    # backward then stacks a leaf's layer gradients in one op, where indexing
+    # the stack per layer would add a zero-padded [L, ...] gradient per layer
+    lora_layers = None
+    if lora is not None:
+        lora_layers = {name: (br["a"].unbind(0), br["b"].unbind(0))
+                       for name, br in lora["layers"].items()}
     scale = cfg.head_dim ** -0.5
     eps = cfg.rms_norm_eps
     hd = cfg.head_dim
@@ -416,12 +455,13 @@ def llama_forward(
             offset, valid, eps=eps, scale=scale, fmt=fmt)
         x = hidden[None]
 
-    for li in range(0 if use_mega else cfg.num_layers):
+    def layer_step(x, li):
+        nonlocal ck, cv
         def lb(name):
             if lora_layers is None or name not in lora_layers:
                 return None
-            br = lora_layers[name]
-            return (br["a"][li], br["b"][li], lora["scaling"])
+            a, b = lora_layers[name]
+            return (a[li], b[li], lora["scaling"])
 
         def lora_add(y, name, x_in):
             """LoRA stays per projection on the fused int4 slabs, added after
@@ -511,7 +551,13 @@ def llama_forward(
             g, u = linear(h, "gate_proj"), linear(h, "up_proj")
             d = linear(F.silu(g) * u, "down_proj")
         x = x + d
+        return x
 
+    for li in range(0 if use_mega else cfg.num_layers):
+        if remat and kv_cache is None and torch.is_grad_enabled():
+            x = checkpoint(layer_step, x, li, use_reentrant=False)
+        else:
+            x = layer_step(x, li)
     if rot is not None:  # out of the rotated basis
         x = x @ rot.to(cd).T
     x = rms_norm(x, params["final_ln"].to(cd), eps)
@@ -529,3 +575,52 @@ def llama_forward(
     if return_hidden:
         return logits, new_cache, x
     return logits, new_cache
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Shifted cross-entropy, mean over the labels that are not -100:
+    logits [B, T, V] (f32), labels [B, T]."""
+    shift = logits[:, :-1].float()
+    tgt = labels[:, 1:]
+    mask = tgt != -100
+    safe = torch.where(mask, tgt, torch.zeros_like(tgt)).long()
+    logp = torch.log_softmax(shift, dim=-1)
+    token_ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    total = torch.where(mask, -token_ll, torch.zeros_like(token_ll)).sum()
+    return total / mask.sum().clamp(min=1)
+
+
+def causal_lm_loss_from_hidden(
+    params: ParamTree, cfg: LlamaConfig, hidden: torch.Tensor, labels: torch.Tensor,
+    chunk_size: int = 256, compute_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """`causal_lm_loss(unembed(hidden), labels)` without the [B, T, V] logits:
+    sequence chunks of `chunk_size` positions, each unembedded, reduced to
+    its summed NLL and count, and recomputed in the backward
+    (`torch.utils.checkpoint`). Equal to the dense loss up to the order of
+    the sums. hidden [B, T, D] is the final-norm output."""
+    xs, ys = hidden[:, :-1], labels[:, 1:]
+    T = xs.shape[1]
+    pad = (-T) % chunk_size
+    if pad:
+        xs = F.pad(xs, (0, 0, 0, pad))
+        ys = F.pad(ys, (0, pad), value=-100)
+
+    def chunk_loss(xc, yc):
+        logits = unembed(params, cfg, xc, compute_dtype)  # [B, c, V] f32
+        lse = torch.logsumexp(logits, dim=-1)
+        mask = yc != -100
+        safe = torch.where(mask, yc, torch.zeros_like(yc)).long()
+        tgt = torch.gather(logits, -1, safe[..., None])[..., 0]
+        return torch.where(mask, lse - tgt, torch.zeros_like(lse)).sum(), mask.sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for c0 in range(0, T + pad, chunk_size):
+        xc, yc = xs[:, c0:c0 + chunk_size], ys[:, c0:c0 + chunk_size]
+        if torch.is_grad_enabled():
+            s, n = checkpoint(chunk_loss, xc, yc, use_reentrant=False)
+        else:
+            s, n = chunk_loss(xc, yc)
+        total, count = total + s, count + n
+    return total / count.clamp(min=1)

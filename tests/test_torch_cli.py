@@ -155,8 +155,11 @@ def test_cli_refusals_match_jax_or_name_the_queue():
         text = cli.main(["--platform", "cpu", "--toy_model", "--prompt", "x", "--greedy",
                          "--max_new_tokens", "2"] + flags)
         assert isinstance(text, str)
-    for flags in (["--draft_llama_path", "toy"], ["--checkpoint_path", "ckpt"],
-                  ["--llama_path", "x"]):
+    for flags in (["--draft_llama_path", "toy"], ["--llama_path", "x"]):
         with pytest.raises(NotImplementedError, match="ROADMAP queue"):
             cli.main(["--platform", "cpu", "--prompt", "x"]
                      + (["--toy_model"] if "--llama_path" not in flags else []) + flags)
+    # --checkpoint_path is ported (tests/test_torch_train.py): a missing one is an error
+    with pytest.raises(FileNotFoundError):
+        cli.main(["--platform", "cpu", "--prompt", "x", "--toy_model", "--checkpoint_path",
+                  "missing_ckpt"])

@@ -85,6 +85,11 @@ import audio_llama_tpu_torch.data.tokenizer, audio_llama_tpu_torch.models.llama_
 import audio_llama_tpu_torch.models.llama_int8, audio_llama_tpu_torch.ops.mel
 import audio_llama_tpu_torch.ops.mel_power, audio_llama_tpu_torch.ops.int4_matmul
 import audio_llama_tpu_torch.ops.mlp_int4, audio_llama_tpu_torch.ops.decode_attention_mono
+import audio_llama_tpu_torch.data.dataset, audio_llama_tpu_torch.data.loader
+import audio_llama_tpu_torch.training.train, audio_llama_tpu_torch.training.train_step
+import audio_llama_tpu_torch.training.checkpoint, audio_llama_tpu_torch.training.msgpack_io
+import audio_llama_tpu_torch.training.optim, audio_llama_tpu_torch.training.metrics
+import audio_llama_tpu_torch.training.profiling
 sys.path.insert(0, {root!r})
 import chip_smoke
 bad = sorted(m for m in sys.modules

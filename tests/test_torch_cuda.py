@@ -21,7 +21,7 @@ import torch
 
 torch.set_num_threads(2)
 
-from chip_smoke import ATOL_ROW_RMS_FRAC, tol_ratio  # noqa: E402
+from chip_smoke import ATOL_ROW_RMS_FRAC, GRAD_RMS_DIMS, tol_ratio  # noqa: E402
 from audio_llama_tpu_torch.ops import causal_attention as ca  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_attention_mono as dm  # noqa: E402
 from audio_llama_tpu_torch.ops import enc_attention as ea  # noqa: E402
@@ -515,3 +515,149 @@ def test_quantizers_divide_as_the_host_does(dev):
         card = fn(*(a.to(dev) for a in args))
         for h, c in zip(host, card):
             assert torch.equal(h, c.cpu()), fn
+
+
+def _bwd_case(dev, B, T, Hq, Hkv, hd, pad_tail=0, seed=3):
+    """Seeded backward inputs: qs pre-scaled, the last row's tail keys
+    padded, o / l / m from the plain forward, a random cotangent."""
+    qs = _randn(dev, B, T, Hq, hd, seed=seed) * torch.tensor(hd ** -0.5, dtype=torch.bfloat16,
+                                                              device=dev)
+    k, v = _randn(dev, B, T, Hkv, hd, seed=seed + 1), _randn(dev, B, T, Hkv, hd, seed=seed + 2)
+    mask = torch.ones(B, T, dtype=torch.int32, device=dev)
+    if pad_tail:
+        mask[-1, T - pad_tail:] = 0
+    key_bias = torch.where(mask != 0, torch.zeros((), device=dev), ca.NEG)
+    o, l, m = ca.causal_attention_plain(qs, k, v, key_bias)
+    do = _randn(dev, B, T, Hq, hd, seed=seed + 3)
+    return qs, k, v, key_bias, o, l, m, do
+
+
+BWD_NAMES = ("causal_attention_dq", "causal_attention_dkv", "causal_attention_dkv")
+
+
+def _grad_ratio(got, want, name):
+    return tol_ratio(got, want, ATOL_ROW_RMS_FRAC[name], GRAD_RMS_DIMS)
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,hd,pad", [(2, 512, 24, 8, 128, 34), (1, 256, 4, 2, 64, 0),
+                                               (2, 128, 6, 6, 32, 5), (2, 128, 4, 2, 16, 3)])
+def test_causal_attention_bwd_kernels(dev, B, T, Hq, Hkv, hd, pad):
+    case = _bwd_case(dev, B, T, Hq, Hkv, hd, pad)
+    want = ca.causal_attention_bwd_plain(*case)
+    got = ca.causal_attention_bwd_cuda(*case)
+    ratios = [_grad_ratio(g, w, name) for g, w, name in zip(got, want, BWD_NAMES)]
+    assert all(g.dtype == torch.bfloat16 and torch.isfinite(g).all() for g in got)
+    assert max(ratios) <= 1, ratios
+
+
+def test_causal_attention_bwd_is_deterministic(dev):
+    """No float atomics: two launches give the same bits."""
+    case = _bwd_case(dev, 2, 512, 24, 8, 128, 34)
+    first = ca.causal_attention_bwd_cuda(*case)
+    second = ca.causal_attention_bwd_cuda(*case)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_causal_attention_bwd_check_rejects_a_wrong_d(dev):
+    qs, k, v, key_bias, o, l, m, do = _bwd_case(dev, 1, 256, 4, 2, 64)
+    want = ca.causal_attention_bwd_plain(qs, k, v, key_bias, o, l, m, do)
+    d = torch.zeros((4, 256), device=dev)  # the prologue skipped
+    got = ca.causal_attention_dq_cuda(qs, k, v, key_bias, l, m, do, d)
+    assert _grad_ratio(got, want[0], BWD_NAMES[0]) > 1
+    dk, _ = ca.causal_attention_dkv_cuda(qs, k, v, key_bias, l, m, do, d)
+    assert _grad_ratio(dk, want[1], BWD_NAMES[1]) > 1
+
+
+def test_causal_mha_gradients_go_through_the_kernels(dev):
+    """autograd through `causal_mha` on the card launches the dq and dk/dv
+    kernels once each and matches the plain backward of the kernel's own
+    forward residuals."""
+    B, T, Hq, Hkv, hd = 2, 200, 4, 2, 64
+    q = _randn(dev, B, T, Hq, hd, seed=11).requires_grad_(True)
+    k = _randn(dev, B, T, Hkv, hd, seed=12).requires_grad_(True)
+    v = _randn(dev, B, T, Hkv, hd, seed=13).requires_grad_(True)
+    mask = torch.ones(B, T, dtype=torch.int32, device=dev)
+    mask[1, 150:] = 0
+    do = _randn(dev, B, T, Hq, hd, seed=14)
+    n_dq, n_dkv = ca.launches_dq, ca.launches_dkv
+    o = ca.causal_mha(q, k, v, mask)
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    assert (ca.launches_dq - n_dq, ca.launches_dkv - n_dkv) == (1, 1)
+    # the same chain by hand: pad to 256, scale, forward kernel, plain backward
+    pad = (0, 0, 0, 0, 0, 56)
+    qs = torch.nn.functional.pad(q.detach(), pad) * torch.tensor(hd ** -0.5, dtype=q.dtype,
+                                                                   device=dev)
+    kp, vp = (torch.nn.functional.pad(t.detach(), pad) for t in (k, v))
+    key_bias = torch.where(torch.nn.functional.pad(mask, (0, 56)) != 0,
+                           torch.zeros((), device=dev), ca.NEG)
+    res = ca.causal_attention_cuda(qs, kp, vp, key_bias)
+    wq, wk, wv = ca.causal_attention_bwd_plain(qs, kp, vp, key_bias, res.o, res.l, res.m,
+                                               torch.nn.functional.pad(do, pad))
+    wq = wq * torch.tensor(hd ** -0.5, dtype=q.dtype, device=dev)
+    ratios = [_grad_ratio(g, w[:, :T], name)
+              for g, w, name in zip((dq, dk, dv), (wq, wk, wv), BWD_NAMES)]
+    assert max(ratios) <= 1, ratios
+
+
+def test_unembed_gradient_on_the_card(dev):
+    """The card's bf16 x bf16 -> f32 unembedding (`_MatmulF32Out`) passes the
+    hidden state's gradient the host's f32 product gives, to bf16 rounding."""
+    from audio_llama_tpu_torch.config import LlamaConfig
+    from audio_llama_tpu_torch.models import llama
+
+    cfg = LlamaConfig.tiny(vocab_size=1000)
+    g = torch.Generator().manual_seed(4)
+    params = {"embed": {"weight": (torch.randn(1000, 64, generator=g) * 0.1).to(torch.bfloat16)}}
+    x = torch.randn(2, 7, 64, generator=g).to(torch.bfloat16)
+    w = torch.randn(2, 7, 1000, generator=g)
+    tied = cfg.replace(tie_word_embeddings=True)
+
+    def grad(d, cd):
+        xd = x.to(d).to(cd).requires_grad_(True)
+        pd = {"embed": {"weight": params["embed"]["weight"].to(d)}}
+        logits = llama.unembed(pd, tied, xd, cd)
+        assert logits.dtype == torch.float32
+        return torch.autograd.grad((logits * w.to(d)).sum(), xd)[0].float().cpu()
+
+    card, host = grad(dev, torch.bfloat16), grad("cpu", torch.float32)
+    assert ((card - host).norm() / host.norm()).item() < 1e-2
+
+
+def test_tiny_train_step_on_the_card_matches_the_host(dev):
+    """One train step of the toy model (hd 16) on the card at bf16 (kernels,
+    the dq and dk/dv kernels once per layer) against the host's plain path
+    at f32 from the same weights: loss and gradients."""
+    from audio_llama_tpu_torch.config import AudioLLMConfig
+    from audio_llama_tpu_torch.device import make_generator
+    from audio_llama_tpu_torch.models import allm, llama
+    from audio_llama_tpu_torch.training import train_step
+
+    cfg = AudioLLMConfig.tiny()
+    frozen = allm.init_frozen(cfg, make_generator(0, "cpu"), torch.bfloat16)
+    frozen["llama"] = llama.resize_embeddings(frozen["llama"], cfg.llama.vocab_size + 2,
+                                              cfg.llama)
+    trainable = allm.init_trainable(cfg, make_generator(1, "cpu"))
+    rng = np.random.default_rng(0)
+    for br in trainable["lora"]["layers"].values():
+        br["a"].data.copy_(torch.from_numpy(rng.normal(size=br["a"].shape) * 0.1))
+    ids = torch.from_numpy(rng.integers(3, 500, (2, 12)))
+    labels = torch.where(torch.arange(12) >= 6, ids, -100)
+    mel = torch.from_numpy(rng.normal(size=(2, 80, 128)).astype(np.float32))
+    batch = allm.AudioLLMBatch(ids, torch.ones_like(ids), mel, labels)
+
+    def step(fz, tr, cd, d):
+        tr.requires_grad_(True)
+        b = allm.AudioLLMBatch(*(t.to(d) for t in batch))
+        loss = train_step.make_loss_fn(cfg, 512, 513, cd)(tr, fz, b)
+        return loss.item(), [g.float().cpu() for g in train_step.gradients(
+            loss, list(tr.parameters()))]
+
+    n = ca.launches_dq, ca.launches_dkv
+    card = step(copy.deepcopy(frozen).to(dev), copy.deepcopy(trainable).to(dev), torch.bfloat16,
+                dev)
+    assert (ca.launches_dq - n[0], ca.launches_dkv - n[1]) == (cfg.llama.num_layers,) * 2
+    host = step(frozen.float(), copy.deepcopy(trainable), torch.float32, torch.device("cpu"))
+    assert abs(card[0] - host[0]) <= 1e-2 * abs(host[0])
+    for c, h in zip(card[1], host[1]):
+        assert ((c - h).norm() / h.norm()).item() < 5e-2
