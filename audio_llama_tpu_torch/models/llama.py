@@ -1,9 +1,9 @@
 """Llama-3.x decoder with a static KV cache.
 
-Counterpart of `audio_llama_tpu/models/llama.py` on one device (no tensor or
-sequence parallelism), for full-precision trees, the weight-only int8 tree
-of `models/llama_int8.py` and the fused int4 tree of `models/llama_int4.py`,
-rotated (`models/llama_rotate.py`) or not. Parameters keep the JAX tree:
+Counterpart of `audio_llama_tpu/models/llama.py`, for full-precision trees,
+the weight-only int8 tree of `models/llama_int8.py` and the int4 trees of
+`models/llama_int4.py` (fused, unfused, or packed after a tensor-parallel
+shard), rotated (`models/llama_rotate.py`) or not. Parameters keep the JAX tree:
 stacked `[L, ...]` layer leaves, linear weights `[in, out]` (forward is
 `x @ w`); the decoder body is a Python loop over the layer index. A rotated
 tree carries its rotation as `params["rot"]`: the stream is rotated once
@@ -25,6 +25,21 @@ The cache tensors are updated in place (PyTorch's counterpart of the JAX
 package's aliased scan carry); the returned `KVCache` holds the same tensors
 with the new length.
 
+Inside a process world (`parallel/`), as the JAX package's code inside
+`shard_map`:
+  - `tp_axis` (a `parallel.mesh.MeshAxis`): the tree is this rank's
+    Megatron block (`parallel/sharding.py`): head counts follow the local
+    shapes, the row-parallel o and down outputs are summed over the axis
+    (`collectives.psum`) and an untied lm_head's vocab columns gathered;
+  - `sp_axis`: the cache holds this rank's window of the timeline (global
+    slots [index * S, (index + 1) * S)). A fresh prefill attends the fresh
+    tokens and stores the window's rows; a T == 1 step appends the row on
+    the rank that owns its slot, and every rank computes flash statistics
+    over its slab with the stats kernels (`ops/decode_attention_db.py`),
+    merged across the axis by `ops.attention.merge_partial_stats`. The
+    owner and the local slot come from the cache's host-side fill
+    (`KVCache.host_length`), so a step adds no device sync.
+
 Training differentiates the no-cache call: `llama_forward` keeps autograd on
 (`generate` turns it off for itself), the causal kernel's backward kernels
 serve attention, and `remat=True` runs each layer under
@@ -34,8 +49,10 @@ serve attention, and `remat=True` runs each layer under
 no [B, T, V] logits) are the JAX package's two shifted cross-entropies.
 
 On an int4 tree every projection runs the W4A16 kernel
-(`ops/int4_matmul.py`): q|k|v as one fused slab read as two column planes,
-o, and for more than 64 rows gate|up then down. Up to 64 rows with no LoRA
+(`ops/int4_matmul.py`): on the fused tree q|k|v as one slab read as two
+column planes, o, and for more than 64 rows gate|up then down; on the
+unfused tree each of the seven projections (a tp-packed slab's block axis,
+a singleton inside the shard, squeezed first). Up to 64 rows with no LoRA
 on the MLP, the fused int4 MLP kernel (`ops/mlp_int4.py`) runs the whole
 MLP. A single-token step of one request (B * T == 1) on a fused int4 tree
 with an int4 KV cache and no LoRA runs the whole layer stack as one launch
@@ -58,12 +75,15 @@ from ..bridge import ParamTree
 from ..config import LlamaConfig
 from ..ops import int4_matmul as i4
 from ..ops import mlp_int4 as mlp4
-from ..ops.causal_attention import causal_mha
+from ..ops import decode_attention_db as db
 from ..ops import decode_megakernel as mk
+from ..ops.attention import merge_partial_stats
+from ..ops.causal_attention import causal_mha
 from ..ops.decode_attention_mono import (decode_attention_mono, decode_attention_quantized4_mono,
                                          decode_attention_quantized_mono)
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_for_config, rope_tables
+from ..parallel import collectives
 
 LINEAR_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 
@@ -271,6 +291,16 @@ def _logits_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype, vocab_major: bo
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
+def unembed_with_tp(params: ParamTree, cfg: LlamaConfig, x: torch.Tensor,
+                    compute_dtype=torch.bfloat16, tp_axis=None):
+    """`unembed`, then under tensor parallelism the gather of an untied
+    lm_head's vocab-column shards; the tied table is replicated."""
+    logits = unembed(params, cfg, x, compute_dtype)
+    if tp_axis is not None and not cfg.tie_word_embeddings and "lm_head" in params:
+        logits = collectives.all_gather(logits, tp_axis, dim=-1)
+    return logits
+
+
 def unembed(params: ParamTree, cfg: LlamaConfig, x: torch.Tensor, compute_dtype=torch.bfloat16):
     """Hidden states -> vocab logits (tied or untied head), f32: the product
     of the compute-dtype operands accumulates and stays in f32, as the JAX
@@ -326,6 +356,22 @@ def _vslice(lo: torch.Tensor, hi: torch.Tensor, start: int, size: int) -> torch.
     return torch.cat([lo[..., start:], hi[..., :start + size - half]], dim=-1)
 
 
+def _squeeze_int4_blocks(w) -> dict:
+    """An unfused int4 slab {'w_p', 'w_s'}, its pack-after-shard w_p [L, K,
+    tp, N/(2 tp)] squeezed to the canonical [L, K, N/2] where the block axis
+    is a singleton (inside a tensor-parallel shard). A slab of several
+    blocks outside tensor parallelism would permute the output columns, so
+    it is refused."""
+    p = w["w_p"]
+    if p.dim() == 4:
+        if p.shape[2] != 1:
+            raise ValueError(
+                f"int4 tree packed for tp={p.shape[2]} used without tensor-parallel sharding "
+                "(make_tp_generate); quantize with tp=1 for dp/single-device serving")
+        p = p.reshape(p.shape[0], p.shape[1], p.shape[3])
+    return {"w_p": p, "w_s": w["w_s"]}
+
+
 def _write_scales(ks_all, vs_all, k_s, v_s, layer, offset):
     """The fresh rows' scales [B, Hkv] into slot offset[b] of the layer's
     scale slabs (an offset outside the cache writes nothing)."""
@@ -355,6 +401,8 @@ def llama_forward(
     unembed_logits: bool = True,
     megakernel: bool = True,
     remat: bool = False,
+    tp_axis=None,
+    sp_axis=None,
 ):
     """Decoder forward. Without a cache returns (logits [B, T, V], None);
     with one, (logits, cache). `return_hidden` appends the final-norm hidden
@@ -362,7 +410,8 @@ def llama_forward(
     needs only some positions unembeds them itself). `megakernel=False`
     keeps single-request int4 decode steps on the per-layer kernels.
     `remat=True` (no cache) recomputes each layer in the backward
-    (`torch.utils.checkpoint`), as the JAX package's `jax.checkpoint`."""
+    (`torch.utils.checkpoint`), as the JAX package's `jax.checkpoint`.
+    `tp_axis` / `sp_axis`: see the module docstring."""
     cd = compute_dtype
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids, cd)
@@ -380,6 +429,15 @@ def llama_forward(
             raise ValueError("cache_offsets contradicts assume_fresh_cache")
     fresh = kv_cache is not None and assume_fresh_cache and T > 1
     decode = kv_cache is not None and T == 1
+    if sp_axis is not None:
+        if kv_cache is None:
+            raise ValueError("sp_axis requires kv_cache (timeline-sharded)")
+        if cache_offsets is not None:
+            raise ValueError("sp_axis does not compose with cache_offsets")
+        if sp_axis.size <= 1:
+            raise ValueError("sp_axis needs its static sp_size (> 1)")
+        if not (fresh or decode):
+            raise ValueError("sp decode supports fresh prefill or T==1 steps")
     if kv_cache is not None and not (fresh or decode):
         raise NotImplementedError(
             "cached forward supports a fresh-cache prefill or T == 1 decode steps"
@@ -391,7 +449,7 @@ def llama_forward(
         if cache_offsets is None:
             host_offset = 0 if fresh else kv_cache.host_length
         Tk = kv_cache.k.shape[3]
-        if attention_mask is not None and attention_mask.shape[1] < Tk:
+        if sp_axis is None and attention_mask is not None and attention_mask.shape[1] < Tk:
             attention_mask = F.pad(attention_mask, (0, Tk - attention_mask.shape[1]))
         off_col = offset.reshape(-1, 1)  # [1|B, 1]
     else:
@@ -403,7 +461,25 @@ def llama_forward(
     cos, sin = rope_tables(positions, rope_for_config(cfg))  # [1|B, T, hd]
 
     valid = None
-    if decode:
+    sp_g0 = sp_loc = None
+    if decode and sp_axis is not None:
+        # this rank's window of global slots [sp_g0, sp_g0 + Tk): global
+        # slot-causality against the host's fill, times the mask's window
+        if host_offset is None:  # a cache built by hand: read its fill once
+            host_offset = int(offset.reshape(-1)[0])
+        sp_g0 = sp_axis.index * Tk
+        sp_loc = host_offset - sp_g0  # the local append slot; outside [0, Tk) off the owner
+        kpos = sp_g0 + torch.arange(Tk, device=dev)[None, :]
+        valid = (kpos <= host_offset).to(torch.int32).expand(B, Tk)
+        if attention_mask is not None:
+            am = attention_mask
+            if am.shape[1] != Tk:  # the global timeline mask: take the window
+                full = Tk * sp_axis.size
+                if am.shape[1] < full:  # slots past it are never <= the offset
+                    am = F.pad(am, (0, full - am.shape[1]), value=1)
+                am = am[:, sp_g0:sp_g0 + Tk]
+            valid = valid * am.to(torch.int32)
+    elif decode:
         # slot-causal validity over the cache timeline, times the mask;
         # shared by every layer of this step
         valid = (torch.arange(Tk, device=dev)[None, :] <= off_col).to(torch.int32)
@@ -415,10 +491,10 @@ def llama_forward(
         attn_mask = attn_mask[:, :T]
 
     lp = params["layers"]
-    int4 = "qkv_proj" in lp
-    if not int4 and isinstance(lp["q_proj"], ParamTree) and "w_q" not in lp["q_proj"]:
-        raise NotImplementedError(
-            "unfused int4 decoder trees are not ported yet (ROADMAP queue 2)")
+    int4 = "qkv_proj" in lp  # the fused int4 tree
+    int4_slabs = {}  # the unfused int4 tree's slabs, block axis squeezed
+    if not int4 and isinstance(lp["q_proj"], ParamTree) and "w_p" in lp["q_proj"]:
+        int4_slabs = {n: _squeeze_int4_blocks(lp[n]) for n in LINEAR_NAMES}
     fmt = "obin" if "int4_obin" in params else "pair"
     # each stacked LoRA leaf split into its layers once: under autograd the
     # backward then stacks a leaf's layer gradients in one op, where indexing
@@ -441,7 +517,7 @@ def llama_forward(
                                       lp["down_proj"]["w_p"].shape[-1])
 
     use_mega = (megakernel and decode and int4 and kv_bits == 4 and B == 1 and lora is None
-                and cache_offsets is None)
+                and cache_offsets is None and tp_axis is None and sp_axis is None)
     if use_mega:
         if host_offset is None:  # a cache built by hand: read its fill once
             host_offset = int(offset.reshape(-1)[0])
@@ -454,6 +530,41 @@ def llama_forward(
             lp["input_ln"], lp["post_attn_ln"], cos[0, 0], sin[0, 0], ck, ks_all, vs_all,
             offset, valid, eps=eps, scale=scale, fmt=fmt)
         x = hidden[None]
+
+    def write_rows(kh, vh, li, slots):
+        """K/V rows [B, Hkv, (n,) hd] into `slots` (a slot or a slice) of layer
+        li, quantized to the cache's format with their scales."""
+        if kv_bits == 4:
+            kvh, khs, vhs = quantize_kv_rows4(kh, vh)
+            ck[li, :, :, slots] = kvh
+            ks_all[li, :, :, slots], vs_all[li, :, :, slots] = khs, vhs
+        elif kv_bits == 8:
+            (khq, khs), (vhq, vhs) = quantize_kv_rows(kh), quantize_kv_rows(vh)
+            ck[li, :, :, slots], cv[li, :, :, slots] = khq, vhq
+            ks_all[li, :, :, slots], vs_all[li, :, :, slots] = khs, vhs
+        else:
+            ck[li, :, :, slots], cv[li, :, :, slots] = kh.to(ck.dtype), vh.to(cv.dtype)
+
+    def sp_decode_attention(q, k, v, li):
+        """A T == 1 step under sp -> [B, 1, Hq, hd]: the owner of the slot
+        appends the row, every rank's statistics over its slab, merged."""
+        nonlocal ck, cv
+        owner = 0 <= sp_loc < Tk
+        q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]
+        if kv_bits == 4:
+            kvp, kq_s, vq_s = quantize_kv_rows4(k1, v1)
+            m, l, acc, ck = db.decode_attention_quantized4_db_stats(
+                q1, kvp, ck, ks_all, vs_all, kq_s, vq_s, li, sp_loc, valid, scale)
+        elif kv_bits == 8:
+            (kq, kq_s), (vq, vq_s) = quantize_kv_rows(k1), quantize_kv_rows(v1)
+            m, l, acc, ck, cv = db.decode_attention_quantized_db_stats(
+                q1, kq, vq, ck, cv, ks_all, vs_all, kq_s, vq_s, li, sp_loc, valid, scale)
+        else:
+            m, l, acc, ck, cv = db.decode_attention_db_stats(
+                q1, k1.to(ck.dtype), v1.to(cv.dtype), ck, cv, li, sp_loc, valid, scale)
+        if owner and kv_bits != 16:  # the kernels write the row's values only
+            ks_all[li, :, :, sp_loc], vs_all[li, :, :, sp_loc] = kq_s, vq_s
+        return merge_partial_stats(m, l, acc, sp_axis, out_dtype=q.dtype)[:, None]
 
     def layer_step(x, li):
         nonlocal ck, cv
@@ -470,8 +581,9 @@ def llama_forward(
             return y if br is None else y + _lora_delta(x_in, br, cd)
 
         def int4_linear(x_in, name, lora_name=None):
-            w = lp[name]
-            y = i4.int4_matmul_stacked(x_in, w["w_p"], w["w_s"], li, fmt=fmt)
+            w = int4_slabs.get(name) or lp[name]
+            g = w["w_p"].shape[-2] // w["w_s"].shape[-2]
+            y = i4.int4_matmul_stacked(x_in, w["w_p"], w["w_s"], li, group=g, fmt=fmt)
             return lora_add(y, lora_name, x_in) if lora_name else y
 
         def linear(x_in, name):
@@ -486,13 +598,17 @@ def llama_forward(
             q = lora_add(_vslice(lo, hi, 0, nq), "q_proj", h)
             k = lora_add(_vslice(lo, hi, nq, nkv), "k_proj", h)
             v = lora_add(_vslice(lo, hi, nq + nkv, nkv), "v_proj", h)
+        elif int4_slabs:
+            q, k, v = (int4_linear(h, n, n) for n in ("q_proj", "k_proj", "v_proj"))
         else:
             q, k, v = linear(h, "q_proj"), linear(h, "k_proj"), linear(h, "v_proj")
         q = apply_rope(q.reshape(B, T, -1, hd), cos, sin)
         k = apply_rope(k.reshape(B, T, -1, hd), cos, sin)
         v = v.reshape(B, T, -1, hd)
 
-        if decode and kv_bits == 4:
+        if decode and sp_axis is not None:
+            attn = sp_decode_attention(q, k, v, li)
+        elif decode and kv_bits == 4:
             kvp, kq_s, vq_s = quantize_kv_rows4(k[:, 0], v[:, 0])
             # the append slot's scales go in BEFORE the kernel, which never
             # reads them (the slot is dead in its slab pass)
@@ -513,27 +629,21 @@ def llama_forward(
             )
             attn = attn[:, None]
         else:
-            kh, vh = k.transpose(1, 2), v.transpose(1, 2)
-            if fresh and kv_bits == 4:  # in place: the fresh rows fill slots [0, T)
-                kvh, khs, vhs = quantize_kv_rows4(kh, vh)
-                ck[li, :, :, :T] = kvh
-                ks_all[li, :, :, :T] = khs
-                vs_all[li, :, :, :T] = vhs
-            elif fresh and kv_bits == 8:
-                (khq, khs), (vhq, vhs) = quantize_kv_rows(kh), quantize_kv_rows(vh)
-                ck[li, :, :, :T], cv[li, :, :, :T] = khq, vhq
-                ks_all[li, :, :, :T] = khs
-                vs_all[li, :, :, :T] = vhs
-            elif fresh:
-                ck[li, :, :, :T] = kh.to(ck.dtype)
-                cv[li, :, :, :T] = vh.to(cv.dtype)
+            if fresh:
+                # in place: the fresh rows fill slots [0, T), or under sp the
+                # rows of this rank's window of global slots
+                g0 = 0 if sp_axis is None else sp_axis.index * Tk
+                n = max(0, min(T - g0, Tk))
+                if n:
+                    write_rows(k[:, g0:g0 + n].transpose(1, 2), v[:, g0:g0 + n].transpose(1, 2),
+                               li, slice(0, n))
             attn = causal_mha(q, k, v, mask=attn_mask, scale=scale)
         attn = attn.reshape(B, T, -1)
-        if int4:
+        if int4 or int4_slabs:
             attn = int4_linear(attn, "o_proj", "o_proj")
         else:
             attn = linear(attn, "o_proj")
-        x = x + attn
+        x = x + collectives.psum(attn, tp_axis)  # row-parallel: the sum over tp
 
         h = rms_norm(x, lp["post_attn_ln"][li].to(cd), eps)
         mlp_lora = any(lb(n) is not None for n in ("gate_proj", "up_proj", "down_proj"))
@@ -547,10 +657,13 @@ def llama_forward(
                                           fmt=fmt)
             g, u = lora_add(g, "gate_proj", h), lora_add(u, "up_proj", h)
             d = int4_linear(F.silu(g) * u, "down_proj", "down_proj")
+        elif int4_slabs:
+            g, u = int4_linear(h, "gate_proj", "gate_proj"), int4_linear(h, "up_proj", "up_proj")
+            d = int4_linear(F.silu(g) * u, "down_proj", "down_proj")
         else:
             g, u = linear(h, "gate_proj"), linear(h, "up_proj")
             d = linear(F.silu(g) * u, "down_proj")
-        x = x + d
+        x = x + collectives.psum(d, tp_axis)  # row-parallel: the sum over tp
         return x
 
     for li in range(0 if use_mega else cfg.num_layers):
@@ -561,7 +674,7 @@ def llama_forward(
     if rot is not None:  # out of the rotated basis
         x = x @ rot.to(cd).T
     x = rms_norm(x, params["final_ln"].to(cd), eps)
-    logits = unembed(params, cfg, x, cd) if unembed_logits else None
+    logits = unembed_with_tp(params, cfg, x, cd, tp_axis) if unembed_logits else None
 
     new_cache = None
     if kv_cache is not None:

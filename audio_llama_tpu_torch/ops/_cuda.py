@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("layer_norm.cu", "enc_attention.cu", "causal_attention.cu", "decode_attention.cu",
            "mel_power.cu", "int4_matmul.cu", "mlp_int4.cu", "decode_attention_q4.cu",
-           "decode_megakernel.cu", "causal_attention_bwd.cu")
+           "decode_megakernel.cu", "causal_attention_bwd.cu", "decode_attention_db.cu")
 HEADERS = ("common.cuh", "attention_fwd.cuh", "int4_common.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -52,6 +52,7 @@ SIGNATURES = {
     "al_megakernel_blocks_per_sm": [_I, _I],
     "al_causal_attention_dq": [_P] * 9 + [_I] * 5 + [_P],
     "al_causal_attention_dkv": [_P] * 10 + [_I] * 5 + [_P],
+    "al_decode_db_stats": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F] + [_P] * 4,
 }
 
 _lock = threading.Lock()

@@ -58,6 +58,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      bit by the trainer's loader and the inference CLI's;
  11. train step card vs host at 2 + 2 layers: loss, every trainable leaf's
      gradient, the updated leaves.
+ 12. sharded decode kernels: the three timeline-sharded stats kernels
+     (bf16, int8 and int4 KV) at the sp serving path's local slab (28
+     layers, 8 KV heads, S local slots), B 1 and 4, against their plain
+     versions (m and l within 1e-5 relative, acc within the decode kernels'
+     bar, the caches bit-equal: an owner appends, a non-owner does not, an
+     all-invalid slab gives (-5e29, 0, 0)); planted faults (a non-owner
+     that appends, the fresh row's scales dropped, an unclamped row max);
+     two half-slabs merged by `ops.attention.merge_stats` against the mono
+     kernel on the whole slab; timed beside the plain version and SDPA;
+ 13. multi-rank paths: a world of 2 ranks spawned on cuda:0 over gloo,
+     each building its weights from the same seeds: (a) sp=2 on the
+     serving configuration (LoRA merged, fused int4 tree, int4 KV, B = 1,
+     four 30 s windows, also through `make_sp_encode`, 32 greedy tokens);
+     (b) sp=2 on the bf16 tree with an int8 and a bf16 KV cache (one
+     window, 8 tokens); (c) tp=2 on the int4 tree packed after the shard
+     (int4 KV, B = 4, 16 tokens); (d) dp=2 on the bf16 tree (B = 4, 8
+     tokens). Tokens identical on both ranks, the first decode step's
+     logits within rel-L2 2e-2 of the single-process run, launches exact
+     (the stats kernel 28 times per decode step per rank on the sp paths);
+     per-rank times of 2 ranks time-sharing one card (not a scaling
+     number) and which gloo collectives take CUDA tensors.
 With `--profile`, phases 3, 4, 6 (megakernel off), 7 and 10 add a
 torch.profiler breakdown (encode + prefill + first token, and per decode
 token; one train step) by device kernel group, with the device's busy share
@@ -96,29 +117,46 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+PROFILE_TRIES = 3  # CUPTI has come back with no device events now and then
+
+
 def traced(fn):
     """Run fn under torch.profiler -> (wall ms, {device kernel name: ms},
-    device launches). Device durations come from CUPTI."""
+    device launches). Device durations come from CUPTI. A trace that holds
+    no device event is taken again (logged), up to PROFILE_TRIES times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, n = {}, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    if not by_name:
-        raise AssertionError("profiler: the trace holds no device events")
-    return wall_ms, by_name, n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name, n = {}, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n += 1
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        if by_name:
+            return wall_ms, by_name, n
+        log(f"profiler: the trace holds no device events (attempt {attempt} of "
+            f"{PROFILE_TRIES})")
+    raise AssertionError("profiler: the trace holds no device events")
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+class Ms(float):
+    """A time in ms that keeps how it was taken (`by`): "cupti" or "cuda
+    events". `main` copies each kernel row's into the row's `timed_by`."""
+
+    def __new__(cls, value: float, by: str):
+        self = super().__new__(cls, value)
+        self.by = by
+        return self
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> Ms:
     """Device time of one call after warm-up: the summed durations of the
     kernels it launched, over `iters` calls. Host launch gaps are left out:
     a ~40 us kernel behind a Python wrapper would otherwise be timed at the
@@ -130,11 +168,15 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
 
-    _, by_name, _ = traced(many)
-    return sum(by_name.values()) / iters
+    try:
+        _, by_name, _ = traced(many)
+    except AssertionError:  # CUPTI gave no device events, PROFILE_TRIES times
+        log("time_ms: no device events; this time is by CUDA events instead")
+        return Ms(events_ms(fn, iters=iters, warmup=0), "cuda events (CUPTI gave no events)")
+    return Ms(sum(by_name.values()) / iters, "cupti")
 
 
-def events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def events_ms(fn, iters: int = 20, warmup: int = 3) -> Ms:
     """Time of one call by CUDA events around `iters` calls (a cross-check of
     `time_ms` for kernels long enough that host launch gaps do not count)."""
     for _ in range(warmup):
@@ -146,7 +188,7 @@ def events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return Ms(start.elapsed_time(end) / iters, "cuda events")
 
 
 def bound(flops: float, nbytes: float, flop_rate: float = H100_BF16_FLOPS):
@@ -177,6 +219,9 @@ ATOL_ROW_RMS_FRAC = {
     "mlp_int4_stacked": 1e-3,
     "decode_attention_quantized4_mono": 2.5e-3,
     "decode_attention_quantized_mono": 2.5e-3,  # the same arithmetic on both sides
+    # acc of the three stats kernels (m and l: STATS_REL): the same f32 sums
+    # in another order, P (times the V scale) rounded to bf16 on both sides
+    "decode_attention_db_stats": 2.5e-3,
     # one layer's output from the same input (`mega_layerwise`): bf16
     # roundings of the planes, the activation and the residual flip where
     # the f32 sums are ordered otherwise, and a flip can move a nibble of the
@@ -442,6 +487,9 @@ COUNTERS = {
     "decode_megakernel": ("decode_megakernel", "launches"),
     "causal_attention_dq": ("causal_attention", "launches_dq"),
     "causal_attention_dkv": ("causal_attention", "launches_dkv"),
+    "decode_attention_db_stats": ("decode_attention_db", "launches"),
+    "decode_attention_quantized_db_stats": ("decode_attention_db", "launches_q8"),
+    "decode_attention_quantized4_db_stats": ("decode_attention_db", "launches_q4"),
 }
 
 
@@ -1057,6 +1105,8 @@ KERNEL_PATH = {
     "decode_attention_mono": "bf16", "decode_megakernel": "b1",
     "decode_attention_quantized_mono": "int8",
     "causal_attention_dq": "train", "causal_attention_dkv": "train",
+    "decode_attention_db_stats": "sp_bf16", "decode_attention_quantized_db_stats": "sp_int8",
+    "decode_attention_quantized4_db_stats": "sp_int4",
 }
 
 AUDIO_START, AUDIO_END, EOS = 128256, 128257, 128001  # resized vocab rows; Llama-3 <|end_of_text|>
@@ -2103,6 +2153,580 @@ def host_check_train(dev):
     log(json.dumps({"host_check_train": stats}))
 
 
+# ---------------------------------------------------------------------------
+# phases 12 and 13: timeline-sharded decode kernels, then the multi-rank paths
+# ---------------------------------------------------------------------------
+
+SP_WINDOWS = 4  # 30 s windows of the sp serving path (a), two per rank
+DB_ROWS = {  # name -> (format, TPU kernel it replaces)
+    "decode_attention_db_stats": (16, "audio_llama_tpu/ops/decode_attention_db.py:29"),
+    "decode_attention_quantized_db_stats": (8, "audio_llama_tpu/ops/decode_attention_db.py:151"),
+    "decode_attention_quantized4_db_stats": (4, "audio_llama_tpu/ops/decode_attention_db.py:535"),
+}
+STATS_REL = 1e-5  # m and l against the plain version: the same f32 sums in another order
+# two half-slabs merged vs the mono kernel on the whole slab: P is rounded to
+# bf16 at each half's own max there and at the whole slab's max here, the
+# attention forwards' reason for their bar (ATOL_ROW_RMS_FRAC)
+MERGE_FRAC = 3e-2
+MULTI_LABEL = "2 ranks time-sharing one H100 over gloo"
+
+
+def sp_slots(cfg, windows=SP_WINDOWS, prompt=PROMPT, new=N_NEW, sp=2):
+    """(local slots of each sp rank, prefix length) of the sp serving path."""
+    prefix = windows * cfg.audio_seq_len + 2 + prompt
+    return _rounded_len(-(-(prefix + new) // sp)), prefix
+
+
+def stats_ratio(got, want) -> float:
+    """max |got - want| / (STATS_REL |want|) of m or l (0 where both are 0)."""
+    err = (got.float() - want.float()).abs()
+    bar = STATS_REL * want.float().abs()
+    return torch.where(err == 0, 0.0, err / bar.clamp(min=1e-30)).max().item()
+
+
+def db_reject(name, fault, got, want, frac) -> dict:
+    """A stats kernel run on a planted fault must fail the check it passed:
+    m or l outside STATS_REL, or acc outside its bar -> each one's ratio."""
+    ratios = {"m": stats_ratio(got[0], want[0]), "l": stats_ratio(got[1], want[1]),
+              "acc": tol_ratio(got[2], want[2], frac)}
+    if not max(ratios.values()) > 1:
+        raise AssertionError(f"{name}: the planted fault '{fault}' passes the check {ratios}")
+    return ratios
+
+
+def db_case(dev, gen, bits, B, S, L, Hkv, Hq, hd):
+    """Random inputs of one stats-kernel call: (q, fresh rows, caches,
+    scales, fresh scales); int8/int4 caches as random bytes and scales."""
+    bf = torch.bfloat16
+
+    def rand_bytes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+
+    def rand_scales(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 0.002 + 0.0002
+
+    q = torch.randn((B, Hq, hd), generator=gen, device=dev).to(bf)
+    if bits == 16:
+        rows = [torch.randn((B, Hkv, hd), generator=gen, device=dev).to(bf) for _ in range(2)]
+        caches = [torch.randn((L, B, Hkv, S, hd), generator=gen, device=dev).to(bf)
+                  for _ in range(2)]
+        return dict(q=q, rows=rows, caches=caches, scales=None, fresh=None)
+    n = 2 if bits == 8 else 1
+    return dict(q=q, rows=[rand_bytes(B, Hkv, hd) for _ in range(n)],
+                caches=[rand_bytes(L, B, Hkv, S, hd) for _ in range(n)],
+                scales=[rand_scales(L, B, Hkv, S) for _ in range(2)],
+                fresh=[rand_scales(B, Hkv) for _ in range(2)])
+
+
+def db_call(case, bits, li, off, valid, scale, cuda=True, fresh=None):
+    """One stats-kernel call on copies of the case's caches -> (m, l, acc,
+    caches after). fresh: the fresh rows' scales to pass (a fault plants
+    others)."""
+    from audio_llama_tpu_torch.ops import decode_attention_db as db
+
+    caches = [c.clone() for c in case["caches"]]
+    q, rows = case["q"], case["rows"]
+    if bits == 16:
+        fn = db.db_stats_cuda if cuda else db.db_stats_plain
+        m, l, acc, *_ = fn(q, rows[0], rows[1], caches[0], caches[1], li, off, valid, scale)
+    elif bits == 8:
+        fn = db.db_stats_q8_cuda if cuda else db.db_stats_q8_plain
+        m, l, acc, *_ = fn(q, rows[0], rows[1], caches[0], caches[1], *case["scales"],
+                           *(fresh or case["fresh"]), li, off, valid, scale)
+    else:
+        fn = db.db_stats_q4_cuda if cuda else db.db_stats_q4_plain
+        m, l, acc, *_ = fn(q, rows[0], caches[0], *case["scales"], *(fresh or case["fresh"]),
+                           li, off, valid, scale)
+    return m, l, acc, caches
+
+
+def mono_call(case, bits, li, off, valid, scale):
+    """The already-ported mono kernel on the whole slab (offset a [B] tensor)."""
+    from audio_llama_tpu_torch.ops import decode_attention_mono as dm
+
+    caches = [c.clone() for c in case["caches"]]
+    q, rows = case["q"], case["rows"]
+    if bits == 16:
+        return dm.decode_attention_cuda(q, rows[0], rows[1], caches[0], caches[1], li, off,
+                                        valid, scale)[0]
+    ks, vs = (s.clone() for s in case["scales"])
+    ksn, vsn = case["fresh"]
+    B = q.shape[0]
+    ks[li, torch.arange(B), :, off.long()] = ksn  # the caller writes the append scales
+    vs[li, torch.arange(B), :, off.long()] = vsn
+    if bits == 8:
+        return dm.decode_attention_q8_cuda(q, rows[0], rows[1], caches[0], caches[1], ks, vs,
+                                           ksn, vsn, li, off, valid, scale)[0]
+    return dm.decode_attention_q4_cuda(q, rows[0], caches[0], ks, vs, ksn, vsn, li, off, valid,
+                                       scale)[0]
+
+
+def db_kernel_checks(dev, gen):
+    """The three stats kernels at the sp serving path's local slab (28
+    layers, 8 KV heads, S local slots), B 1 and 4, against their plain
+    versions: an owner and a non-owner rank, an all-invalid slab; planted
+    faults; two half-slabs merged against the mono kernel on the whole
+    slab; timed beside the plain version and SDPA over the same slab."""
+    import torch.nn.functional as F
+
+    from audio_llama_tpu_torch.ops import decode_attention_db as db
+    from audio_llama_tpu_torch.ops.attention import merge_stats
+
+    lc = full_config().llama
+    L, Hkv, Hq, hd = lc.num_layers, lc.num_kv_heads, lc.num_heads, lc.head_dim
+    S, prefix = sp_slots(full_config())
+    glob = prefix + N_NEW - 2  # the last decode step's slot
+    own = glob - S  # its local slot on rank 1 of 2
+    scale, li = hd ** -0.5, min(5, L - 1)
+    frac = ATOL_ROW_RMS_FRAC["decode_attention_db_stats"]
+    kpos = torch.arange(S, device=dev)[None, :]
+    rows = []
+    for name, (bits, replaces) in DB_ROWS.items():
+        results, faults = {}, {}
+        for B in (1, 4):
+            case = db_case(dev, gen, bits, B, S, L, Hkv, Hq, hd)
+            valid = (kpos <= own).to(torch.int32).repeat(B, 1)
+            for b in range(B):  # a few masked slots per row
+                valid[b, 100 * b + 3:100 * b + 10] = 0
+            past = torch.ones_like(valid)
+            past[:, 7:19] = 0
+            for kind, off, vmask in (("owner", own, valid), ("non-owner", S + 16, past),
+                                     ("all-invalid", own, torch.zeros_like(valid))):
+                m, l, acc, caches = db_call(case, bits, li, off, vmask, scale)
+                wm, wl, wacc, wcaches = db_call(case, bits, li, off, vmask, scale, cuda=False)
+                torch.cuda.synchronize()
+                label = f"{name} B={B} {kind}"
+                err, ratio = check_close(label, acc, wacc, frac)
+                rm, rl = stats_ratio(m, wm), stats_ratio(l, wl)
+                if max(rm, rl) > 1:
+                    raise AssertionError(f"{label}: m/l outside rel {STATS_REL} ({rm}, {rl})")
+                for got_c, want_c, before in zip(caches, wcaches, case["caches"]):
+                    if not torch.equal(got_c, want_c):
+                        raise AssertionError(f"{label}: the cache differs from the plain one")
+                    if kind == "non-owner" and not torch.equal(got_c, before):
+                        raise AssertionError(f"{label}: a non-owner changed its cache")
+                if kind == "all-invalid" and not (bool((m == -5e29).all()) and not l.any()
+                                                  and not acc.any()):
+                    raise AssertionError(f"{label}: want (-5e29, 0, 0)")
+                results[f"B={B} {kind}"] = dict(acc_max_abs_err=err, acc_tol_ratio=ratio,
+                                                m_ratio=rm, l_ratio=rl)
+            # planted faults, at B = 4 against the plain version's right answer
+            if B == 4:
+                want = db_call(case, bits, li, S + 16, past, scale, cuda=False)
+                wrong = db_call(case, bits, li, S // 2, past, scale)  # a non-owner appends
+                faults["non-owner appends"] = db_reject(name, "non-owner appends", wrong,
+                                                        want, frac)
+                if torch.equal(wrong[3][0], want[3][0]):
+                    raise AssertionError(f"{name}: the wrongly appended row left no trace")
+                if bits != 16:
+                    want = db_call(case, bits, li, own, valid, scale, cuda=False)
+                    ones = [torch.ones_like(s) for s in case["fresh"]]
+                    dropped = db_call(case, bits, li, own, valid, scale, fresh=ones)
+                    faults["fresh row's scales dropped"] = db_reject(
+                        name, "fresh row's scales dropped", dropped, want, frac)
+                # an unclamped row max on an all-invalid slab: m = -1e30
+                m0 = db_call(case, bits, li, own, torch.zeros_like(valid), scale)[0]
+                ratio = stats_ratio(torch.full_like(m0, -1e30), m0)
+                if not ratio > 1:
+                    raise AssertionError(f"{name}: the m check passes an unclamped row max")
+                faults["unclamped m, all-invalid slab"] = ratio
+                # two half-slabs merged vs the mono kernel over the whole slab
+                whole = db_case(dev, gen, bits, B, 2 * S, L, Hkv, Hq, hd)
+                wvalid = (torch.arange(2 * S, device=dev)[None, :] <= glob).to(
+                    torch.int32).repeat(B, 1)
+                wvalid[:, 700:710] = 0
+                parts = []
+                for r in range(2):
+                    half = dict(whole, caches=[c[:, :, :, r * S:(r + 1) * S].contiguous()
+                                               for c in whole["caches"]])
+                    if bits != 16:
+                        half["scales"] = [s[..., r * S:(r + 1) * S].contiguous()
+                                          for s in whole["scales"]]
+                    parts.append(db_call(half, bits, li, glob - r * S,
+                                         wvalid[:, r * S:(r + 1) * S].contiguous(), scale))
+                merged = merge_stats(*(torch.stack([p[i] for p in parts]) for i in range(3)),
+                                     pmax=lambda t: t.amax(dim=0, keepdim=True),
+                                     psum=lambda t: t.sum(dim=0))
+                mono = mono_call(whole, bits, li, torch.full((B,), glob, dtype=torch.int32,
+                                                             device=dev), wvalid, scale)
+                merge = dict(zip(("max_abs_err", "tol_ratio"),
+                                 check_close(f"{name} merged", merged, mono, MERGE_FRAC)),
+                             tol=tol_entry(MERGE_FRAC))
+                del whole, parts
+        # times at B = 1, rank 1's slab at the last decode step
+        case = db_case(dev, gen, bits, 1, S, L, Hkv, Hq, hd)
+        valid = (kpos <= own).to(torch.int32)
+        n_valid = int(valid.sum())
+        row_bytes = {16: 4 * hd, 8: 2 * hd + 8, 4: hd + 8}[bits]
+        nbytes = (Hkv * n_valid * row_bytes + 2.0 * Hq * hd + Hkv * row_bytes
+                  + 4.0 * Hq * (hd + 2) + 4.0 * S)
+        bms, bby = bound(4.0 * Hq * n_valid * hd, nbytes)
+        turn = itertools.count()
+        if bits == 16:
+            kd, vd = (c.repeat_interleave(Hq // Hkv, dim=2) for c in case["caches"])
+        else:
+            from audio_llama_tpu_torch.models.llama import unpack_kv4
+
+            ks, vs = case["scales"]
+            if bits == 8:
+                kq, vq = case["caches"]
+            else:
+                kq, vq = unpack_kv4(case["caches"][0])
+            kd = (kq.to(torch.bfloat16) * ks[..., None].to(torch.bfloat16)).repeat_interleave(
+                Hq // Hkv, dim=2)
+            vd = (vq.to(torch.bfloat16) * vs[..., None].to(torch.bfloat16)).repeat_interleave(
+                Hq // Hkv, dim=2)
+        dmask = (valid != 0)[:, None, None, :]
+        qs = case["q"][:, :, None, :]
+        fns = {16: (db.db_stats_cuda, db.db_stats_plain), 8: (db.db_stats_q8_cuda,
+                                                            db.db_stats_q8_plain),
+               4: (db.db_stats_q4_cuda, db.db_stats_q4_plain)}[bits]
+        args = [case["q"], *case["rows"], *case["caches"], *(case["scales"] or []),
+                *(case["fresh"] or [])]
+
+        def kernel(fn):  # a rank that does not own the fresh row: the slab is only read
+            return fn(*args, next(turn) % L, S + 16, valid, scale)
+
+        def sdpa():
+            li = next(turn) % L
+            return F.scaled_dot_product_attention(qs, kd[li], vd[li], attn_mask=dmask,
+                                                  scale=scale)
+
+        # CUPTI sums: a call lasts about as long as its wrapper's host work,
+        # so CUDA events around back-to-back calls read the host's pace
+        # (`ms_events` keeps that reading beside them)
+        ms = time_ms(lambda: kernel(fns[0]), iters=112)
+        ms_events = events_ms(lambda: kernel(fns[0]), iters=112)
+        plain_ms = time_ms(lambda: kernel(fns[1]), iters=10)
+        library_ms = time_ms(sdpa, iters=112)
+        del kd, vd
+        row = dict(
+            name=name, route="cuda", source="audio_llama_tpu_torch/csrc/decode_attention_db.cu",
+            replaces=replaces,
+            max_abs_err=max(r["acc_max_abs_err"] for r in results.values()),
+            tol={**tol_entry(frac), "m_l_rel": STATS_REL},
+            tol_ratio=max(r["acc_tol_ratio"] for r in results.values()),
+            checks=results, merge_of_2_half_slabs_vs_mono=merge,
+            planted_fault_ratios=faults, ms=ms, ms_events=ms_events, plain_ms=plain_ms,
+            library_ms=library_ms,
+            library_note="SDPA over the same slab (K/V bf16, dequantized and repeated per query "
+                         "head ahead of time); SDPA normalizes its output, the kernel returns "
+                         "unnormalized m, l, acc",
+            launches=None, bound_ms=bms, bound_by=bby,
+            shapes=f"local slab [{L},B,{Hkv},{S},{hd}] ({'bf16 K and V' if bits == 16 else 'int8 K and V' if bits == 8 else 'int4 K/V combined'}), q[B,{Hq},{hd}] bf16, B 1 and 4; timed at B=1 with {n_valid} valid slots, the fresh row on another rank",
+        )
+        log(f"kernel {name} ok: {json.dumps(row)}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def gloo_probe(dev) -> dict:
+    """Which gloo collectives take CUDA tensors here: each op once, straight
+    on the card's tensors (not through parallel/collectives.py), on the
+    world's group."""
+    import torch.distributed as dist
+
+    out = {}
+    # the cost of one all-reduce of the sizes the paths send: the sp merge's
+    # [B, Hq, hd + 1] f32 and tp's [B, 1, 3072] bf16 at B = 1, handed to
+    # gloo on the card or copied through the host first (ms per call, both
+    # ranks on one card)
+    for tag, shape, dt in (("sp merge [1,24,129] f32", (1, 24, 129), torch.float32),
+                           ("tp psum [1,1,3072] bf16", (1, 1, 3072), torch.bfloat16)):
+        x = torch.ones(shape, dtype=dt, device=dev)
+        for how, fn in (("cuda tensor", lambda: dist.all_reduce(x)),
+                        ("through the host", lambda: x.copy_(_host_all_reduce(x)))):
+            fn()
+            out[f"all_reduce ms, {tag}, {how}"] = min(
+                synced_ms(lambda: [fn() for _ in range(20)]) / 20 for _ in range(3))
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        tag = str(dt).replace("torch.", "")
+        for op, fn in (
+            ("all_reduce_sum", lambda x: dist.all_reduce(x)),
+            ("all_reduce_max", lambda x: dist.all_reduce(x, op=dist.ReduceOp.MAX)),
+            ("all_gather", lambda x: dist.all_gather([torch.empty_like(x)
+                                                      for _ in range(dist.get_world_size())], x)),
+        ):
+            x = torch.ones(8, dtype=dt, device=dev)
+            try:
+                fn(x)
+                torch.cuda.synchronize()
+                out[f"{op} {tag}"] = "accepted"
+            except (RuntimeError, ValueError) as e:
+                out[f"{op} {tag}"] = "refused: " + str(e).splitlines()[0][:160]
+    return out
+
+
+def _host_all_reduce(x):
+    import torch.distributed as dist
+
+    y = x.cpu()
+    dist.all_reduce(y)
+    return y.to(x.device)
+
+
+@torch.no_grad()
+def first_step_logits(frozen, trainable, cfg, ids, mask, audio, kv_quant, tp_axis=None,
+                      sp_axis=None, megakernel=False):
+    """generate's prefill, then one greedy decode step -> the f32 logits
+    [B, V] of that step; sharded when given the axes."""
+    from audio_llama_tpu_torch.inference.generate import prefill
+    from audio_llama_tpu_torch.models import llama
+
+    bf = torch.bfloat16
+    pre = prefill(frozen, trainable, cfg, ids, mask, audio, ids.device, max_new_tokens=N_NEW,
+                  compute_dtype=bf, kv_quant=kv_quant, audio_start_id=AUDIO_START,
+                  audio_end_id=AUDIO_END, tp_axis=tp_axis, sp_axis=sp_axis)
+    logits, _ = llama.llama_forward(
+        frozen["llama"], cfg.llama, input_ids=pre.next_logits.argmax(-1)[:, None],
+        attention_mask=pre.full_mask, positions=pre.real_len[:, None], kv_cache=pre.cache,
+        lora=pre.lora, compute_dtype=bf, megakernel=megakernel, tp_axis=tp_axis,
+        sp_axis=sp_axis)
+    return logits[:, 0].float()
+
+
+def rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def bf16_model(gen, cfg, lora_a=True):
+    """Seeded bf16 weights (vocab + 2 rows) and an f32 trainable tree whose
+    LoRA has a non-zero delta."""
+    from audio_llama_tpu_torch.models import allm, llama
+
+    frozen = allm.init_frozen(cfg, gen, torch.bfloat16)
+    frozen["llama"] = llama.resize_embeddings(frozen["llama"], cfg.llama.vocab_size + 2,
+                                              cfg.llama)
+    trainable = allm.init_trainable(cfg, gen, torch.float32)
+    if lora_a:
+        for br in trainable["lora"]["layers"].values():
+            br["a"].data.copy_(torch.randn(br["a"].shape, generator=gen,
+                                           device=br["a"].device) * 0.02)
+    return frozen, trainable
+
+
+def sharded_run(label, dev, fn, ref_fn, n_new, step_logits, want, batch, exact_fn=None):
+    """Time one sharded generate (warm-up, 1 token, n_new tokens with the
+    counters zeroed around it), check its launches, hold the first decode
+    step's logits against the single-process run and report the tokens'
+    agreement with it. `exact_fn(n_new)`, where given, -> tokens that the
+    sharded run's must equal bit for bit."""
+    fn(2)
+    first_ms = min(synced_ms(lambda: fn(1)) for _ in range(2))
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    result = {}
+    total_ms = synced_ms(lambda: result.setdefault("out", fn(n_new)))
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = result["out"].tokens
+    check_tokens(label, toks, (batch, n_new), full_config().llama.vocab_size + 2)
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times, want {n}")
+    ref = ref_fn(n_new).tokens
+    if exact_fn is not None and not torch.equal(toks, exact_fn(n_new)):
+        raise AssertionError(f"{label}: the tokens differ from the single-process runs of "
+                             f"the same rows")
+    sharded, single = step_logits()
+    rel = rel_l2(sharded, single)
+    if not (torch.isfinite(sharded).all() and rel <= HOST_TOL):
+        raise AssertionError(f"{label}: first decode step's logits rel-L2 {rel} vs the "
+                             f"single-process run (bar {HOST_TOL})")
+    return dict(
+        label=label, timing=MULTI_LABEL, new_tokens=n_new, batch=batch,
+        prefill_ms=first_ms, decode_ms_per_token=(total_ms - first_ms) / (n_new - 1),
+        generate_ms=total_ms, peak_mem_gb=peak_gb, tokens=toks.tolist(),
+        greedy_agreement_with_single_process=(toks == ref).float().mean().item(),
+        first_step_logits_rel_l2=rel, tol_rel_l2=HOST_TOL,
+        first_step_argmax_agree=(sharded.argmax(-1) == single.argmax(-1)).float().mean().item(),
+        launches=launches,
+    ), toks
+
+
+def multi_rank(rank, world, device):
+    """One rank of the 2-rank world on `device` (cuda:0; gloo): paths (a)-(d)."""
+    from audio_llama_tpu_torch.inference.generate import generate, make_dp_generate, \
+        make_tp_generate
+    from audio_llama_tpu_torch.models import allm, llama_int4, lora
+    from audio_llama_tpu_torch.parallel import build_mesh, make_sp_encode, make_sp_generate, \
+        shard_frozen_for_generation
+    from audio_llama_tpu_torch.parallel.mesh import AXES
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"gloo_cuda": gloo_probe(dev)}
+    sp_mesh = build_mesh([("sp", 2)])
+    tp_mesh = build_mesh(list(zip(AXES, (1, 1, 2, 1))))
+    dp_mesh = build_mesh([("dp", 2)])
+    cfg = full_config()
+    L, W = cfg.llama.num_layers, cfg.whisper.num_layers
+    bf = torch.bfloat16
+    kw = dict(eos_id=EOS, pad_id=0, audio_start_id=AUDIO_START, audio_end_id=AUDIO_END,
+              compute_dtype=bf, device=dev, greedy=True)
+    zero = {"decode_attention_mono": 0, "decode_attention_quantized4_mono": 0,
+            "decode_attention_quantized_mono": 0, "decode_megakernel": 0}
+
+    # (a) sp = 2, the shipped serving configuration: LoRA merged, fused int4
+    # tree, int4 KV, B = 1, four 30 s windows, 32 greedy tokens
+    gen = torch.Generator(device=dev).manual_seed(21)
+    t0 = time.perf_counter()
+    frozen, trainable = int4_model(gen, cfg)
+    wav = torch.randn((1, SP_WINDOWS * cfg.mel.max_samples), generator=gen, device=dev) * 0.1
+    ids = torch.randint(0, cfg.llama.vocab_size, (1, PROMPT), generator=gen, device=dev)
+    mask = torch.ones_like(ids)
+    enc = make_sp_encode(cfg, sp_mesh)
+    frames = enc(frozen, wav)
+    ref_frames = allm.process_audio_features(frozen, cfg, wav)
+    enc_rel = rel_l2(frames.float(), ref_frames.float())
+    if not (tuple(frames.shape) == tuple(ref_frames.shape) and enc_rel <= HOST_TOL):
+        raise AssertionError(f"sp encode: {tuple(frames.shape)} rel-L2 {enc_rel}")
+    enc_ms = min(synced_ms(lambda: enc(frozen, wav)) for _ in range(2))
+    enc_single_ms = min(synced_ms(lambda: allm.process_audio_features(frozen, cfg, wav))
+                        for _ in range(2))
+    a_kw = dict(kw, kv_quant=4)
+    sp = sp_mesh.axis("sp")
+
+    def run_a(n):
+        return make_sp_generate(cfg, sp_mesh, max_new_tokens=n, **a_kw)(
+            frozen, trainable, ids, mask, wav)
+
+    stats, toks = sharded_run(
+        "sp=2 int4w+kv4, B=1, 4 windows", dev, run_a,
+        lambda n: generate(frozen, trainable, cfg, ids, mask, wav, None, max_new_tokens=n,
+                           megakernel=False, **a_kw), N_NEW,
+        lambda: (first_step_logits(frozen, trainable, cfg, ids, mask, wav, 4, sp_axis=sp),
+                 first_step_logits(frozen, trainable, cfg, ids, mask, wav, 4)),
+        {**zero, "decode_attention_quantized4_db_stats": L * (N_NEW - 1),
+         "decode_attention_quantized_db_stats": 0, "decode_attention_db_stats": 0,
+         "layer_norm": 2 * W, "enc_attention": W, "mel_power": 1}, 1)
+    stats.update(setup_s=time.perf_counter() - t0, local_slots=sp_slots(cfg)[0],
+                 prefix_tokens=sp_slots(cfg)[1], sp_encode_ms=enc_ms,
+                 single_encode_ms=enc_single_ms, sp_encode_rel_l2=enc_rel)
+    out["a"] = stats
+    del frozen, trainable
+    torch.cuda.empty_cache()
+
+    # (b) sp = 2 on the bf16 tree (LoRA as an adapter), one window, 8 tokens,
+    # an int8 KV cache and a bf16 one
+    gen = torch.Generator(device=dev).manual_seed(22)
+    frozen, trainable = bf16_model(gen, cfg)
+    wav = torch.randn((1, cfg.mel.max_samples), generator=gen, device=dev) * 0.1
+    ids = torch.randint(0, cfg.llama.vocab_size, (1, PROMPT), generator=gen, device=dev)
+    mask = torch.ones_like(ids)
+    n_b = 8
+    for kv, name in ((True, "decode_attention_quantized_db_stats"),
+                     (False, "decode_attention_db_stats")):
+        b_kw = dict(kw, kv_quant=kv)
+        others = {"decode_attention_quantized4_db_stats": 0, "decode_attention_quantized_db_stats": 0,
+                  "decode_attention_db_stats": 0}
+        stats, _ = sharded_run(
+            f"sp=2 bf16w+kv{8 if kv else 16}, B=1", dev,
+            lambda n: make_sp_generate(cfg, sp_mesh, max_new_tokens=n, **b_kw)(
+                frozen, trainable, ids, mask, wav),
+            lambda n: generate(frozen, trainable, cfg, ids, mask, wav, None, max_new_tokens=n,
+                               **b_kw), n_b,
+            lambda: (first_step_logits(frozen, trainable, cfg, ids, mask, wav, kv, sp_axis=sp),
+                     first_step_logits(frozen, trainable, cfg, ids, mask, wav, kv)),
+            {**zero, **others, name: L * (n_b - 1)}, 1)
+        out["b kv8" if kv else "b kv16"] = stats
+
+    # (d) dp = 2 on the same bf16 tree, B = 4 (two rows per rank), 8 tokens
+    B = len(INT4_PROMPTS)
+    wav4 = torch.randn((B, cfg.mel.max_samples), generator=gen, device=dev) * 0.1
+    ids4 = torch.randint(0, cfg.llama.vocab_size, (B, max(INT4_PROMPTS)), generator=gen,
+                         device=dev)
+    mask4 = torch.zeros_like(ids4)
+    for b, n in enumerate(INT4_PROMPTS):
+        mask4[b, :n] = 1
+    ids4 = ids4 * mask4
+    rows = slice(2 * dp_mesh.axis("dp").index, 2 * dp_mesh.axis("dp").index + 2)
+    d_kw = dict(kw, kv_quant=False)
+
+    def per_group(n):  # each dp group's rows through one process, in group order
+        return torch.cat([generate(frozen, trainable, cfg, ids4[g:g + 2], mask4[g:g + 2],
+                                   wav4[g:g + 2], None, max_new_tokens=n, **d_kw).tokens
+                          for g in (0, 2)])
+
+    # the entry point's tokens must equal the groups' single-process runs
+    # bit for bit (the rows' order across the gather included); the logits
+    # check holds this rank's rows, run alone in one process, against the
+    # whole batch's run: dp's per-rank program at B/dp, not the gather
+    stats, _ = sharded_run(
+        "dp=2 bf16w+kv16, B=4", dev,
+        lambda n: make_dp_generate(cfg, dp_mesh, max_new_tokens=n, **d_kw)(
+            frozen, trainable, ids4, mask4, wav4),
+        lambda n: generate(frozen, trainable, cfg, ids4, mask4, wav4, None, max_new_tokens=n,
+                           **d_kw), n_b,
+        lambda: (first_step_logits(frozen, trainable, cfg, ids4[rows], mask4[rows], wav4[rows],
+                                   False),
+                 first_step_logits(frozen, trainable, cfg, ids4, mask4, wav4, False)[rows]),
+        {"decode_attention_mono": L * (n_b - 1), "decode_attention_db_stats": 0}, B,
+        exact_fn=per_group)
+    out["d"] = stats
+    del frozen, trainable
+    torch.cuda.empty_cache()
+
+    # (c) tp = 2 on the int4 tree packed after the shard (LoRA merged),
+    # int4 KV, B = 4, 16 tokens; the single-process run takes the unfused
+    # tp=1 tree of the same weights (the same int4 values, packed whole)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    frozen, trainable = bf16_model(gen, cfg)
+    merged = lora.merge_into_llama(frozen["llama"], lora.with_scaling(trainable["lora"],
+                                                                      cfg.lora))
+    trainable = type(trainable)({k: v for k, v in trainable.items() if k != "lora"})
+    whole = type(frozen)({"llama": llama_int4.quantize_llama_int4(merged, fuse=False),
+                          "whisper": frozen["whisper"]})
+    packed = type(frozen)({"llama": llama_int4.quantize_llama_int4(merged, tp=2, fuse=False),
+                           "whisper": frozen["whisper"]})
+    del merged, frozen
+    block = shard_frozen_for_generation(tp_mesh, packed)  # for the first-step logits
+    torch.cuda.empty_cache()
+    wav4 = torch.randn((B, cfg.mel.max_samples), generator=gen, device=dev) * 0.1
+    c_kw = dict(kw, kv_quant=4)
+    n_c = 16
+    tp = tp_mesh.axis("tp")
+    stats, _ = sharded_run(
+        "tp=2 int4w (tp-packed)+kv4, B=4", dev,
+        lambda n: make_tp_generate(cfg, tp_mesh, max_new_tokens=n, **c_kw)(
+            packed, trainable, ids4, mask4, wav4),
+        lambda n: generate(whole, trainable, cfg, ids4, mask4, wav4, None, max_new_tokens=n,
+                           **c_kw), n_c,
+        lambda: (first_step_logits(block, trainable, cfg, ids4, mask4, wav4, 4, tp_axis=tp),
+                 first_step_logits(whole, trainable, cfg, ids4, mask4, wav4, 4)),
+        {**zero, "decode_attention_quantized4_mono": L * (n_c - 1),
+         "int4_matmul_stacked": 7 * L * n_c, "mlp_int4_stacked": 0,
+         "decode_attention_quantized4_db_stats": 0}, B)
+    out["c"] = stats
+    return out
+
+
+def multi_path(dev) -> dict:
+    """A world of 2 ranks spawned on cuda:0 over gloo (NCCL refuses two ranks
+    on one device), each building its weights from the same seeds: (a) sp=2
+    on the serving configuration, (b) sp=2 with int8 and bf16 KV caches on
+    the bf16 tree, (c) tp=2 on the tp-packed int4 tree, (d) dp=2. Tokens
+    must be identical on both ranks."""
+    from audio_llama_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    res = distributed.spawn(multi_rank, 2, backend="gloo", device=str(dev), args=(str(dev),),
+                            timeout=900)
+    for key in ("a", "b kv8", "b kv16", "c", "d"):
+        if res[0][key]["tokens"] != res[1][key]["tokens"]:
+            raise AssertionError(f"multi {key}: the ranks' tokens differ")
+    log(json.dumps({"multi_path": {
+        "timing": MULTI_LABEL, "seconds": time.perf_counter() - t0,
+        "gloo_cuda_tensors": res[0]["gloo_cuda"],
+        "ranks": [{k: v for k, v in r.items() if k != "gloo_cuda"} for r in res],
+    }}))
+    return {"sp_int4": res[0]["a"]["launches"], "sp_int8": res[0]["b kv8"]["launches"],
+            "sp_bf16": res[0]["b kv16"]["launches"]}
+
+
 # bf16 activations through 2 + 2 layers against an f32 host path: each bf16
 # rounding is <= 2^-9 relative, a few dozen of them compound to ~1e-2
 HOST_TOL = 2e-2
@@ -2143,6 +2767,8 @@ def main(argv=None) -> int:
     rows.append(megakernel_checks(dev, gen))
     rows.append(q8_kernel_checks(dev, gen))
     torch.cuda.empty_cache()
+    rows += db_kernel_checks(dev, gen)
+    torch.cuda.empty_cache()
     rows += train_kernel_checks(dev, gen)
     torch.cuda.empty_cache()
     paths = {"bf16": main_path(dev, profile=args.profile)}
@@ -2165,8 +2791,12 @@ def main(argv=None) -> int:
                      want={"decode_attention_quantized_mono": L})
     torch.cuda.empty_cache()
     paths["train"] = train_path(dev, profile=args.profile)
+    torch.cuda.empty_cache()
+    paths.update(multi_path(dev))
     for row in rows:  # each kernel's count on the path that exercises it
         row["launches"] = paths[KERNEL_PATH.get(row["name"], "int4")][row["name"]]
+        row["timed_by"] = {k: row[k].by for k in ("ms", "plain_ms", "library_ms")
+                           if isinstance(row.get(k), Ms)}
     torch.cuda.empty_cache()
     host_check_train(dev)
 

@@ -661,3 +661,72 @@ def test_tiny_train_step_on_the_card_matches_the_host(dev):
     assert abs(card[0] - host[0]) <= 1e-2 * abs(host[0])
     for c, h in zip(card[1], host[1]):
         assert ((c - h).norm() / h.norm()).item() < 5e-2
+
+
+# --- timeline-sharded decode: the stats kernels and a two-rank world -------
+
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("B,S,off", [(1, 3040, 3016), (4, 3040, 3056), (2, 64, 19),
+                                     (2, 64, -5)])
+def test_db_stats_kernels(dev, bits, B, S, off):
+    """Each stats kernel against its plain version: m and l within 1e-5
+    relative, acc within the decode kernels' bar, the caches bit-equal (an
+    owner appended, a non-owner left its cache as it was)."""
+    from chip_smoke import STATS_REL, db_call, db_case, stats_ratio
+
+    gen = torch.Generator(device=dev).manual_seed(bits + B)
+    case = db_case(dev, gen, bits, B, S, 2, 8, 24, 128)
+    valid = (torch.arange(S, device=dev)[None, :] <= off).to(torch.int32).repeat(B, 1)
+    if off < 0 or off >= S:
+        valid[:] = 1
+    valid[0, 3:9] = 0
+    m, l, acc, caches = db_call(case, bits, 1, off, valid, 128 ** -0.5)
+    wm, wl, wacc, wcaches = db_call(case, bits, 1, off, valid, 128 ** -0.5, cuda=False)
+    torch.cuda.synchronize()
+    assert stats_ratio(m, wm) <= 1 and stats_ratio(l, wl) <= 1, STATS_REL
+    assert tol_ratio(acc, wacc, ATOL_ROW_RMS_FRAC["decode_attention_db_stats"]) <= 1
+    for got, want, before in zip(caches, wcaches, case["caches"]):
+        assert torch.equal(got, want)
+        assert torch.equal(got, before) == (not 0 <= off < S)
+
+
+def _tiny_sp_case(dev):
+    from audio_llama_tpu_torch.config import AudioLLMConfig
+    from audio_llama_tpu_torch.device import make_generator
+    from audio_llama_tpu_torch.models import allm
+
+    cfg = AudioLLMConfig.tiny()
+    frozen = allm.init_frozen(cfg, make_generator(0, "cpu"), torch.bfloat16).to(dev)
+    train = allm.init_trainable(cfg, make_generator(1, "cpu"), torch.bfloat16).to(dev)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(3, 250, (2, 40)))
+    kw = dict(max_new_tokens=6, greedy=True, eos_id=-1, has_audio=False,
+              compute_dtype=torch.bfloat16, device=dev)
+    return cfg, frozen, train, ids, kw
+
+
+def _sp_world(rank, world):
+    """sp = 2 on the card (gloo, both ranks on cuda:0), the tiny model at
+    bf16: the tokens and the stats kernel's launches."""
+    from audio_llama_tpu_torch.ops import decode_attention_db as db
+    from audio_llama_tpu_torch.parallel import build_mesh, make_sp_generate
+
+    cfg, frozen, train, ids, kw = _tiny_sp_case("cuda:0")
+    fn = make_sp_generate(cfg, build_mesh([("sp", 2)]), **kw)
+    n = db.launches
+    tokens = fn(frozen, train, ids, torch.ones_like(ids)).tokens
+    return tokens, db.launches - n
+
+
+def test_sp_generate_two_ranks_on_the_card(dev):
+    """Two gloo ranks on one card: the same tokens on both, the first one
+    the single-process run's (the prefill is the same computation), and the
+    stats kernel launched once per layer per decode step on each rank."""
+    from audio_llama_tpu_torch.inference.generate import generate
+    from audio_llama_tpu_torch.parallel import distributed
+
+    cfg, frozen, train, ids, kw = _tiny_sp_case(dev)
+    want = generate(frozen, train, cfg, ids, torch.ones_like(ids), **kw).tokens.cpu()
+    out = distributed.spawn(_sp_world, 2, backend="gloo", device="cuda:0", timeout=600)
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][0][:, 0], want[:, 0])
+    assert all(launches == cfg.llama.num_layers * 5 for _, launches in out)
