@@ -15,17 +15,27 @@
 // finite -1e9 of the TPU kernel, so a row whose every key is masked stays
 // finite. exp runs in f32 (the TPU kernel runs it in bf16); P is rounded to
 // bf16 before PV and the denominator is summed from that rounded P.
+//
+// causal = 0 is the kernel's tri='never' mode (causal_attention.py:114-132),
+// which the ring of sequence-parallel training (ring_kernel.py:87) runs for
+// every hop whose keys come from an earlier shard: the same tile loop with no
+// causal mask and no skipped tile, so every key tile of the hop contributes;
+// the source shard's key-padding bias still applies. Bound: all of QK^T and
+// PV, 4 * hd * Hq * T^2 FLOP per batch row (25.8 GFLOP at the sp = 2 hop of
+// training, B 2, T 1024: 26 us at 989 TFLOP/s).
 #include "attention_fwd.cuh"
 
 // q (pre-scaled) and o: [B, T, Hq, hd]-strided bf16; k, v: [B, T, Hkv, hd]-
-// strided; key_bias: [B, T] f32; l_out, m_out: [B*Hq, T] f32.
+// strided; key_bias: [B, T] f32; l_out, m_out: [B*Hq, T] f32. causal: 1 for
+// tri='always', 0 for tri='never'.
 AL_EXPORT int al_causal_attention(const void* q, const void* k, const void* v, void* o,
                                   void* l_out, void* m_out, const void* key_bias, int B,
                                   int T, int Hq, int Hkv, int hd, long long q_sb,
                                   long long q_st, long long q_sh, long long k_sb,
                                   long long k_st, long long k_sh, long long v_sb,
                                   long long v_st, long long v_sh, long long o_sb,
-                                  long long o_st, long long o_sh, void* stream) {
+                                  long long o_st, long long o_sh, int causal,
+                                  void* stream) {
   if (B == 0 || T == 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   al::AttnParams p{};
@@ -44,5 +54,7 @@ AL_EXPORT int al_causal_attention(const void* q, const void* k, const void* v, v
   p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_st = o_st; p.o_sh = o_sh;
-  return al::dispatch_attn_fwd<true>(p, B, hd, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return causal ? al::dispatch_attn_fwd<true>(p, B, hd, s)
+                : al::dispatch_attn_fwd<false>(p, B, hd, s);
 }

@@ -36,6 +36,15 @@
 // f32 tile (P waits in registers while dP is computed), which keeps each
 // block near 100 KB of shared memory: two blocks fit an SM. A simple first
 // version otherwise: no cp.async or TMA pipeline, no wgmma.
+//
+// CAUSAL = false is the kernels' tri='never' mode (causal_attention.py:479-490,
+// :525-533), which the ring's backward (ring_kernel.py:159-161) runs for every
+// hop whose K/V block comes from an earlier shard: dq loops over ALL key tiles
+// and dk/dv over ALL query tiles, with no diagonal mask; m, l and D are the
+// caller's global row statistics (merged over the ring), so P of a hop is its
+// share of the whole row's softmax. Bound: all of the products, 2 hd T^2 FLOP
+// per product and head (dq 3.9e10 and dk/dv 5.2e10 FLOP at the sp = 2 hop of
+// training, B 2, T 1024: 0.039 and 0.052 ms).
 #include "attention_fwd.cuh"
 
 namespace al {
@@ -142,7 +151,7 @@ __device__ __forceinline__ void store_rows(FragAcc (&acc)[HD / 16], float* stage
   __syncwarp();
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
   using Sm = Smem<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -181,7 +190,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
 #pragma unroll
   for (int n = 0; n < HD / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
 
-  for (int t = 0; t <= qt; ++t) {  // key tiles at or below the diagonal
+  const int n_k = CAUSAL ? qt + 1 : p.T / kTile;  // causal: the tiles at or below the diagonal
+  for (int t = 0; t < n_k; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // every warp is done with the previous K/V tile
     copy_rows_bf16(sK, Sm::LDH, kb, kst, k0, kTile, p.T, HD);
@@ -197,7 +207,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
     for (int j = 0; j < HC; ++j) {
       const int key = k0 + half * HC + j;
       float s = s_row[j] + bias[key];
-      if (key > qrow) s = kNeg;
+      if (CAUSAL && key > qrow) s = kNeg;
       pr[j] = __expf(s - m_i) * inv_l;
     }
     __syncwarp();
@@ -213,7 +223,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
                  p.dq + (long long)b * p.T * qst + h * HD, qst, q0, warp, lane);
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
   using Sm = Smem<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -260,7 +270,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
     const long long bh = (long long)b * p.Hq + h;
     const bf16* qb = p.q + (long long)b * p.T * qst + h * HD;
     const bf16* ob = p.dout + (long long)b * p.T * qst + h * HD;
-    for (int qt = kt; qt < n_tiles; ++qt) {  // query tiles at or past the diagonal
+    // causal: the query tiles at or past the diagonal; else every one
+    for (int qt = CAUSAL ? kt : 0; qt < n_tiles; ++qt) {
       const int q0 = qt * kTile;
       __syncthreads();  // every warp is done with the previous Q/dO tile
       copy_rows_bf16(sQ, Sm::LDH, qb, qst, q0, kTile, p.T, HD);
@@ -284,7 +295,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
       for (int j = 0; j < HC; ++j) {
         const int c = half * HC + j;
         float s = s_row[j] + bias_j;
-        if (kg > q0 + c) s = kNeg;
+        if (CAUSAL && kg > q0 + c) s = kNeg;
         pr[j] = __expf(s - sM[c]) * sIL[c];
         p_row[j] = __float2bfloat16(pr[j]);
       }
@@ -315,26 +326,31 @@ cudaError_t prepare(K kernel, size_t smem) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 cudaError_t launch(const Params& p, int B, bool dq, cudaStream_t stream) {
   const int n_tiles = p.T / kTile;
   if (dq) {
     const size_t smem = Smem<HD>::dq_total;
-    cudaError_t err = prepare(dq_kernel<HD>, smem);
+    cudaError_t err = prepare(dq_kernel<HD, CAUSAL>, smem);
     if (err != cudaSuccess) return err;
-    dq_kernel<HD><<<dim3(B * p.Hq, n_tiles), kThreads, smem, stream>>>(p);
+    dq_kernel<HD, CAUSAL><<<dim3(B * p.Hq, n_tiles), kThreads, smem, stream>>>(p);
   } else {
     const size_t smem = Smem<HD>::dkv_total;
-    cudaError_t err = prepare(dkv_kernel<HD>, smem);
+    cudaError_t err = prepare(dkv_kernel<HD, CAUSAL>, smem);
     if (err != cudaSuccess) return err;
-    dkv_kernel<HD><<<dim3(B * p.Hkv, n_tiles), kThreads, smem, stream>>>(p);
+    dkv_kernel<HD, CAUSAL><<<dim3(B * p.Hkv, n_tiles), kThreads, smem, stream>>>(p);
   }
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t launch(const Params& p, int B, bool dq, bool causal, cudaStream_t stream) {
+  return causal ? launch<HD, true>(p, B, dq, stream) : launch<HD, false>(p, B, dq, stream);
+}
+
 inline int run(const void* q, const void* k, const void* v, const void* dout, const void* l,
                const void* m, const void* d, const void* key_bias, void* dq, void* dk, void* dv,
-               int B, int T, int Hq, int Hkv, int hd, void* stream) {
+               int B, int T, int Hq, int Hkv, int hd, int causal, void* stream) {
   if (B == 0 || T == 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || T % kTile != 0) return cudaErrorInvalidValue;
   Params p{};
@@ -355,10 +371,10 @@ inline int run(const void* q, const void* k, const void* v, const void* dout, co
   const bool is_dq = dq != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16>(p, B, is_dq, s);
-    case 32: return launch<32>(p, B, is_dq, s);
-    case 64: return launch<64>(p, B, is_dq, s);
-    case 128: return launch<128>(p, B, is_dq, s);
+    case 16: return launch<16>(p, B, is_dq, causal != 0, s);
+    case 32: return launch<32>(p, B, is_dq, causal != 0, s);
+    case 64: return launch<64>(p, B, is_dq, causal != 0, s);
+    case 128: return launch<128>(p, B, is_dq, causal != 0, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -368,21 +384,24 @@ inline int run(const void* q, const void* k, const void* v, const void* dout, co
 
 // q (pre-scaled), dout, dq: [B, T, Hq, hd] bf16; k, v: [B, T, Hkv, hd] bf16;
 // l, m, d: [B*Hq, T] f32; key_bias: [B, T] f32. All contiguous, T % 64 == 0.
+// causal: 1 for tri='always', 0 for tri='never' (a ring hop, global m, l, d).
 AL_EXPORT int al_causal_attention_dq(const void* q, const void* k, const void* v,
                                      const void* dout, const void* l, const void* m,
                                      const void* d, const void* key_bias, void* dq, int B,
-                                     int T, int Hq, int Hkv, int hd, void* stream) {
+                                     int T, int Hq, int Hkv, int hd, int causal,
+                                     void* stream) {
   if (dq == nullptr) return cudaErrorInvalidValue;
   return al::bwd::run(q, k, v, dout, l, m, d, key_bias, dq, nullptr, nullptr, B, T, Hq, Hkv, hd,
-                      stream);
+                      causal, stream);
 }
 
 // dk, dv: [B, T, Hkv, hd] bf16, summed over the G query heads of each group.
 AL_EXPORT int al_causal_attention_dkv(const void* q, const void* k, const void* v,
                                       const void* dout, const void* l, const void* m,
                                       const void* d, const void* key_bias, void* dk, void* dv,
-                                      int B, int T, int Hq, int Hkv, int hd, void* stream) {
+                                      int B, int T, int Hq, int Hkv, int hd, int causal,
+                                      void* stream) {
   if (dk == nullptr || dv == nullptr) return cudaErrorInvalidValue;
   return al::bwd::run(q, k, v, dout, l, m, d, key_bias, nullptr, dk, dv, B, T, Hq, Hkv, hd,
-                      stream);
+                      causal, stream);
 }

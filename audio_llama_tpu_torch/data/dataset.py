@@ -121,6 +121,12 @@ class AudioLLMDataset:
     def __len__(self) -> int:
         return len(self.entries)
 
+    def entry_has_audio(self, idx: int) -> bool:
+        """Metadata only (no IO): does the entry name an audio file? The
+        loaders of a sharded trainer vote over the global batch with this,
+        so every rank builds the same batch structure (`data/loader.py`)."""
+        return bool(self.entries[idx].get(self.cfg.audio_key))
+
     # -- audio: load -> mono -> resample -> crop/pad (fixed order) -----------
     def _process_audio(self, rel_path: str) -> Optional[np.ndarray]:
         path = self._resolve_audio_path(rel_path)
@@ -201,7 +207,11 @@ def _first(v):
     return v
 
 
-def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
+def collate(
+    items: List[Dict[str, Any]],
+    force_audio: Optional[bool] = None,
+    audio_samples: Optional[int] = None,
+) -> Dict[str, Any]:
     """Stack items into a FIXED-SHAPE batch of len(items).
 
     Reference collate_fn (src/dataset.py:186-204) drops items whose audio
@@ -211,14 +221,34 @@ def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
     -100, so shapes stay static and the filler contributes zero loss. A
     batch that is entirely text-only stays text-only (audio=None); an empty
     batch raises.
+
+    force_audio (the loaders of a sharded trainer): the batch structure the
+    GLOBAL batch's metadata vote chose, so every rank runs the same
+    collectives. When True but this rank's slice has no decodable audio
+    item, its rows become zero-audio fillers (`audio_samples` long) with
+    all-(-100) labels, the zero-loss rows a single-process mixed batch gets.
     """
     if not items:
         raise ValueError("empty batch")
     kept = [it for it in items if it["audio"] is not None]
-    text_only = len(kept) == 0
+    if force_audio is None:
+        text_only = len(kept) == 0
+    else:
+        if not force_audio and kept:
+            raise ValueError(
+                "force_audio=False but the local slice has audio items — the "
+                "global metadata vote can never under-count audio entries"
+            )
+        text_only = not force_audio
     if text_only:
         rows = items
     else:
+        if not kept:
+            if audio_samples is None:
+                raise ValueError("force_audio without audio_samples")
+            template = dict(items[0])
+            template["audio"] = np.zeros(audio_samples, np.float32)
+            kept = [template]
         rows = []
         for it in items:
             if it["audio"] is not None:

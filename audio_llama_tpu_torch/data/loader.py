@@ -1,13 +1,20 @@
 """Batches from the dataset: a seeded, prefetching loader.
 
-Counterpart of `audio_llama_tpu/data/loader.py` on one process:
-`create_dataloaders` loads the JSON, shuffles it with the seed, splits off
-`val_split` for validation and wraps both halves in `DataLoader`s. A
-`DataLoader` builds batches in a thread pool (the FLAC decoder releases the
-GIL) or, with `worker_processes`, in a pool of spawned processes that
-receive the dataset once per worker, and yields them in order with a
-bounded prefetch. The JAX package's multi-host row slicing waits for
-multi-device training (the trainer refuses several processes).
+Counterpart of `audio_llama_tpu/data/loader.py`: `create_dataloaders`
+loads the JSON, shuffles it with the seed, splits off `val_split` for
+validation and wraps both halves in `DataLoader`s. A `DataLoader` builds
+batches in a thread pool (the FLAC decoder releases the GIL) or, with
+`worker_processes`, in a pool of spawned processes that receive the dataset
+once per worker, and yields them in order with a bounded prefetch.
+
+The process arm (a sharded trainer, `process_index` / `process_count` =
+this rank's dp coordinate and the dp size, not its world rank: tp and sp
+peers load the same rows): every rank computes the same seeded global
+batch index lists and loads only its contiguous batch_size / process_count
+rows; the batch's modality comes from a vote over the GLOBAL batch's
+metadata, so a rank whose rows are all text still builds an audio batch
+(zero-audio, -100 rows) when its peers run the encoder, and the ranks'
+collectives stay in step.
 """
 
 from __future__ import annotations
@@ -33,11 +40,18 @@ def _pool_init(dataset: AudioLLMDataset) -> None:
     _WORKER_DATASET = dataset
 
 
-def _pool_build(batch_idx: List[int]) -> Dict[str, Any]:
+def _pool_build(batch_idx: List[int], force_audio: Optional[bool] = None) -> Dict[str, Any]:
     ds = _WORKER_DATASET
     if ds is None:
         raise RuntimeError("worker pool not initialized")
-    return collate([ds[i] for i in batch_idx])
+    return _collate(ds, batch_idx, force_audio)
+
+
+def _collate(ds: AudioLLMDataset, idx: List[int], force_audio: Optional[bool]):
+    if force_audio is None:
+        return collate([ds[i] for i in idx])
+    return collate([ds[i] for i in idx], force_audio=force_audio,
+                   audio_samples=ds.cfg.max_samples)
 
 
 class DataLoader:
@@ -53,7 +67,11 @@ class DataLoader:
         num_workers: int = 4,
         prefetch: int = 4,
         worker_processes: int = 0,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
+        """process_index / process_count: see the module docstring;
+        batch_size stays the GLOBAL batch size."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -66,6 +84,15 @@ class DataLoader:
             # keep every pool process busy: at least one in-flight batch each
             self.prefetch = max(self.prefetch, self.worker_processes)
         self._epoch = 0
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
+        if self.process_count > 1:
+            if batch_size % self.process_count:
+                raise ValueError(f"global batch_size {batch_size} must be divisible by "
+                                 f"process_count {self.process_count}")
+            if not drop_last:
+                raise ValueError("multi-process loading requires drop_last=True (ragged "
+                                 "final batches cannot be split evenly across ranks)")
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -88,8 +115,17 @@ class DataLoader:
             out.append(b)
         return out
 
+    def _local(self, batch_idx: List[int]):
+        """(this rank's indices, the modality vote or None)."""
+        if self.process_count == 1:
+            return batch_idx, None
+        # a metadata-only vote over the GLOBAL batch: every rank agrees
+        force_audio = any(self.dataset.entry_has_audio(i) for i in batch_idx)
+        lbs = self.batch_size // self.process_count
+        return batch_idx[self.process_index * lbs:(self.process_index + 1) * lbs], force_audio
+
     def _build(self, batch_idx: List[int]) -> Dict[str, Any]:
-        return collate([self.dataset[i] for i in batch_idx])
+        return _collate(self.dataset, *self._local(batch_idx))
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         batches = self._batches()
@@ -101,16 +137,19 @@ class DataLoader:
                 initializer=_pool_init,
                 initargs=(self.dataset,),
             )
-            build = _pool_build
         else:
             pool = ThreadPoolExecutor(max_workers=self.num_workers)
-            build = self._build
         with pool as ex:
-            inflight = [ex.submit(build, b) for b in batches[: self.prefetch]]
+            def submit(batch_idx):
+                if self.worker_processes:
+                    return ex.submit(_pool_build, *self._local(batch_idx))
+                return ex.submit(self._build, batch_idx)
+
+            inflight = [submit(b) for b in batches[: self.prefetch]]
             for i in range(len(batches)):
                 fut = inflight.pop(0)
                 if i + self.prefetch < len(batches):
-                    inflight.append(ex.submit(build, batches[i + self.prefetch]))
+                    inflight.append(submit(batches[i + self.prefetch]))
                 yield fut.result()
 
 
@@ -127,6 +166,8 @@ def create_dataloaders(
     max_samples: Optional[int] = None,
     val_batch_size: Optional[int] = None,
     worker_processes: int = 0,
+    process_index: int = 0,
+    process_count: int = 1,
 ) -> Tuple[DataLoader, DataLoader, DatasetConfig]:
     """JSON -> (train_loader, val_loader, dataset_config).
 
@@ -164,16 +205,20 @@ def create_dataloaders(
 
     train_ds = AudioLLMDataset(train_entries, audio_dir, tokenizer, cfg)
     val_ds = AudioLLMDataset(val_entries, audio_dir, tokenizer, cfg)
+    shards = dict(process_index=process_index, process_count=process_count)
     train = DataLoader(
         train_ds, batch_size, shuffle=True, seed=seed, drop_last=True,
-        num_workers=num_workers, worker_processes=worker_processes,
+        num_workers=num_workers, worker_processes=worker_processes, **shards,
     )
     # Static-shape eval: clamp to the dataset and drop ragged tails only
     # when at least one full batch exists.
     vbs = min(val_batch_size or batch_size, max(len(val_ds), 1))
+    if process_count > 1:  # global val batches must split evenly across ranks
+        vbs = max(vbs - vbs % process_count, process_count)
     val = DataLoader(
-        val_ds, vbs, shuffle=False, seed=seed, drop_last=len(val_ds) >= vbs,
-        num_workers=num_workers, worker_processes=worker_processes,
+        val_ds, vbs, shuffle=False, seed=seed,
+        drop_last=len(val_ds) >= vbs or process_count > 1,
+        num_workers=num_workers, worker_processes=worker_processes, **shards,
     )
     return train, val, cfg
 

@@ -21,7 +21,7 @@ trained projector + LoRA.
 
 Not ported yet, and refused with NotImplementedError: `--llama_path` /
 `--whisper_path` (wait for models/hf_loader.py and checkpoints on disk),
-`--draft_llama_path` (queue 1 serving: speculative decoding) and a
+`--draft_llama_path` (queue 1 item 2, serving: speculative decoding) and a
 `--decode_impl` other than `auto` (queue 2's A/B decode kernels).
 """
 
@@ -59,8 +59,8 @@ def load_audio_llm(checkpoint_path: Optional[str], llama_path: Optional[str] = N
     if not (toy_model or seeded_run or small):
         raise NotImplementedError(
             "--llama_path / --whisper_path: models/hf_loader.py is not ported yet and needs "
-            "the checkpoints on disk (ROADMAP queue 1); use --toy_model or a checkpoint of a "
-            "--toy_model / --synthetic_flagship run")
+            "the checkpoints on disk (ROADMAP queue 1 item 6); use --toy_model or a "
+            "checkpoint of a --toy_model / --synthetic_flagship run")
     if meta_args.get("toy_outliers"):
         raise NotImplementedError("the checkpoint's frozen tree has injected outliers: "
                                   "models/outliers.py is not ported yet")
@@ -132,7 +132,7 @@ def generate_response(cfg, frozen, trainable, tokenizer, prompt: str,
 
     if draft is not None:
         raise NotImplementedError(
-            "speculative decoding is not ported yet (ROADMAP queue 1, serving)")
+            "speculative decoding is not ported yet (ROADMAP queue 1 item 2, serving)")
     if decode_impl != "auto":
         raise NotImplementedError(
             f"decode_impl {decode_impl!r}: the A/B decode kernels are not ported yet "
@@ -202,7 +202,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     if args.draft_llama_path:
         raise NotImplementedError("--draft_llama_path: speculative decoding is not ported "
-                                  "yet (ROADMAP queue 1, serving)")
+                                  "yet (ROADMAP queue 1 item 2, serving)")
     device = "cpu" if args.platform == "cpu" else None
     cfg, frozen, trainable, tk = load_audio_llm(
         args.checkpoint_path, llama_path=args.llama_path, whisper_path=args.whisper_path,

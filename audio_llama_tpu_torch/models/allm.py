@@ -17,6 +17,18 @@ package's `stop_gradient`: gradients reach the projector and LoRA only.
 `forward` is the training forward: audio path, splice ('prepend' or
 'inplace'), the decoder with LoRA and the shifted cross-entropy (dense, or
 in sequence chunks with `loss_chunk_size`).
+
+`forward_nll` is the same forward on one rank of a sharded trainer
+(`parallel/sharded_train.py`): it returns the summed NLL and the count of
+scored tokens of this rank's share, which the trainer sums over the mesh
+(the JAX package's loss is the mean over the global batch's tokens,
+llama.py:1436-1438). Under `seq_axis` every rank encodes and splices its
+whole rows, pads them to the 128 tile, shifts the targets over the whole
+row (the last token of shard r is scored against the first label of shard
+r + 1) and keeps its slice of the sequence. Under `tp_axis` the encoder
+stays whole on every rank, as `shard_frozen_for_generation` keeps it: JAX
+tp-shards it for training (sharding.py:192-196), but it is frozen and
+outside autograd, so the numbers are the same; this is a layout choice.
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..bridge import ParamTree
 from ..config import AudioLLMConfig
@@ -179,6 +192,80 @@ def extend_labels(labels: torch.Tensor, audio_block_len: int) -> torch.Tensor:
     return torch.cat([pad, labels], dim=1)
 
 
+def decoder_inputs(frozen: ParamTree, trainable: ParamTree, cfg: AudioLLMConfig,
+                   batch: AudioLLMBatch, audio_start_id: int, audio_end_id: int,
+                   compute_dtype=torch.bfloat16):
+    """The audio path and the splice -> (llama_forward's input kwargs, the
+    labels aligned with them)."""
+    lparams = frozen["llama"]
+    if batch.audio_features is None:
+        return dict(input_ids=batch.input_ids, attention_mask=batch.attention_mask), batch.labels
+    enc = process_audio_features(frozen, cfg, batch.audio_features, compute_dtype)
+    audio_embeds = proj_mod.project(trainable["projector"], enc, compute_dtype)
+    if cfg.splice_mode == "inplace":
+        text = llama_mod.embed_tokens(lparams, batch.input_ids, compute_dtype)
+        embeds, mask, labels = splice_inplace(text, audio_embeds, batch.input_ids,
+                                              batch.attention_mask, batch.labels,
+                                              audio_start_id)
+    else:  # 'prepend'
+        embeds, mask = combine_text_and_audio_embeddings(
+            frozen, trainable, cfg, batch.input_ids, batch.attention_mask, audio_embeds,
+            audio_start_id, audio_end_id, compute_dtype)
+        labels = extend_labels(batch.labels, audio_embeds.shape[1] + 2)
+    return dict(inputs_embeds=embeds, attention_mask=mask), labels
+
+
+def _lora(trainable: ParamTree, cfg: AudioLLMConfig):
+    lora = trainable.get("lora")
+    return None if lora is None else lora_mod.with_scaling(lora, cfg.lora)
+
+
+def seq_shard(kw: dict, targets: torch.Tensor, axis, tile: int = 128):
+    """Pad the spliced rows to the `tile` multiple (hidden keys, -100
+    targets) and keep this rank's slice of the sequence over `axis` -> (kw,
+    targets). JAX's `seq_ring_applicable` gate: the padded length must
+    split evenly over the axis."""
+    T = targets.shape[1]
+    pad = (-T) % tile
+    n, idx = axis.size, axis.index
+    if (T + pad) % n:
+        raise ValueError(f"padded sequence length {T + pad} does not split over sp={n}")
+    Tl = (T + pad) // n
+    out = {}
+    for key, val in kw.items():
+        if pad:
+            val = (F.pad(val, (0, 0, 0, pad)) if key == "inputs_embeds" else F.pad(val, (0, pad)))
+        out[key] = val[:, idx * Tl:(idx + 1) * Tl]
+    if pad:
+        targets = F.pad(targets, (0, pad), value=IGNORE_INDEX)
+    return out, targets[:, idx * Tl:(idx + 1) * Tl]
+
+
+def _nll(frozen, trainable, cfg, batch, audio_start_id, audio_end_id, compute_dtype,
+         loss_chunk_size, remat, tp_axis, seq_axis):
+    """-> (summed NLL f32, count of scored tokens, logits f32 or None)."""
+    lora = _lora(trainable, cfg)
+    lcfg, lparams = cfg.llama, frozen["llama"]
+    kw, labels = decoder_inputs(frozen, trainable, cfg, batch, audio_start_id, audio_end_id,
+                                compute_dtype)
+    # next-token targets over the whole row: position t scores label t + 1
+    targets = F.pad(labels[:, 1:], (0, 1), value=IGNORE_INDEX)
+    if seq_axis is not None and seq_axis.size > 1:
+        kw, targets = seq_shard(kw, targets, seq_axis)
+    else:
+        seq_axis = None
+    common = dict(lora=lora, compute_dtype=compute_dtype, remat=remat, tp_axis=tp_axis,
+                  seq_axis=seq_axis, **kw)
+    if loss_chunk_size:
+        _, _, hidden = llama_mod.llama_forward(lparams, lcfg, return_hidden=True,
+                                               unembed_logits=False, **common)
+        total, count = llama_mod.nll_sum_from_hidden(lparams, lcfg, hidden, targets,
+                                                     loss_chunk_size, compute_dtype, tp_axis)
+        return total, count, None
+    logits, _ = llama_mod.llama_forward(lparams, lcfg, **common)
+    return (*llama_mod.token_nll_sum(logits, targets), logits)
+
+
 def forward(
     frozen: ParamTree,
     trainable: ParamTree,
@@ -190,37 +277,33 @@ def forward(
     loss_chunk_size: int = 0,
     remat: bool = False,
 ):
-    """Full multimodal forward -> (loss, logits [B, T', V] f32 or None).
-    Without audio it is the text-only LM step; `loss_chunk_size` > 0 takes
-    the chunked cross-entropy and returns no logits."""
-    lora = trainable.get("lora")
-    if lora is not None:
-        lora = lora_mod.with_scaling(lora, cfg.lora)
-    lcfg, lparams = cfg.llama, frozen["llama"]
-    if batch.audio_features is None:
-        kw = dict(input_ids=batch.input_ids, attention_mask=batch.attention_mask)
-        labels = batch.labels
-    else:
-        enc = process_audio_features(frozen, cfg, batch.audio_features, compute_dtype)
-        audio_embeds = proj_mod.project(trainable["projector"], enc, compute_dtype)
-        if cfg.splice_mode == "inplace":
-            text = llama_mod.embed_tokens(lparams, batch.input_ids, compute_dtype)
-            embeds, mask, labels = splice_inplace(text, audio_embeds, batch.input_ids,
-                                                  batch.attention_mask, batch.labels,
-                                                  audio_start_id)
-        else:  # 'prepend'
-            embeds, mask = combine_text_and_audio_embeddings(
-                frozen, trainable, cfg, batch.input_ids, batch.attention_mask, audio_embeds,
-                audio_start_id, audio_end_id, compute_dtype)
-            labels = extend_labels(batch.labels, audio_embeds.shape[1] + 2)
-        kw = dict(inputs_embeds=embeds, attention_mask=mask)
-    if loss_chunk_size:
-        _, _, hidden = llama_mod.llama_forward(lparams, lcfg, lora=lora,
-                                               compute_dtype=compute_dtype, return_hidden=True,
-                                               unembed_logits=False, remat=remat, **kw)
-        loss = llama_mod.causal_lm_loss_from_hidden(lparams, lcfg, hidden, labels,
-                                                    loss_chunk_size, compute_dtype)
-        return loss, None
-    logits, _ = llama_mod.llama_forward(lparams, lcfg, lora=lora, compute_dtype=compute_dtype,
-                                        remat=remat, **kw)
-    return llama_mod.causal_lm_loss(logits, labels), logits
+    """Full multimodal forward -> (loss, logits [B, T', V] f32 or None): the
+    mean NLL over the batch's scored tokens (`forward_nll`'s sum over its
+    count; 0 when nothing is scored). Without audio it is the text-only LM
+    step; `loss_chunk_size` > 0 takes the chunked cross-entropy and returns
+    no logits."""
+    total, count, logits = _nll(frozen, trainable, cfg, batch, audio_start_id, audio_end_id,
+                                compute_dtype, loss_chunk_size, remat, None, None)
+    return total / count.clamp(min=1), logits
+
+
+def forward_nll(
+    frozen: ParamTree,
+    trainable: ParamTree,
+    cfg: AudioLLMConfig,
+    batch: AudioLLMBatch,
+    audio_start_id: int,
+    audio_end_id: int,
+    compute_dtype=torch.bfloat16,
+    loss_chunk_size: int = 0,
+    remat: bool = False,
+    tp_axis=None,
+    seq_axis=None,
+):
+    """`forward` on one rank of a sharded trainer -> (summed NLL f32, count
+    of scored tokens) over this rank's rows and, under `seq_axis`, its slice
+    of the sequence (see the module docstring). The frozen Llama is this
+    rank's tp block under `tp_axis`."""
+    total, count, _ = _nll(frozen, trainable, cfg, batch, audio_start_id, audio_end_id,
+                           compute_dtype, loss_chunk_size, remat, tp_axis, seq_axis)
+    return total, count

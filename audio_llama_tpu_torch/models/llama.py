@@ -39,14 +39,29 @@ Inside a process world (`parallel/`), as the JAX package's code inside
     merged across the axis by `ops.attention.merge_partial_stats`. The
     owner and the local slot come from the cache's host-side fill
     (`KVCache.host_length`), so a step adds no device sync.
+  - training under `tp_axis` (no cache): the collectives are differentiable,
+    as GSPMD's are in the JAX trainer: Megatron's f (`collectives.copy_to`:
+    identity forward, psum of the cotangent) at the input of the
+    column-parallel q/k/v/gate/up products and g (`reduce_from`: psum
+    forward, identity backward) after the row-parallel o/down ones. A LoRA
+    branch of a column target takes f after its replicated `a` product (the
+    input of its sharded `b`); a row target's whole `b` takes f, since the
+    branch's output is a partial sum until g. Tied embeddings stay whole;
+    an untied lm_head's vocab shards are gathered by `gather_from`.
+  - training under `seq_axis` (no cache): the inputs are this rank's slice
+    of the sequence, tokens [index * T, (index + 1) * T) of the caller's
+    tile-padded rows; RoPE positions are global (arange(T) + index * T), and
+    causal attention runs as the kernel ring (`parallel/ring_kernel.py`)
+    over the axis. Everything else is token-parallel.
 
 Training differentiates the no-cache call: `llama_forward` keeps autograd on
 (`generate` turns it off for itself), the causal kernel's backward kernels
 serve attention, and `remat=True` runs each layer under
 `torch.utils.checkpoint`, so its activations are recomputed in the backward
-(the causal forward kernel then runs twice per layer). `causal_lm_loss` and
-`causal_lm_loss_from_hidden` (sequence chunks under `torch.utils.checkpoint`,
-no [B, T, V] logits) are the JAX package's two shifted cross-entropies.
+(the causal forward kernel then runs twice per layer). `token_nll_sum` and
+`nll_sum_from_hidden` (sequence chunks under `torch.utils.checkpoint`, no
+[B, T, V] logits) give the summed NLL and count of the JAX package's two
+cross-entropies; the caller shifts the targets (`models/allm.py`).
 
 On an int4 tree every projection runs the W4A16 kernel
 (`ops/int4_matmul.py`): on the fused tree q|k|v as one slab read as two
@@ -84,8 +99,10 @@ from ..ops.decode_attention_mono import (decode_attention_mono, decode_attention
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_for_config, rope_tables
 from ..parallel import collectives
+from ..parallel.ring_kernel import ring_causal_mha_kernel
 
 LINEAR_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+ROW_PARALLEL = ("o_proj", "down_proj")  # tensor parallelism shards their input dim
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.float32) -> ParamTree:
@@ -294,11 +311,12 @@ def _logits_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype, vocab_major: bo
 def unembed_with_tp(params: ParamTree, cfg: LlamaConfig, x: torch.Tensor,
                     compute_dtype=torch.bfloat16, tp_axis=None):
     """`unembed`, then under tensor parallelism the gather of an untied
-    lm_head's vocab-column shards; the tied table is replicated."""
-    logits = unembed(params, cfg, x, compute_dtype)
+    lm_head's vocab-column shards (a column-parallel product: its input
+    takes f, its output is gathered); the tied table is replicated."""
     if tp_axis is not None and not cfg.tie_word_embeddings and "lm_head" in params:
-        logits = collectives.all_gather(logits, tp_axis, dim=-1)
-    return logits
+        logits = unembed(params, cfg, collectives.copy_to(x, tp_axis), compute_dtype)
+        return collectives.gather_from(logits, tp_axis, dim=-1)
+    return unembed(params, cfg, x, compute_dtype)
 
 
 def unembed(params: ParamTree, cfg: LlamaConfig, x: torch.Tensor, compute_dtype=torch.bfloat16):
@@ -319,9 +337,18 @@ def unembed(params: ParamTree, cfg: LlamaConfig, x: torch.Tensor, compute_dtype=
     return _logits_f32(x, head, compute_dtype, vocab_major=False)
 
 
-def _lora_delta(x, lora_branch, compute_dtype):
+def _lora_delta(x, lora_branch, compute_dtype, tp_axis=None, row=False):
+    """x @ a @ b * scaling. Under tensor parallelism a column target's b is
+    this rank's out block, so the whole product x @ a enters it through f;
+    a row target's a is this rank's in block and the branch a partial sum
+    until g, so its whole b takes f (b's cotangent is then whole)."""
     a, b, scaling = lora_branch
-    return (x @ a.to(compute_dtype)) @ b.to(compute_dtype) * scaling
+    u = x @ a.to(compute_dtype)
+    if row:
+        b = collectives.copy_to(b, tp_axis)
+    else:
+        u = collectives.copy_to(u, tp_axis)
+    return u @ b.to(compute_dtype) * scaling
 
 
 def _layer_weight(w, li: int):
@@ -332,16 +359,19 @@ def _layer_weight(w, li: int):
     return w[li]
 
 
-def _linear(x, w, lora_branch, compute_dtype):
+def _linear(x, w, lora_branch, compute_dtype, x_main=None, tp_axis=None, row=False):
     """x @ w, plus the LoRA delta x @ a @ b * scaling when given. An int8
-    weight (w_q, w_s) computes (x @ w_q) * w_s in the compute dtype."""
+    weight (w_q, w_s) computes (x @ w_q) * w_s in the compute dtype.
+    `x_main` (x through f under tensor parallelism) feeds the frozen
+    product in place of x."""
+    xm = x if x_main is None else x_main
     if isinstance(w, tuple):
         w_q, w_s = w
-        y = (x @ w_q.to(compute_dtype)) * w_s.to(compute_dtype)
+        y = (xm @ w_q.to(compute_dtype)) * w_s.to(compute_dtype)
     else:
-        y = x @ w.to(compute_dtype)
+        y = xm @ w.to(compute_dtype)
     if lora_branch is not None:
-        y = y + _lora_delta(x, lora_branch, compute_dtype)
+        y = y + _lora_delta(x, lora_branch, compute_dtype, tp_axis, row)
     return y
 
 
@@ -403,6 +433,7 @@ def llama_forward(
     remat: bool = False,
     tp_axis=None,
     sp_axis=None,
+    seq_axis=None,
 ):
     """Decoder forward. Without a cache returns (logits [B, T, V], None);
     with one, (logits, cache). `return_hidden` appends the final-norm hidden
@@ -411,7 +442,7 @@ def llama_forward(
     keeps single-request int4 decode steps on the per-layer kernels.
     `remat=True` (no cache) recomputes each layer in the backward
     (`torch.utils.checkpoint`), as the JAX package's `jax.checkpoint`.
-    `tp_axis` / `sp_axis`: see the module docstring."""
+    `tp_axis` / `sp_axis` / `seq_axis`: see the module docstring."""
     cd = compute_dtype
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids, cd)
@@ -427,6 +458,8 @@ def llama_forward(
             raise ValueError("cache_offsets requires kv_cache")
         if assume_fresh_cache:
             raise ValueError("cache_offsets contradicts assume_fresh_cache")
+    if seq_axis is not None and kv_cache is not None:
+        raise ValueError("seq_axis shards a training forward: no kv_cache")
     fresh = kv_cache is not None and assume_fresh_cache and T > 1
     decode = kv_cache is not None and T == 1
     if sp_axis is not None:
@@ -458,6 +491,8 @@ def llama_forward(
 
     if positions is None:
         positions = torch.arange(T, device=dev)[None, :] + off_col
+        if seq_axis is not None:  # this rank's slice of the global positions
+            positions = positions + collectives.axis_index(seq_axis) * T
     cos, sin = rope_tables(positions, rope_for_config(cfg))  # [1|B, T, hd]
 
     valid = None
@@ -578,7 +613,8 @@ def llama_forward(
             """LoRA stays per projection on the fused int4 slabs, added after
             the fused output is split."""
             br = lb(name)
-            return y if br is None else y + _lora_delta(x_in, br, cd)
+            return y if br is None else y + _lora_delta(x_in, br, cd, tp_axis,
+                                                        name in ROW_PARALLEL)
 
         def int4_linear(x_in, name, lora_name=None):
             w = int4_slabs.get(name) or lp[name]
@@ -586,10 +622,12 @@ def llama_forward(
             y = i4.int4_matmul_stacked(x_in, w["w_p"], w["w_s"], li, group=g, fmt=fmt)
             return lora_add(y, lora_name, x_in) if lora_name else y
 
-        def linear(x_in, name):
-            return _linear(x_in, _layer_weight(lp[name], li), lb(name), cd)
+        def linear(x_in, name, x_main=None):
+            return _linear(x_in, _layer_weight(lp[name], li), lb(name), cd, x_main, tp_axis,
+                           name in ROW_PARALLEL)
 
         h = rms_norm(x, lp["input_ln"][li].to(cd), eps)
+        hf = collectives.copy_to(h, tp_axis)  # f: the column-parallel products' input
         if int4:
             nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
             w = lp["qkv_proj"]
@@ -601,7 +639,7 @@ def llama_forward(
         elif int4_slabs:
             q, k, v = (int4_linear(h, n, n) for n in ("q_proj", "k_proj", "v_proj"))
         else:
-            q, k, v = linear(h, "q_proj"), linear(h, "k_proj"), linear(h, "v_proj")
+            q, k, v = (linear(h, n, hf) for n in ("q_proj", "k_proj", "v_proj"))
         q = apply_rope(q.reshape(B, T, -1, hd), cos, sin)
         k = apply_rope(k.reshape(B, T, -1, hd), cos, sin)
         v = v.reshape(B, T, -1, hd)
@@ -637,15 +675,20 @@ def llama_forward(
                 if n:
                     write_rows(k[:, g0:g0 + n].transpose(1, 2), v[:, g0:g0 + n].transpose(1, 2),
                                li, slice(0, n))
-            attn = causal_mha(q, k, v, mask=attn_mask, scale=scale)
+            if seq_axis is not None:
+                attn = ring_causal_mha_kernel(q, k, v, axis=seq_axis, mask=attn_mask,
+                                              scale=scale)
+            else:
+                attn = causal_mha(q, k, v, mask=attn_mask, scale=scale)
         attn = attn.reshape(B, T, -1)
         if int4 or int4_slabs:
             attn = int4_linear(attn, "o_proj", "o_proj")
         else:
             attn = linear(attn, "o_proj")
-        x = x + collectives.psum(attn, tp_axis)  # row-parallel: the sum over tp
+        x = x + collectives.reduce_from(attn, tp_axis)  # g: the row-parallel sum over tp
 
         h = rms_norm(x, lp["post_attn_ln"][li].to(cd), eps)
+        hf = collectives.copy_to(h, tp_axis)
         mlp_lora = any(lb(n) is not None for n in ("gate_proj", "up_proj", "down_proj"))
         if int4 and B * T <= mlp4.MAX_M and not mlp_lora and mlp_chunk is not None:
             gu, dn = lp["gateup_proj"], lp["down_proj"]
@@ -661,9 +704,9 @@ def llama_forward(
             g, u = int4_linear(h, "gate_proj", "gate_proj"), int4_linear(h, "up_proj", "up_proj")
             d = int4_linear(F.silu(g) * u, "down_proj", "down_proj")
         else:
-            g, u = linear(h, "gate_proj"), linear(h, "up_proj")
+            g, u = linear(h, "gate_proj", hf), linear(h, "up_proj", hf)
             d = linear(F.silu(g) * u, "down_proj")
-        x = x + collectives.psum(d, tp_axis)  # row-parallel: the sum over tp
+        x = x + collectives.reduce_from(d, tp_axis)  # g: the row-parallel sum over tp
         return x
 
     for li in range(0 if use_mega else cfg.num_layers):
@@ -690,29 +733,26 @@ def llama_forward(
     return logits, new_cache
 
 
-def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Shifted cross-entropy, mean over the labels that are not -100:
-    logits [B, T, V] (f32), labels [B, T]."""
-    shift = logits[:, :-1].float()
-    tgt = labels[:, 1:]
-    mask = tgt != -100
-    safe = torch.where(mask, tgt, torch.zeros_like(tgt)).long()
-    logp = torch.log_softmax(shift, dim=-1)
+def token_nll_sum(logits: torch.Tensor, targets: torch.Tensor):
+    """(summed NLL, count) of the targets that are not -100: logits [B, T, V]
+    (f32) scored against targets [B, T] position by position (no shift)."""
+    mask = targets != -100
+    safe = torch.where(mask, targets, torch.zeros_like(targets)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
     token_ll = torch.gather(logp, -1, safe[..., None])[..., 0]
-    total = torch.where(mask, -token_ll, torch.zeros_like(token_ll)).sum()
-    return total / mask.sum().clamp(min=1)
+    return torch.where(mask, -token_ll, torch.zeros_like(token_ll)).sum(), mask.sum()
 
 
-def causal_lm_loss_from_hidden(
-    params: ParamTree, cfg: LlamaConfig, hidden: torch.Tensor, labels: torch.Tensor,
-    chunk_size: int = 256, compute_dtype=torch.bfloat16,
-) -> torch.Tensor:
-    """`causal_lm_loss(unembed(hidden), labels)` without the [B, T, V] logits:
-    sequence chunks of `chunk_size` positions, each unembedded, reduced to
-    its summed NLL and count, and recomputed in the backward
-    (`torch.utils.checkpoint`). Equal to the dense loss up to the order of
-    the sums. hidden [B, T, D] is the final-norm output."""
-    xs, ys = hidden[:, :-1], labels[:, 1:]
+def nll_sum_from_hidden(
+    params: ParamTree, cfg: LlamaConfig, hidden: torch.Tensor, targets: torch.Tensor,
+    chunk_size: int = 256, compute_dtype=torch.bfloat16, tp_axis=None,
+):
+    """`token_nll_sum(unembed(hidden), targets)` without the [B, T, V]
+    logits: sequence chunks of `chunk_size` positions, each unembedded,
+    reduced to its summed NLL and count, and recomputed in the backward
+    (`torch.utils.checkpoint`). hidden [B, T, D] is the final-norm output;
+    targets [B, T] are scored position by position (no shift)."""
+    xs, ys = hidden, targets
     T = xs.shape[1]
     pad = (-T) % chunk_size
     if pad:
@@ -720,7 +760,7 @@ def causal_lm_loss_from_hidden(
         ys = F.pad(ys, (0, pad), value=-100)
 
     def chunk_loss(xc, yc):
-        logits = unembed(params, cfg, xc, compute_dtype)  # [B, c, V] f32
+        logits = unembed_with_tp(params, cfg, xc, compute_dtype, tp_axis)  # [B, c, V] f32
         lse = torch.logsumexp(logits, dim=-1)
         mask = yc != -100
         safe = torch.where(mask, yc, torch.zeros_like(yc)).long()
@@ -736,4 +776,4 @@ def causal_lm_loss_from_hidden(
         else:
             s, n = chunk_loss(xc, yc)
         total, count = total + s, count + n
-    return total / count.clamp(min=1)
+    return total, count

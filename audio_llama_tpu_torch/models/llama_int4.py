@@ -24,7 +24,7 @@ shard the contraction dim, which the packing never pairs across; their
 group scales must stay shard-aligned, (K/tp) % group == 0. The bytes equal
 the JAX package's for the same weights.
 
-Not ported yet (ROADMAP queue 2): `smooth=True` (per-row equalizers).
+Not ported yet (ROADMAP queue 1 item 3): `smooth=True` (per-row equalizers).
 """
 
 from __future__ import annotations
@@ -84,7 +84,7 @@ def quantize_llama_int4(params: ParamTree, include_embed: bool = True, group: in
     if fuse and tp > 1:
         raise ValueError("fused int4 trees are tp=1 only (dp/single-chip)")
     if smooth:
-        raise NotImplementedError("smooth int4 trees are not ported yet (ROADMAP queue 2)")
+        raise NotImplementedError("smooth int4 trees are not ported yet (ROADMAP queue 1 item 3)")
     if clip is None:
         clip = "rot" not in params
     fmt = i4._fmt(fmt)

@@ -41,7 +41,7 @@ _STRIDES = [_L] * 12
 SIGNATURES = {
     "al_layer_norm": [_I, _P, _P, _P, _P, _I, _I, _F, _P],
     "al_enc_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I] + _STRIDES + [_P],
-    "al_causal_attention": [_P] * 7 + [_I] * 5 + _STRIDES + [_P],
+    "al_causal_attention": [_P] * 7 + [_I] * 5 + _STRIDES + [_I, _P],
     "al_decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P, _P],
     "al_mel_power": [_P, _I, _L, _I, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P],
     "al_int4_matmul": [_P, _I, _I, _P, _I, _P, _I, _P, _L, _L, _P, _P, _I, _I, _I, _P],
@@ -50,8 +50,8 @@ SIGNATURES = {
     "al_decode_attention_q8": [_I] + [_P] * 11 + [_I] * 7 + [_F, _P, _P],
     "al_decode_megakernel": [_P] * 24 + [_I] * 8 + [_F, _F, _I, _I, _P],
     "al_megakernel_blocks_per_sm": [_I, _I],
-    "al_causal_attention_dq": [_P] * 9 + [_I] * 5 + [_P],
-    "al_causal_attention_dkv": [_P] * 10 + [_I] * 5 + [_P],
+    "al_causal_attention_dq": [_P] * 9 + [_I] * 6 + [_P],
+    "al_causal_attention_dkv": [_P] * 10 + [_I] * 6 + [_P],
     "al_decode_db_stats": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F] + [_P] * 4,
 }
 

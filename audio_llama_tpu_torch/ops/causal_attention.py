@@ -23,6 +23,13 @@ runs it in bf16; both round P to bf16 before PV and sum the denominator from
 that rounded P. The backward recomputes P in f32 from the saved m and l and
 rounds P and dS to the input dtype before their products, as the TPU kernels
 do.
+
+`tri` selects the kernels' mode, as the JAX package's `tri` argument:
+'always' (the causal mask; every call above) or 'never' (no mask, every key
+tile contributes: one hop of the ring of sequence-parallel training,
+`parallel/ring_kernel.py`, over a K/V block from an earlier shard, the
+backward fed the ring's global m, l and D). Each mode of each kernel counts
+its own launches.
 """
 
 from __future__ import annotations
@@ -36,10 +43,32 @@ from . import _cuda
 
 NEG = -1e9
 TILE = 128
-launches = 0  # forward kernel launches
-launches_dq = 0  # dq kernel launches
-launches_dkv = 0  # dk/dv kernel launches
+launches = 0  # forward kernel launches (tri='always')
+launches_dq = 0  # dq kernel launches (tri='always')
+launches_dkv = 0  # dk/dv kernel launches (tri='always')
+launches_never = 0  # forward kernel launches, tri='never'
+launches_dq_never = 0  # dq kernel launches, tri='never'
+launches_dkv_never = 0  # dk/dv kernel launches, tri='never'
 BWD_TILE = 64  # the backward kernels' tile: T must be a multiple of it
+TRI = ("always", "never")
+
+
+def _causal_flag(tri: str) -> int:
+    if tri not in TRI:
+        raise ValueError(f"tri must be one of {TRI}; got {tri!r}")
+    return int(tri == "always")
+
+
+def _scores(qg, k, key_bias, tri):
+    """[B, Hkv, G, T, T] f32 scores of pre-scaled grouped queries against the
+    keys, the key bias added and, for tri='always', the future masked."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    s = s + key_bias[:, None, None, None, :]
+    if _causal_flag(tri):
+        T = s.shape[-1]
+        future = torch.ones(T, T, dtype=torch.bool, device=s.device).triu(1)
+        s = s.masked_fill(future, NEG)
+    return s
 
 
 class CausalOut(NamedTuple):
@@ -49,17 +78,15 @@ class CausalOut(NamedTuple):
 
 
 def causal_attention_plain(
-    qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor
+    qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,
+    tri: str = "always",
 ) -> CausalOut:
     """qs pre-scaled [B, T, Hq, hd]; k/v [B, T, Hkv, hd]; key_bias [B, T] f32."""
     B, T, Hq, hd = qs.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     qg = qs.float().reshape(B, T, Hkv, G, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
-    s = s + key_bias[:, None, None, None, :]
-    future = torch.ones(T, T, dtype=torch.bool, device=qs.device).triu(1)
-    s = s.masked_fill(future, NEG)
+    s = _scores(qg, k, key_bias, tri)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m).to(v.dtype).float()
     l = p.sum(dim=-1, keepdim=True)
@@ -74,11 +101,13 @@ def causal_attention_plain(
 
 
 def causal_attention_cuda(
-    qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor
+    qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,
+    tri: str = "always",
 ) -> CausalOut:
     """Launch the kernel (same arguments as the plain version)."""
-    global launches
+    global launches, launches_never
     name = "causal_attention"
+    causal = _causal_flag(tri)
     _cuda.require_cuda(name, qs, k, v, key_bias)
     B, T, Hq, hd = qs.shape
     Hkv = k.shape[2]
@@ -103,10 +132,13 @@ def causal_attention_cuda(
         l.data_ptr(), m.data_ptr(), key_bias.data_ptr(),
         B, T, Hq, Hkv, hd,
         *qs.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        _cuda.stream_handle(qs),
+        causal, _cuda.stream_handle(qs),
     )
     _cuda.check(err, name)
-    launches += 1
+    if causal:
+        launches += 1
+    else:
+        launches_never += 1
     return CausalOut(o, l, m)
 
 
@@ -120,22 +152,21 @@ def attention_bwd_prologue(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 def causal_attention_bwd_plain(
     qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,
     o: torch.Tensor, l: torch.Tensor, m: torch.Tensor, do: torch.Tensor,
+    tri: str = "always",
 ):
     """The backward of `causal_attention_plain` from its saved residuals ->
     (dq [B, T, Hq, hd], dk, dv [B, T, Hkv, hd]) in the inputs' dtypes: P
     recomputed as exp(s - m) / l (0 where l == 0), dS = P (dP - D), P and dS
     rounded to the input dtype before their products, f32 sums, dk and dv
-    summed over the G query heads of each group."""
+    summed over the G query heads of each group. For a ring hop
+    (tri='never') o, l and m are the whole row's, merged over the ring."""
     B, T, Hq, hd = qs.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     d = attention_bwd_prologue(o, do).reshape(B, Hkv, G, T, 1)
     qg = qs.float().reshape(B, T, Hkv, G, hd)
     dog = do.float().reshape(B, T, Hkv, G, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
-    s = s + key_bias[:, None, None, None, :]
-    future = torch.ones(T, T, dtype=torch.bool, device=qs.device).triu(1)
-    s = s.masked_fill(future, NEG)
+    s = _scores(qg, k, key_bias, tri)
     lq = l.reshape(B, Hkv, G, T, 1)
     inv_l = torch.where(lq > 0, 1.0 / torch.where(lq > 0, lq, 1.0), 0.0)
     p = torch.exp(s - m.reshape(B, Hkv, G, T, 1)) * inv_l
@@ -172,44 +203,52 @@ def _bwd_checks(name, qs, k, v, key_bias, l, m, do, d):
     return B, T, Hq, Hkv, hd
 
 
-def causal_attention_dq_cuda(qs, k, v, key_bias, l, m, do, d) -> torch.Tensor:
+def causal_attention_dq_cuda(qs, k, v, key_bias, l, m, do, d, tri="always") -> torch.Tensor:
     """Launch the dq kernel: qs, do [B, T, Hq, hd], k, v [B, T, Hkv, hd] bf16
     contiguous; key_bias [B, T], l, m, d [B*Hq, T] f32 -> dq [B, T, Hq, hd]."""
-    global launches_dq
+    global launches_dq, launches_dq_never
     name = "causal_attention_dq"
+    causal = _causal_flag(tri)
     B, T, Hq, Hkv, hd = _bwd_checks(name, qs, k, v, key_bias, l, m, do, d)
     dq = torch.empty_like(qs)
     err = _cuda.library().al_causal_attention_dq(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), l.data_ptr(), m.data_ptr(),
-        d.data_ptr(), key_bias.data_ptr(), dq.data_ptr(), B, T, Hq, Hkv, hd,
+        d.data_ptr(), key_bias.data_ptr(), dq.data_ptr(), B, T, Hq, Hkv, hd, causal,
         _cuda.stream_handle(qs))
     _cuda.check(err, name)
-    launches_dq += 1
+    if causal:
+        launches_dq += 1
+    else:
+        launches_dq_never += 1
     return dq
 
 
-def causal_attention_dkv_cuda(qs, k, v, key_bias, l, m, do, d):
+def causal_attention_dkv_cuda(qs, k, v, key_bias, l, m, do, d, tri="always"):
     """Launch the dk/dv kernel (the dq kernel's arguments) -> (dk, dv)
     [B, T, Hkv, hd], each summed over the G query heads of its group."""
-    global launches_dkv
+    global launches_dkv, launches_dkv_never
     name = "causal_attention_dkv"
+    causal = _causal_flag(tri)
     B, T, Hq, Hkv, hd = _bwd_checks(name, qs, k, v, key_bias, l, m, do, d)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _cuda.library().al_causal_attention_dkv(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), l.data_ptr(), m.data_ptr(),
         d.data_ptr(), key_bias.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, Hq, Hkv, hd,
-        _cuda.stream_handle(qs))
+        causal, _cuda.stream_handle(qs))
     _cuda.check(err, name)
-    launches_dkv += 1
+    if causal:
+        launches_dkv += 1
+    else:
+        launches_dkv_never += 1
     return dk, dv
 
 
-def causal_attention_bwd_cuda(qs, k, v, key_bias, o, l, m, do):
+def causal_attention_bwd_cuda(qs, k, v, key_bias, o, l, m, do, tri="always"):
     """The prologue, then the two kernels (same arguments and results as
     `causal_attention_bwd_plain`)."""
     d = attention_bwd_prologue(o, do)
-    dq = causal_attention_dq_cuda(qs, k, v, key_bias, l, m, do, d)
-    dk, dv = causal_attention_dkv_cuda(qs, k, v, key_bias, l, m, do, d)
+    dq = causal_attention_dq_cuda(qs, k, v, key_bias, l, m, do, d, tri)
+    dk, dv = causal_attention_dkv_cuda(qs, k, v, key_bias, l, m, do, d, tri)
     return dq, dk, dv
 
 

@@ -1,12 +1,17 @@
-"""Multi-process generation: meshes, collectives, tensor-parallel shards and
-sequence parallelism over `torch.distributed`.
+"""Multi-process generation and training: meshes, collectives,
+tensor-parallel shards, sequence parallelism and the sharded train step
+over `torch.distributed`.
 
-Counterpart of the generation half of `audio_llama_tpu/parallel/`: the JAX
-package's `shard_map` over a ('dp', 'fsdp', 'tp', 'sp') device mesh becomes
-one process per mesh position (`mesh.py`), `lax` collectives become
-process-group collectives (`collectives.py`), and the Megatron specs cut
-each rank's block out of a full tree (`sharding.py`). The sharded trainer
-is not ported yet.
+Counterpart of `audio_llama_tpu/parallel/`: the JAX package's `shard_map`
+and GSPMD over a ('dp', 'fsdp', 'tp', 'sp') device mesh become one process
+per mesh position (`mesh.py`), `lax` collectives become process-group
+collectives, differentiable where training needs them (`collectives.py`),
+the Megatron specs cut each rank's block out of a full tree
+(`sharding.py`), and the ring of sequence-parallel training runs the
+causal kernels per hop (`ring_kernel.py`; `ring_attention.py` is its plain
+reference), and `sharded_train.py` holds the train and eval steps (import
+it as a module: it imports the models, which import this package). fsdp
+and sp x tp training are not ported yet.
 """
 
 from . import distributed

@@ -7,7 +7,7 @@ every host's devices. Here one process runs per mesh position (see
 quietly:
   - "gloo" on the CPU (the tests), and on the card when several ranks share
     one device (NCCL refuses two ranks on one device);
-  - "nccl" when each rank has a card of its own.
+  - "nccl" when each rank has a card of its own (not yet run for training).
 
 `spawn(fn, world, backend, device)` starts a world of fresh processes on
 this host (the `spawn` start method), wires it through a TCP store that the
@@ -15,6 +15,12 @@ calling process serves on a port the system picks and holds for the
 world's whole life (so two worlds started at once never meet), runs
 fn(rank, world, *args) in each and returns the results by rank; an
 exception in any rank fails the whole world.
+
+`initialize_from_flags` is the trainer's `--distributed` (JAX's
+`initialize(coordinator_address, num_processes, process_id)`, :30-85): the
+coordinator's host:port serves the store. JAX's `make_global_batch`
+(:87-106), which assembles the processes' rows into one global array, has
+no counterpart: each rank's step takes its own rows.
 """
 
 from __future__ import annotations
@@ -36,11 +42,13 @@ BACKENDS = ("gloo", "nccl")
 
 
 def initialize(backend: str, init_method: str = "env://", world_size: Optional[int] = None,
-               rank: Optional[int] = None, device=None, store=None) -> tuple[int, int]:
+               rank: Optional[int] = None, device=None, store=None,
+               timeout: Optional[float] = None) -> tuple[int, int]:
     """`dist.init_process_group` with an explicit backend -> (rank, world).
     `device` (a CUDA device, for nccl) binds the rank to its card. With
     env:// the world size and rank may come from WORLD_SIZE / RANK. A
-    `store` (a `dist.Store`) replaces `init_method`."""
+    `store` (a `dist.Store`) replaces `init_method`. `timeout` (seconds)
+    bounds every collective's wait (the backend's default otherwise)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
     kw = {}
@@ -54,6 +62,8 @@ def initialize(backend: str, init_method: str = "env://", world_size: Optional[i
             torch.cuda.set_device(device)
             if backend == "nccl":
                 kw["device_id"] = device
+    if timeout is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout)
     if store is not None:
         kw["store"] = store
     else:
@@ -62,6 +72,27 @@ def initialize(backend: str, init_method: str = "env://", world_size: Optional[i
     r, w = dist.get_rank(), dist.get_world_size()
     logger.info("distributed: rank %d of %d (%s)", r, w, backend)
     return r, w
+
+
+def initialize_from_flags(coordinator_address: Optional[str], num_processes: int,
+                          process_id: int, backend: str, device=None,
+                          timeout: Optional[float] = None) -> tuple[int, int]:
+    """Join the world the trainer's flags name -> (rank, world). With no
+    coordinator address the world comes from the environment (env://:
+    MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, as torchrun sets them);
+    num_processes 0 and process_id -1 likewise. A world that already runs
+    (this process was spawned into it) is kept if it is the one named."""
+    if dist.is_initialized():
+        r, w = dist.get_rank(), dist.get_world_size()
+        if (num_processes > 0 and w != num_processes) or (process_id >= 0 and r != process_id):
+            raise ValueError(f"a world of {w} (rank {r}) already runs; the flags name "
+                             f"{num_processes} (rank {process_id})")
+        return r, w
+    init = f"tcp://{coordinator_address}" if coordinator_address else "env://"
+    return initialize(backend, init_method=init,
+                      world_size=num_processes if num_processes > 0 else None,
+                      rank=process_id if process_id >= 0 else None, device=device,
+                      timeout=timeout)
 
 
 def process_info() -> tuple[int, int]:
@@ -102,13 +133,14 @@ def _report(results, item) -> None:
     results.join_thread()
 
 
-def _worker(rank, fn, world, backend, device, port, args, results, threads):
+def _worker(rank, fn, world, backend, device, port, args, results, threads, timeout):
     if threads:
         torch.set_num_threads(threads)
     dev = rank_device(device, rank)
+    # no wait of a rank outlasts its world: a hung world fails its own call
     store = dist.TCPStore("127.0.0.1", port, world, is_master=False,
-                          timeout=datetime.timedelta(seconds=300))
-    initialize(backend, world_size=world, rank=rank, device=dev, store=store)
+                          timeout=datetime.timedelta(seconds=timeout))
+    initialize(backend, world_size=world, rank=rank, device=dev, store=store, timeout=timeout)
     try:
         try:
             out = fn(rank, world, *args)
@@ -127,7 +159,7 @@ def _worker(rank, fn, world, backend, device, port, args, results, threads):
 
 
 def spawn(fn: Callable, world: int, backend: str = "gloo", device: str = "cpu",
-          args: Sequence[Any] = (), timeout: float = 900.0,
+          args: Sequence[Any] = (), timeout: float = 240.0,
           threads: Optional[int] = None) -> list:
     """Run fn(rank, world, *args) in `world` new processes joined into one
     `torch.distributed` world -> [result of rank 0, ..., rank world-1].
@@ -137,7 +169,8 @@ def spawn(fn: Callable, world: int, backend: str = "gloo", device: str = "cpu",
     every rank ("cuda:0", with gloo), or "cuda" (rank r on cuda:r, for
     nccl). `threads` caps each rank's intra-op threads. A rank that raises
     ends the world: the others are terminated and its traceback is raised
-    here, as is a world still running after `timeout` seconds."""
+    here, as is a world still running after `timeout` seconds (every
+    rank's store and collectives wait no longer than that either)."""
     if backend == "nccl" and device != "cuda":
         raise ValueError("nccl needs a card per rank: device='cuda'")
     import torch.multiprocessing as mp
@@ -148,7 +181,7 @@ def spawn(fn: Callable, world: int, backend: str = "gloo", device: str = "cpu",
     # starts, so no other world can take it in between
     store = dist.TCPStore("127.0.0.1", 0, world, is_master=True, wait_for_workers=False)
     pctx = mp.start_processes(_worker, args=(fn, world, backend, device, store.port,
-                                             tuple(args), results, threads),
+                                             tuple(args), results, threads, timeout),
                               nprocs=world, join=False, start_method="spawn")
     got, errors = {}, {}
     deadline = time.monotonic() + timeout

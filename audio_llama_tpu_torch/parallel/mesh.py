@@ -64,12 +64,14 @@ def best_mesh_shape(n_devices: int, model_heads: int = 8) -> MeshConfig:
 class MeshAxis:
     """This rank's line of the mesh along one axis: its size, this rank's
     coordinate on it and the process group of the line (None when the axis
-    has size 1 or no world is running: nothing to reduce over)."""
+    has size 1 or no world is running: nothing to reduce over); `members`
+    holds the line's world ranks in axis order (the peers of a ring)."""
 
     name: str
     size: int
     index: int
     group: Optional[object] = None
+    members: tuple = ()
 
 
 class Mesh:
@@ -79,7 +81,7 @@ class Mesh:
     outside it, which takes part in no collective of the mesh)."""
 
     def __init__(self, axes: Sequence[tuple[str, int]], rank: Optional[int],
-                 groups: Optional[dict] = None):
+                 groups: Optional[dict] = None, members: Optional[dict] = None):
         self.axis_names = tuple(a for a, _ in axes)
         self.shape = {a: int(s) for a, s in axes}
         self.size = int(np.prod([s for _, s in axes]))
@@ -88,13 +90,15 @@ class Mesh:
                        dict(zip(self.axis_names, (int(c) for c in np.unravel_index(
                            rank, tuple(self.shape.values()))))))
         self._groups = groups or {}
+        self._members = members or {}
 
     def axis(self, name: str) -> MeshAxis:
         if name not in self.shape:
             raise ValueError(f"mesh {self.axis_names} has no {name!r} axis")
         if self.coords is None:
             raise ValueError("this rank is outside the mesh")
-        return MeshAxis(name, self.shape[name], self.coords[name], self._groups.get(name))
+        return MeshAxis(name, self.shape[name], self.coords[name], self._groups.get(name),
+                        tuple(self._members.get(name, ())))
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
@@ -136,7 +140,7 @@ def build_mesh(axes: Sequence[tuple[str, int]], ranks: Optional[Sequence[int]] =
         raise ValueError(f"mesh {sizes} has {n} positions; given {len(ranks)} ranks")
     if max(ranks) >= world or len(set(ranks)) != n:
         raise ValueError(f"ranks {ranks} are not distinct ranks of a world of {world}")
-    groups = {}
+    groups, lines = {}, {}
     for ax, (name, size) in enumerate(axes):
         if size == 1:
             continue
@@ -144,8 +148,8 @@ def build_mesh(axes: Sequence[tuple[str, int]], ranks: Optional[Sequence[int]] =
             members = [ranks[i] for i in line]
             group = dist.new_group(members)
             if me in members:
-                groups[name] = group
-    return Mesh(axes, ranks.index(me) if me in ranks else None, groups)
+                groups[name], lines[name] = group, members
+    return Mesh(axes, ranks.index(me) if me in ranks else None, groups, lines)
 
 
 def make_mesh(cfg: MeshConfig = MeshConfig(), ranks: Optional[Sequence[int]] = None) -> Mesh:

@@ -1,4 +1,4 @@
-"""Megatron tensor-parallel shards of the decoder for generation.
+"""Megatron tensor-parallel shards of the decoder, and the trainer's layout.
 
 Counterpart of the generation half of `audio_llama_tpu/parallel/sharding.py`
 (`_frozen_leaf_spec`, `llama_specs`, `shard_frozen_for_generation`; the
@@ -15,6 +15,14 @@ None) per dim, as the JAX package's `PartitionSpec`s:
 Where JAX places the arrays with these specs and `shard_map` hands each
 device its block, `shard_llama` cuts this rank's block out of a full tree:
 the Whisper tree stays whole (`shard_frozen_for_generation`).
+
+The training half (`sharded_train.py`): `batch_specs` (JAX's: the batch
+axis over dp x fsdp, the token axis over sp when asked), `batch_rows` (this
+rank's rows of a global batch: the tp and sp peers of one dp group take the
+same rows; the sp slice of the tokens is cut after the splice, in
+`models/allm.py::forward_nll`), `shard_trainable` / `gather_trainable` (a
+tp block of the trainable tree and its inverse) and `sharded_flags` (which
+leaves are blocks). The optimizer's moments follow their leaves.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Optional
 import torch
 
 from ..bridge import ParamTree
+from .collectives import all_gather
 from .mesh import MeshAxis
 
 _COL = {"q_proj", "k_proj", "v_proj", "gate_proj", "up_proj", "fc1"}
@@ -133,11 +142,88 @@ def shard_llama(params, axis: MeshAxis) -> ParamTree:
     return ParamTree(_shard(params, frozen_leaf_spec, axis))
 
 
+def cut_trainable(tree, axis: MeshAxis) -> dict:
+    """This rank's tp blocks of a tree of tensors shaped like the trainable
+    tree (the tree itself, or an optimizer moment) -> nested dict; a
+    replicated leaf comes back as the same tensor."""
+    return _shard(tree, trainable_leaf_spec, axis)
+
+
 def shard_trainable(trainable, axis: MeshAxis):
     """This rank's tp block of the trainable tree (LoRA factors)."""
     if trainable is None:
         return None
-    return ParamTree(_shard(trainable, trainable_leaf_spec, axis))
+    return ParamTree(cut_trainable(trainable, axis))
+
+
+def sharded_flags(trainable: ParamTree) -> list:
+    """Per parameter of the trainable tree, in `parameters()` order: is it a
+    tp block (its spec names 'tp')?"""
+    return ["tp" in trainable_leaf_spec(name.split("."), p.dim())
+            for name, p in trainable.named_parameters()]
+
+
+def gather_trainable(tree, axis: MeshAxis) -> dict:
+    """The inverse of `shard_trainable`: every tp block gathered whole over
+    the axis (a collective: every rank of it calls it) -> a nested dict of
+    detached tensors. `tree` is the trainable tree or one shaped like it
+    (an optimizer moment)."""
+    return _gather(tree, axis, ())
+
+
+def _gather(tree, axis, prefix):
+    out = {}
+    for name, val in tree.items():
+        path = prefix + (name,)
+        if isinstance(val, (ParamTree, dict)):
+            out[name] = _gather(val, axis, path)
+            continue
+        t = val.detach()
+        for dim, ax in enumerate(trainable_leaf_spec(list(path), t.dim())):
+            if ax == "tp":
+                t = all_gather(t, axis, dim=dim)
+        out[name] = t
+    return out
+
+
+def batch_specs(batch, accum: bool = False, seq_axis: Optional[str] = None):
+    """JAX's `batch_specs`: per field of an AudioLLMBatch, a spec tuple with
+    the batch axis over ('dp', 'fsdp') (behind the micro-batch axis when
+    `accum`) and, with `seq_axis`, the token axis of input_ids /
+    attention_mask / labels over it; None for an absent field."""
+    token_fields = {"input_ids", "attention_mask", "labels"}
+
+    def spec(leaf, field):
+        lead = (None,) if accum else ()
+        rest = [None] * (leaf.dim() - len(lead) - 1)
+        if seq_axis and field in token_fields and rest:
+            rest[-1] = seq_axis
+        return (*lead, ("dp", "fsdp"), *rest)
+
+    return type(batch)(*(None if getattr(batch, f) is None else spec(getattr(batch, f), f)
+                         for f in batch._fields))
+
+
+def batch_rows(mesh, batch, accum: bool = False):
+    """This rank's rows of a global batch: along the axis `batch_specs` puts
+    over ('dp', 'fsdp') (dim 1 of [A, B, ...] leaves when `accum`), rows
+    [i B/dp, (i + 1) B/dp) for dp coordinate i. tp and sp peers take the
+    same rows."""
+    dp = mesh.shape.get("dp", 1)
+    if dp == 1:
+        return batch
+    i = mesh.axis("dp").index
+
+    def cut(t, spec):
+        if t is None:
+            return None
+        dim = spec.index(("dp", "fsdp"))
+        n = t.shape[dim]
+        if n % dp:
+            raise ValueError(f"batch of {n} rows does not split over dp={dp}")
+        return t.narrow(dim, i * (n // dp), n // dp)
+
+    return type(batch)(*(cut(t, spec) for t, spec in zip(batch, batch_specs(batch, accum))))
 
 
 def shard_frozen_for_generation(mesh, frozen) -> ParamTree:

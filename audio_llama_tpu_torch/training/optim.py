@@ -13,6 +13,12 @@ after a warm-up from 0). Its state converts to and from optax's layout under
     {'0': {}, '1': {'0': {'count', 'mu', 'nu'}, '1': {}, '2': {'count'}}}
 
 with int32 [] counts and mu / nu trees shaped like the trainable tree.
+
+On one rank of a tensor-parallel trainer (`shard_norm`) some parameters are
+this rank's block of a leaf: the global norm then sums the squares of the
+replicated leaves once and the sharded blocks' squares over the tp axis, so
+every rank clips by the same norm and the replicas stay equal. Adam's
+moments follow their parameter, so they are blocks of the same leaves.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ class OptaxAdamW(torch.optim.Optimizer):
                         eps=eps)
         super().__init__(list(params), defaults)
         self.schedule = schedule
+        self.tp_axis, self.sharded = None, None
         self.adam_count = 0  # optax ScaleByAdamState.count
         self.schedule_count = 0  # optax ScaleByScheduleState.count
         for group in self.param_groups:
@@ -78,6 +85,24 @@ class OptaxAdamW(torch.optim.Optimizer):
     def _params(self):
         return [p for group in self.param_groups for p in group["params"]]
 
+    def shard_norm(self, tp_axis, sharded) -> None:
+        """Mark the parameters (in order) that are tp blocks of their leaves
+        (`sharded`, booleans) for the global norm over `tp_axis`."""
+        sharded = [bool(f) for f in sharded]
+        if len(sharded) != len(self._params()):
+            raise ValueError("one sharded flag per parameter")
+        self.tp_axis, self.sharded = tp_axis, sharded
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        if self.sharded is None:
+            return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        from ..parallel.collectives import psum
+
+        zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        rep = sum((torch.sum(g * g) for g, f in zip(grads, self.sharded) if not f), zero)
+        blocks = sum((torch.sum(g * g) for g, f in zip(grads, self.sharded) if f), zero)
+        return torch.sqrt(rep + psum(blocks, self.tp_axis))
+
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
         if closure is not None:
@@ -86,7 +111,7 @@ class OptaxAdamW(torch.optim.Optimizer):
         if any(p.grad is None for p in params):
             raise RuntimeError("OptaxAdamW: every trainable leaf needs a gradient")
         grads = [p.grad.float() for p in params]
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        g_norm = self._global_norm(grads)
         group = self.param_groups[0]
         b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
         max_norm = group["max_grad_norm"]
@@ -108,23 +133,31 @@ class OptaxAdamW(torch.optim.Optimizer):
         self.schedule_count += 1
         return g_norm
 
-    def optax_state(self, tree) -> dict:
-        """The state in optax's layout, numpy on the host; `tree` (the
-        ParamTree these parameters came from) gives the nesting."""
-        from ..bridge import to_numpy
-
+    def moment_trees(self, tree) -> tuple:
+        """(mu, nu): nested dicts of the moment tensors, shaped like `tree`
+        (the ParamTree these parameters came from)."""
         by_id = {id(p): self.state[p] for p in self._params()}
 
         def moments(node, key):
             if isinstance(node, Mapping) or hasattr(node, "items"):
                 return {k: moments(v, key) for k, v in node.items()}
-            return to_numpy(by_id[id(node)][key])
+            return by_id[id(node)][key]
 
+        return moments(tree, "mu"), moments(tree, "nu")
+
+    def optax_state(self, tree, moments=None) -> dict:
+        """The state in optax's layout, numpy on the host; `tree` (the
+        ParamTree these parameters came from) gives the nesting.
+        `moments`: (mu, nu) trees to write in place of this optimizer's own
+        (a sharded trainer's, gathered whole)."""
+        from ..bridge import to_numpy
+
+        mu, nu = self.moment_trees(tree) if moments is None else moments
         return {
             "0": {},
             "1": {
                 "0": {"count": np.asarray(self.adam_count, np.int32),
-                      "mu": moments(tree, "mu"), "nu": moments(tree, "nu")},
+                      "mu": to_numpy(mu), "nu": to_numpy(nu)},
                 "1": {},
                 "2": {"count": np.asarray(self.schedule_count, np.int32)},
             },

@@ -5,8 +5,21 @@ runs, AdamW with a cosine warm-up schedule (optax's arithmetic,
 `training/optim.py`), gradient accumulation and clipping, periodic eval
 (loss, perplexity) with best-model checkpoints, periodic and final
 checkpoints in the JAX package's format, resume, JSONL / TensorBoard / wandb
-scalars. It runs on one device: the card unless `--platform cpu`, where the
-plain PyTorch versions of the kernels run.
+scalars. It runs on the card unless `--platform cpu`, where the plain
+PyTorch versions of the kernels run.
+
+Every run goes through `parallel/sharded_train.py`, one process being the
+mesh of one position, as the JAX trainer's runs go through its sharded
+step. Several processes (`--distributed` with `--coordinator_address
+host:port`, `--num_processes N` and `--process_id r`, the JAX trainer's
+flags, or torchrun's environment) train on a dp x tp mesh of one rank per
+position (`--mesh_dp` / `--mesh_tp`, resolved as JAX's trainer does,
+:486-511, `--mesh_tp -1` by `best_mesh_shape`): each rank loads its dp
+rows, the Llama and the LoRA factors are cut into Megatron blocks over tp,
+and only the coordinator writes metrics and checkpoints (whole trees, the
+single-device file). Backend: gloo on the host; on cards, nccl when every
+rank has a card of its own (a route not yet run on cards), else gloo with
+the ranks sharing the cards (rank r on card r mod count).
 
     python -m audio_llama_tpu_torch.training.train --platform cpu --toy_model \\
         --tokenizer byte --data_path examples.json --audio_dir ./audio --num_epochs 1
@@ -15,10 +28,11 @@ plain PyTorch versions of the kernels run.
 Whisper-large-v3-turbo, LoRA r64) on seeded random frozen weights. Refused
 with NotImplementedError: `--llama_path` / `--whisper_path` checkpoints (they
 wait for `models/hf_loader.py`), `--toy_outliers` (`models/outliers.py`),
-a mesh or several processes (`--mesh_dp`/`--mesh_fsdp`/`--mesh_tp` other
-than 1 or auto, `--distributed`: ROADMAP queue 1 item 7) and an
-`--attn_impl` / `--enc_attn_impl` / `--mel_impl` other than `auto` (the
-kernels on the card, the plain versions on the host).
+`--mesh_fsdp` > 1 (ROADMAP queue 1 item 1), and an `--attn_impl` /
+`--enc_attn_impl` / `--mel_impl` other than `auto` (the kernels on the
+card, the plain versions on the host). JAX's CLI has no sequence-parallel
+flag; the sp arm is `parallel.sharded_train.make_sharded_train_step` on a
+mesh with sp > 1.
 """
 
 from __future__ import annotations
@@ -36,7 +50,6 @@ import torch
 
 logger = logging.getLogger("audio_llama_tpu_torch")
 
-MESH_QUEUE = "ROADMAP queue 1 item 7 (multi-device)"
 
 
 def parse_args(argv=None):
@@ -175,23 +188,64 @@ def _build_parser():
 
 def check_supported(args) -> None:
     """Refuse what the port does not run yet, before any work."""
-    for flag in ("attn_impl", "enc_attn_impl", "mel_impl"):
-        if getattr(args, flag) != "auto":
-            raise ValueError(
-                f"--{flag} {getattr(args, flag)!r}: the port takes 'auto' only (its kernels on "
-                "the card, their plain versions on the host); the JAX package's A/B and "
-                "interpret values have no counterpart here")
-    if args.distributed or args.num_processes > 1:
-        raise NotImplementedError(f"--distributed: multi-process training waits for {MESH_QUEUE}")
-    if args.mesh_dp not in (-1, 1) or args.mesh_fsdp != 1 or args.mesh_tp not in (-1, 1):
-        raise NotImplementedError(f"--mesh_dp/--mesh_fsdp/--mesh_tp: a device mesh waits for "
-                                  f"{MESH_QUEUE}; one device runs with 1 (or -1 = auto)")
+    from ..parallel.sharded_train import QUEUE, check_impls
+
+    check_impls("--", **{f: getattr(args, f) for f in ("attn_impl", "enc_attn_impl", "mel_impl")})
+    if args.mesh_fsdp != 1:
+        raise NotImplementedError(f"--mesh_fsdp {args.mesh_fsdp}: fsdp waits for {QUEUE}")
+    if args.num_processes > 1 and not args.distributed:
+        raise ValueError("--num_processes > 1 needs --distributed")
     if args.toy_outliers:
         raise NotImplementedError("--toy_outliers: models/outliers.py is not ported yet")
     if not (args.toy_model or args.synthetic_flagship):
         raise NotImplementedError(
             "--llama_path / --whisper_path: models/hf_loader.py is not ported yet and needs the "
             "checkpoints on disk; use --toy_model or --synthetic_flagship")
+
+
+def resolve_mesh(args, n: int, kv_heads: int):
+    """(dp, tp) over n processes, as JAX's trainer resolves its mesh
+    (train.py:486-511): --mesh_tp -1 by `best_mesh_shape`, --mesh_dp -1 the
+    largest dp dividing both the batch and the processes left. Every process
+    must sit in the mesh (a rank outside it would have nothing to run)."""
+    from ..parallel.mesh import best_mesh_shape
+
+    fsdp, tp = args.mesh_fsdp, args.mesh_tp
+    if tp == -1:
+        tp = best_mesh_shape(max(n // fsdp, 1), model_heads=kv_heads).tp
+        logger.info("auto tensor-parallel width: tp=%d", tp)
+    if args.mesh_dp == -1:
+        dp = math.gcd(args.batch_size, max(n // (fsdp * tp), 1))
+    else:
+        dp = args.mesh_dp
+        if args.batch_size % (dp * fsdp):
+            raise ValueError(f"batch_size {args.batch_size} must be divisible by "
+                             f"dp*fsdp = {dp * fsdp}")
+    if dp * fsdp * tp != n:
+        raise ValueError(f"mesh dp {dp} x fsdp {fsdp} x tp {tp} != {n} processes")
+    return dp, tp
+
+
+def join_world(args):
+    """--distributed -> (rank, world, device); (0, 1, device) otherwise."""
+    from ..device import resolve_device
+    from ..parallel import distributed
+
+    if not args.distributed:
+        return 0, 1, resolve_device("cpu" if args.platform == "cpu" else None)
+    if args.platform == "cpu":
+        backend, device = "gloo", torch.device("cpu")
+    else:
+        count = torch.cuda.device_count()
+        if count == 0:
+            raise RuntimeError("no CUDA device; pass --platform cpu to train on the host")
+        n = args.num_processes if args.num_processes > 0 else int(os.environ["WORLD_SIZE"])
+        r = args.process_id if args.process_id >= 0 else int(os.environ["RANK"])
+        backend = "nccl" if count >= n else "gloo"  # nccl refuses two ranks on one card
+        device = torch.device("cuda", r % count)
+    rank, world = distributed.initialize_from_flags(
+        args.coordinator_address, args.num_processes, args.process_id, backend, device)
+    return rank, world, device
 
 
 def set_seed(seed: int):
@@ -302,19 +356,25 @@ def train(args) -> dict:
     """Run training; returns {"steps", "final_checkpoint", "step_seconds"
     (host wall time between the ends of consecutive steps, after their
     logging), the last train and eval scalars}."""
+    import torch.distributed as dist
+
     from ..data.dataset import DatasetConfig
     from ..data.loader import create_dataloaders
     from ..data.tokenizer import load_tokenizer
-    from ..device import make_generator, resolve_device
+    from ..device import make_generator
     from ..models import allm
+    from ..parallel import sharded_train, sharding
+    from ..parallel.mesh import MeshConfig, make_mesh
     from . import checkpoint as ckpt
     from . import profiling
     from . import train_step as steps_mod
-    from .metrics import MetricsWriter, Throughput, setup_logging
+    from .metrics import MetricsWriter, NullWriter, Throughput, setup_logging
     from .optim import OptaxAdamW, cosine_schedule_with_warmup
 
     check_supported(args)
-    device = resolve_device("cpu" if args.platform == "cpu" else None)
+    own_world = args.distributed and not dist.is_initialized()
+    rank, world, device = join_world(args)
+    is_coord = rank == 0
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     set_seed(args.seed)
@@ -324,7 +384,13 @@ def train(args) -> dict:
 
     tokenizer = load_tokenizer(args.tokenizer or "byte")
     cfg = build_model_config(args, tokenizer.vocab_size)
+    dp, tp = resolve_mesh(args, world, cfg.llama.num_kv_heads)
+    mesh = make_mesh(MeshConfig(dp=dp, fsdp=1, tp=tp))
+    if world > 1:
+        logger.info("rank %d of %d: mesh %s", rank, world, mesh)
     frozen = build_frozen(cfg, args.seed, device)
+    if tp > 1:
+        frozen = sharding.shard_frozen_for_generation(mesh, frozen)
     sid = tokenizer.token_to_id(cfg.audio_start_token)
     eid = tokenizer.token_to_id(cfg.audio_end_token)
     compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
@@ -345,6 +411,7 @@ def train(args) -> dict:
         dataset_config=ds_cfg, dataset_config_path=args.dataset_config,
         max_samples=args.max_samples or None, val_batch_size=args.eval_batch_size,
         worker_processes=args.worker_processes,
+        process_index=mesh.coords["dp"], process_count=dp,
     )
 
     accum = max(1, args.grad_accum_steps)
@@ -354,9 +421,12 @@ def train(args) -> dict:
         total_steps = min(total_steps, args.max_steps)
     schedule = cosine_schedule_with_warmup(args.learning_rate, args.warmup_steps, total_steps)
 
+    def make_optimizer(params):
+        return OptaxAdamW(params, schedule, weight_decay=args.weight_decay,
+                          max_grad_norm=args.max_grad_norm)
+
     trainable = allm.init_trainable(cfg, make_generator(args.seed + 1, device))
-    state = steps_mod.init_train_state(trainable, lambda params: OptaxAdamW(
-        params, schedule, weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm))
+    state = steps_mod.init_train_state(trainable, make_optimizer)
     logger.info("trainable params: %s", f"{allm.num_trainable_params(trainable):,}")
 
     start_step, start_epoch = 0, 0
@@ -370,14 +440,20 @@ def train(args) -> dict:
             state.optimizer.load_optax_state(trainable, opt)
         state = state._replace(step=start_step)
         logger.info("resumed from %s at step %d", args.resume_from, start_step)
+    # this rank's blocks of the whole state (resumed or fresh); one process
+    # is the mesh of one position, as in the JAX trainer
+    state = sharded_train.shard_train_state(mesh, state, make_optimizer)
+    del trainable
 
+    # only the coordinator writes metrics and checkpoints (JAX train.py:567)
     writer = MetricsWriter(args.output_dir, use_tensorboard=not args.no_tensorboard,
                            use_wandb=args.use_wandb, wandb_project=args.wandb_project,
-                           wandb_config=vars(args))
-    train_step = steps_mod.make_train_step(cfg, sid, eid, compute_dtype, accum_steps=accum,
-                                           loss_chunk_size=args.loss_chunk_size,
-                                           remat=args.remat)
-    eval_step = steps_mod.make_eval_step(cfg, sid, eid, compute_dtype)
+                           wandb_config=vars(args)) if is_coord else NullWriter()
+    # the loaders yield this rank's rows: no template needed to cut them
+    train_step = sharded_train.make_sharded_train_step(
+        cfg, None, mesh, None, sid, eid, compute_dtype, accum_steps=accum,
+        loss_chunk_size=args.loss_chunk_size, remat=args.remat)
+    eval_step = sharded_train.make_sharded_eval_step(cfg, mesh, None, sid, eid, compute_dtype)
 
     n_windows = max(1, int(args.max_audio_length) // 30) if not args.toy_model else 1
     tokens_per_micro = args.batch_size * (args.text_max_length + n_windows * cfg.audio_seq_len + 2)
@@ -385,13 +461,16 @@ def train(args) -> dict:
         cfg, tokens_per_micro, args.batch_size * cfg.audio_seq_len, accum))
 
     def save(step, epoch, **kind):
+        # a collective: every rank gathers, the coordinator writes
+        whole, opt_state = sharded_train.gather_train_state(mesh, state)
+        if not is_coord:
+            return None
         return ckpt.save_checkpoint(
-            args.output_dir, trainable=state.trainable,
-            opt_state=state.optimizer.optax_state(state.trainable), step=step, epoch=epoch,
+            args.output_dir, trainable=whole, opt_state=opt_state, step=step, epoch=epoch,
             model_cfg=cfg, args=vars(args), dataset_config=ds_cfg.__dict__, **kind)
 
     profile_window = None
-    if args.profile_steps:
+    if args.profile_steps and is_coord:
         lo, hi = (int(x) for x in args.profile_steps.split(":"))
         profile_window = (lo, hi, os.path.join(args.output_dir, "profile"))
     prof = None
@@ -460,6 +539,8 @@ def train(args) -> dict:
         last_metrics.update(ev)
     path = save(global_step, args.num_epochs - 1, final=True)
     writer.close()
+    if own_world:
+        dist.destroy_process_group()
     logger.info("done: %d steps in %.1fs; final checkpoint %s", global_step,
                 time.perf_counter() - t_start, path)
     return {"steps": global_step, "final_checkpoint": path, "step_seconds": step_seconds,

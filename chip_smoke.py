@@ -67,7 +67,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      that appends, the fresh row's scales dropped, an unclamped row max);
      two half-slabs merged by `ops.attention.merge_stats` against the mono
      kernel on the whole slab; timed beside the plain version and SDPA;
- 13. multi-rank paths: a world of 2 ranks spawned on cuda:0 over gloo,
+ 13. ring hop kernels: the tri='never' forward, dq and dk/dv kernels of
+     the ring of sequence-parallel training at the sp = 2 hop of train A
+     (B 2, Tl 1024, a padded source shard, the backward fed the row
+     statistics merged over both blocks) against their plain versions, on
+     planted faults (the causal mask on the hop, the source shard's bias
+     dropped, the hop's own m and l for the merged ones, a later shard's
+     hop launched: the launch count); timed beside the plain versions and
+     SDPA (no mask) forward and backward;
+ 14. sharded training: 2 ranks on cuda:0 over gloo at full width on run
+     A's corpus: dp = 2 and tp = 2 through the trainer CLI (`--distributed`,
+     2 steps, a checkpoint), sp = 2 through `make_sharded_train_step` (the
+     kernel ring, 2 steps), each against the single process: first loss,
+     gradients, replicas bit-equal after every step, checkpoint reload bit
+     for bit, the ring's launches exact per rank;
+ 15. multi-rank paths: a world of 2 ranks spawned on cuda:0 over gloo,
      each building its weights from the same seeds: (a) sp=2 on the
      serving configuration (LoRA merged, fused int4 tree, int4 KV, B = 1,
      four 30 s windows, also through `make_sp_encode`, 32 greedy tokens);
@@ -95,6 +109,7 @@ import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -490,6 +505,9 @@ COUNTERS = {
     "decode_attention_db_stats": ("decode_attention_db", "launches"),
     "decode_attention_quantized_db_stats": ("decode_attention_db", "launches_q8"),
     "decode_attention_quantized4_db_stats": ("decode_attention_db", "launches_q4"),
+    "causal_attention_never": ("causal_attention", "launches_never"),
+    "causal_attention_dq_never": ("causal_attention", "launches_dq_never"),
+    "causal_attention_dkv_never": ("causal_attention", "launches_dkv_never"),
 }
 
 
@@ -1107,6 +1125,8 @@ KERNEL_PATH = {
     "causal_attention_dq": "train", "causal_attention_dkv": "train",
     "decode_attention_db_stats": "sp_bf16", "decode_attention_quantized_db_stats": "sp_int8",
     "decode_attention_quantized4_db_stats": "sp_int4",
+    "causal_attention_never": "sp_train", "causal_attention_dq_never": "sp_train",
+    "causal_attention_dkv_never": "sp_train",
 }
 
 AUDIO_START, AUDIO_END, EOS = 128256, 128257, 128001  # resized vocab rows; Llama-3 <|end_of_text|>
@@ -1879,6 +1899,201 @@ def train_kernel_checks(dev, gen):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the ring hop's tri='never' kernels (sequence-parallel training)
+# ---------------------------------------------------------------------------
+
+def merge_hops(*hops):
+    """(o, l, m) of several key blocks of the same queries -> the whole
+    row's (o, l, m), as the ring merges them (f32)."""
+    B = hops[0][0].shape[0]
+
+    def rows(x):  # [B*H, T] -> [B, T, H, 1]
+        return x.reshape(B, -1, x.shape[-1]).transpose(1, 2)[..., None]
+
+    m = torch.stack([h[2] for h in hops]).amax(dim=0)
+    l = sum(h[1] * torch.exp(h[2] - m) for h in hops)
+    acc = sum(h[0].float() * rows(h[1] * torch.exp(h[2] - m)) for h in hops)
+    o = torch.where(rows(l) > 0, acc / torch.where(rows(l) > 0, rows(l), 1.0), 0.0)
+    return o.to(hops[0][0].dtype), l, m
+
+
+def ring_hop_case(dev, gen, B, T, Hq, Hkv, hd, pad_from=None):
+    """Rank 1 of sp = 2 at a hop: its queries (pre-scaled) against the K/V
+    block of shard 0 (the hop, `k`, `v`, `bias`: the source shard's
+    padding, row 1's keys from `pad_from` on) and its own block (`own`); the
+    whole row's (o, l, m) and D merged over both blocks by the plain
+    versions, and a cotangent dO. bf16."""
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    qs = randn(B, T, Hq, hd) * torch.tensor(hd ** -0.5, dtype=bf, device=dev)
+    k, v, k1, v1, do = (randn(B, T, Hkv, hd), randn(B, T, Hkv, hd), randn(B, T, Hkv, hd),
+                        randn(B, T, Hkv, hd), randn(B, T, Hq, hd))
+    mask = torch.ones(B, T, dtype=torch.int32, device=dev)
+    if pad_from is not None:
+        mask[-1, pad_from:] = 0
+    zero = torch.zeros((), device=dev)
+    bias = torch.where(mask != 0, zero, ca.NEG)
+    own_bias = torch.zeros(B, T, device=dev)
+    hop = ca.causal_attention_plain(qs, k, v, bias, tri="never")
+    own = ca.causal_attention_plain(qs, k1, v1, own_bias, tri="always")
+    o, l, m = merge_hops(hop, own)
+    return dict(qs=qs, k=k, v=v, bias=bias, do=do, o=o, l=l, m=m,
+                d=ca.attention_bwd_prologue(o, do), hop=hop, own=(k1, v1, own_bias))
+
+
+RING_NAMES = ("causal_attention_never", "causal_attention_dq_never", "causal_attention_dkv_never")
+ATOL_ROW_RMS_FRAC.update({"causal_attention_never": ATOL_ROW_RMS_FRAC["causal_attention"],
+                          "causal_attention_dq_never": ATOL_ROW_RMS_FRAC["causal_attention_dq"],
+                          "causal_attention_dkv_never": ATOL_ROW_RMS_FRAC["causal_attention_dkv"]})
+
+
+def ring_launch_fault(case) -> dict:
+    """The ring's forward on one process (a 2-rank axis whose rotation hands
+    each block back unchanged: the counts, not the numbers, are checked):
+    rank 0 must launch no tri='never' kernel (its only other block is a
+    later shard's), rank 1 one. The planted fault, a ring that launches a
+    later shard's hop, is caught by that count alone."""
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+    from audio_llama_tpu_torch.parallel import ring_kernel as rk
+    from audio_llama_tpu_torch.parallel.mesh import MeshAxis
+
+    saved = rk.ppermute_, rk.axis_index
+    rk.ppermute_ = lambda t, axis, shift=1: t
+    got = {}
+    try:
+        for label, idx, lie in (("rank 0", 0, None), ("rank 1", 1, None),
+                                ("rank 0, later hop launched (planted)", 0, 1)):
+            axis = MeshAxis("sp", 2, idx, None, (0, 1))
+            rk.axis_index = saved[1] if lie is None else (lambda a, lie=lie: lie)
+            n = ca.launches_never
+            rk.ring_forward(case["qs"], case["k"], case["v"], case["bias"], axis)
+            got[label] = ca.launches_never - n
+    finally:
+        rk.ppermute_, rk.axis_index = saved
+    if got["rank 0"] != 0 or got["rank 1"] != 1:
+        raise AssertionError(f"ring: tri='never' launches {got}, want rank 0: 0, rank 1: 1")
+    if got["rank 0, later hop launched (planted)"] == 0:
+        raise AssertionError("ring: the planted later-shard launch was not counted")
+    return got
+
+
+def ring_kernel_checks(dev, gen):
+    """The three tri='never' kernels at the sp = 2 hop of train A (rank 1:
+    qs [2, 1024, 24, 128] against shard 0's K/V [2, 1024, 8, 128], row 1's
+    keys from 896 padded) against their plain versions, the backward fed
+    the row statistics merged over both blocks; planted faults: the causal
+    mask applied on the hop, the source shard's padding bias dropped, dq and
+    dk/dv fed the hop's own (m, l) for the merged ones, and (by the launch
+    count) a later shard's hop launched. Timed by CUPTI with CUDA events
+    beside, the plain versions, and SDPA (non-causal, GQA) forward and
+    backward as yardsticks."""
+    import torch.nn.functional as F
+
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+
+    lc = full_config().llama
+    B, T, Hq, Hkv, hd = TRAIN_B, TRAIN_T // 2, lc.num_heads, lc.num_kv_heads, lc.head_dim
+    c = ring_hop_case(dev, gen, B, T, Hq, Hkv, hd, pad_from=T * 7 // 8)
+    qs, k, v, bias, do, o, l, m, d = (c[n] for n in "qs k v bias do o l m d".split())
+
+    def fwd(tri="never", b=bias):
+        return ca.causal_attention_cuda(qs, k, v, b, tri)
+
+    def dq(tri="never", b=bias, ll=l, mm=m):
+        return ca.causal_attention_dq_cuda(qs, k, v, b, ll, mm, do, d, tri)
+
+    def dkv(tri="never", b=bias, ll=l, mm=m):
+        return ca.causal_attention_dkv_cuda(qs, k, v, b, ll, mm, do, d, tri)
+
+    want_fwd = c["hop"].o
+    want_bwd = ca.causal_attention_bwd_plain(qs, k, v, bias, o, l, m, do, tri="never")
+    got_fwd = fwd()
+    got_dq, (got_dk, got_dv) = dq(), dkv()
+    fr = {n: ATOL_ROW_RMS_FRAC[n] for n in RING_NAMES}
+    res = {"causal_attention_never": check_close(RING_NAMES[0], got_fwd.o, want_fwd,
+                                                 fr[RING_NAMES[0]])}
+    for name, got, want, key in (("dq", got_dq, want_bwd[0], RING_NAMES[1]),
+                                 ("dk", got_dk, want_bwd[1], RING_NAMES[2]),
+                                 ("dv", got_dv, want_bwd[2], RING_NAMES[2])):
+        res[name] = check_close(key + " " + name, got, want, fr[key], GRAD_RMS_DIMS)
+    for name, got, want in (("l", got_fwd.l, c["hop"].l), ("m", got_fwd.m, c["hop"].m)):
+        rel = ((got - want).abs() / want.abs().clamp(min=1e-6)).max().item()
+        if not rel <= 1e-2:
+            raise AssertionError(f"causal_attention_never: {name} off by {rel:.3e} relative")
+    zero_bias = torch.zeros_like(bias)
+    hop_l, hop_m = c["hop"].l, c["hop"].m
+    faults = {RING_NAMES[0]: {
+        "causal mask applied on the hop": must_reject(
+            RING_NAMES[0], "causal mask", fwd("always").o, want_fwd, fr[RING_NAMES[0]]),
+        "source shard's padding bias dropped": must_reject(
+            RING_NAMES[0], "bias dropped", fwd(b=zero_bias).o, want_fwd, fr[RING_NAMES[0]]),
+    }}
+    for key, run, want, pick in ((RING_NAMES[1], dq, want_bwd[0], lambda r: r),
+                                 (RING_NAMES[2], dkv, want_bwd[1], lambda r: r[0])):
+        faults[key] = {
+            fault: must_reject(key, fault, pick(got), want, fr[key], rms_dims=GRAD_RMS_DIMS)
+            for fault, got in (
+                ("causal mask applied on the hop", run("always")),
+                ("source shard's padding bias dropped", run(b=zero_bias)),
+                ("hop-local (m, l) for the merged ones", run(ll=hop_l, mm=hop_m)))}
+    launch_check = ring_launch_fault(c)
+    # bounds: every product over the whole Tl x Tl hop (no causal half)
+    per_product = 2.0 * hd * T * T * B * Hq
+    in_bytes = 2.0 * B * T * hd * (Hq + 2 * Hkv) + 4.0 * B * T
+    stats = 4.0 * B * Hq * T
+    bounds = {RING_NAMES[0]: bound(2 * per_product, in_bytes + 2.0 * B * T * Hq * hd + 2 * stats),
+              RING_NAMES[1]: bound(3 * per_product, in_bytes + 2.0 * B * T * Hq * hd + 3 * stats
+                                   + 2.0 * B * T * Hq * hd),
+              RING_NAMES[2]: bound(4 * per_product, in_bytes + 2.0 * B * T * Hq * hd + 3 * stats
+                                   + 2.0 * 2 * B * T * Hkv * hd)}
+    plain_fwd = events_ms(lambda: ca.causal_attention_plain(qs, k, v, bias, tri="never"),
+                          iters=3, warmup=1)
+    plain_bwd = events_ms(lambda: ca.causal_attention_bwd_plain(qs, k, v, bias, o, l, m, do,
+                                                                tri="never"),
+                          iters=3, warmup=1)
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (qs, k, v))
+    sdpa_fwd = events_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0,
+                                                                enable_gqa=True))
+    sdpa = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0, enable_gqa=True)
+    doh = do.transpose(1, 2)
+    sdpa_bwd = events_ms(lambda: torch.autograd.grad(sdpa, (qh, kh, vh), doh,
+                                                     retain_graph=True))
+    shapes = (f"qs/dO[{B},{T},{Hq},{hd}] k/v[{B},{T},{Hkv},{hd}] bf16 (the sp=2 hop of "
+              f"train A), bias [{B},{T}] f32 (row 1 keys >= {T * 7 // 8} padded), l/m/D "
+              f"[{B * Hq},{T}] "
+              f"f32 merged over both of rank 1's blocks")
+    rows = []
+    for name, run, err, line, plain_ms, library_ms in (
+            (RING_NAMES[0], fwd, res["causal_attention_never"], "101", plain_fwd, sdpa_fwd),
+            (RING_NAMES[1], dq, res["dq"], "471", plain_bwd, sdpa_bwd),
+            (RING_NAMES[2], dkv, max(res["dk"], res["dv"]), "514", plain_bwd, sdpa_bwd)):
+        bms, bby = bounds[name]
+        rows.append(dict(
+            name=name, route="cuda",
+            source="audio_llama_tpu_torch/csrc/" + ("causal_attention.cu" if name == RING_NAMES[0]
+                                                    else "causal_attention_bwd.cu"),
+            replaces=f"audio_llama_tpu/ops/causal_attention.py:{line} (tri='never')",
+            max_abs_err=err[0], tol={**tol_entry(ATOL_ROW_RMS_FRAC[name]), **(
+                {"rms_over": "each (batch, head)'s [T, hd] slab"} if name != RING_NAMES[0]
+                else {})},
+            tol_ratio=err[1], planted_fault_ratios=faults[name],
+            launch_fault=launch_check,
+            ms=time_ms(run), ms_events=events_ms(run), plain_ms=plain_ms,
+            library_ms=library_ms, launches=None, bound_ms=bms, bound_by=bby, shapes=shapes,
+            notes="plain_ms of dq and dk/dv: the whole plain backward of the hop; library_ms: "
+                  "SDPA (no causal mask, enable_gqa), its forward for the forward kernel, its "
+                  "backward (dq, dk, dv in one call) for the backward kernels",
+        ))
+        log(f"kernel {name} ok: {json.dumps(rows[-1])}")
+    return rows
+
+
 def write_corpus(root: str, n: int = 24, seconds: float = 30.0, seed: int = 0):
     """n seeded WAV clips (16 kHz, 16-bit, a tone plus noise) and an
     examples.json of prompts and responses -> (data_path, audio_dir)."""
@@ -1962,13 +2177,20 @@ def train_run(dev, data_path, audio_dir, out, flags, label):
     return stats, launches, result
 
 
-def train_path(dev, profile: bool = False):
+RUN_A_FLAGS = ["--batch_size", "2", "--grad_accum_steps", "2", "--max_steps", "3",
+               "--warmup_steps", "1", "--eval_batch_size", "2", "--eval_steps", "2",
+               "--save_steps", "2"]
+
+
+def train_path(dev, tmp: str, profile: bool = False):
     """The port's trainer in-process at full width (`--synthetic_flagship
-    --tokenizer byte`, LoRA r64) on 24 seeded 30 s WAV clips: run A (B 2, 2
-    micro-batches a step, 3 steps, eval and save at step 2) and run B (B 8,
-    `--remat --loss_chunk_size 256`, 2 steps). Checks the losses, the
-    updates, every kernel's launches and the checkpoints' reload."""
-    import tempfile
+    --tokenizer byte`, LoRA r64) on 24 seeded 30 s WAV clips written under
+    `tmp`: run A (B 2, 2 micro-batches a step, 3 steps, eval and save at
+    step 2; its outputs stay in `tmp/run_A` for `sharded_train_path`) and
+    run B (B 8, `--remat --loss_chunk_size 256`, 2 steps). Checks the
+    losses, the updates, every kernel's launches and the checkpoints'
+    reload."""
+    import shutil
 
     from audio_llama_tpu_torch.inference import cli
     from audio_llama_tpu_torch.models import allm
@@ -1976,62 +2198,61 @@ def train_path(dev, profile: bool = False):
     from audio_llama_tpu_torch.training import checkpoint as ckpt
 
     L, W = full_config().llama.num_layers, full_config().whisper.num_layers
-    with tempfile.TemporaryDirectory() as tmp:
-        data_path, audio_dir = write_corpus(tmp)
-        runs = {}
-        for label, flags, micro, evals, remat in (
-                ("A", ["--batch_size", "2", "--grad_accum_steps", "2", "--max_steps", "3",
-                       "--warmup_steps", "1", "--eval_batch_size", "2", "--eval_steps", "2",
-                       "--save_steps", "2"], 6, 2, False),
-                ("B", ["--batch_size", "8", "--grad_accum_steps", "1", "--remat",
-                       "--loss_chunk_size", "256", "--max_steps", "2", "--eval_steps", "0",
-                       "--save_steps", "0"], 2, 1, True)):
-            out = f"{tmp}/run_{label}"
-            stats, launches, result = train_run(dev, data_path, audio_dir, out, flags,
-                                                f"train run {label}")
-            want = {
-                "causal_attention": L * ((2 if remat else 1) * micro + evals),
-                "causal_attention_dq": L * micro, "causal_attention_dkv": L * micro,
-                "mel_power": micro + evals, "enc_attention": W * (micro + evals),
-                "layer_norm": 2 * W * (micro + evals),
-            }
-            for name, n in want.items():
-                if launches[name] != n:
-                    raise AssertionError(f"train run {label}: {name} launched {launches[name]} "
-                                         f"times, want {n}")
-            # the final checkpoint reloads bit for bit, through the trainer's
-            # loader and through the inference CLI's
-            final = result["final_checkpoint"]
-            saved = _leaves(_read_checkpoint(final)["model"]["trainable"])
-            cfg, frozen, by_cli, _ = cli.load_audio_llm(final, device=dev)
-            del frozen
-            template = allm.init_trainable(cfg, make_generator(0, dev))
-            by_ckpt, opt, step, _ = ckpt.load_checkpoint(final, trainable_template=template)
-            for tree in (by_cli, by_ckpt):
-                for name, p in tree.named_parameters():
-                    if not np.array_equal(p.detach().cpu().numpy(), saved[name]):
-                        raise AssertionError(f"train run {label}: {name} does not reload "
-                                             "bit for bit")
-            if step != result["steps"] or int(opt["1"]["0"]["count"]) != step:
-                raise AssertionError(f"train run {label}: checkpoint step {step}")
-            if label == "A":
-                # step 1 runs at lr 0 (warm-up from 0); step 2 at the peak
-                # must move the trainable
-                init = allm.init_trainable(cfg, make_generator(42 + 1, dev))
-                at2 = _leaves(_read_checkpoint(f"{out}/checkpoint-2")["model"]["trainable"])
-                moved = sum(not np.array_equal(p.detach().cpu().numpy(), at2[n])
-                            for n, p in init.named_parameters())
-                if moved == 0 or not any(not np.array_equal(at2[n], saved[n]) for n in saved):
-                    raise AssertionError("train run A: the update did not move the trainable")
-                stats["leaves_moved_by_step_2"] = moved
-                del init
-            stats["checkpoint_reload"] = "bit-equal (trainer loader, inference CLI)"
-            log(json.dumps({"train_path": stats}))
-            runs[label] = launches
-            del by_cli, by_ckpt, template
-            torch.cuda.empty_cache()
-        if profile:
-            train_profile(dev, data_path, audio_dir)
+    data_path, audio_dir = write_corpus(tmp)
+    runs = {}
+    for label, flags, micro, evals, remat in (
+            ("A", RUN_A_FLAGS, 6, 2, False),
+            ("B", ["--batch_size", "8", "--grad_accum_steps", "1", "--remat",
+                   "--loss_chunk_size", "256", "--max_steps", "2", "--eval_steps", "0",
+                   "--save_steps", "0"], 2, 1, True)):
+        out = f"{tmp}/run_{label}"
+        stats, launches, result = train_run(dev, data_path, audio_dir, out, flags,
+                                            f"train run {label}")
+        want = {
+            "causal_attention": L * ((2 if remat else 1) * micro + evals),
+            "causal_attention_dq": L * micro, "causal_attention_dkv": L * micro,
+            "mel_power": micro + evals, "enc_attention": W * (micro + evals),
+            "layer_norm": 2 * W * (micro + evals),
+        }
+        for name, n in want.items():
+            if launches[name] != n:
+                raise AssertionError(f"train run {label}: {name} launched {launches[name]} "
+                                     f"times, want {n}")
+        # the final checkpoint reloads bit for bit, through the trainer's
+        # loader and through the inference CLI's
+        final = result["final_checkpoint"]
+        saved = _leaves(_read_checkpoint(final)["model"]["trainable"])
+        cfg, frozen, by_cli, _ = cli.load_audio_llm(final, device=dev)
+        del frozen
+        template = allm.init_trainable(cfg, make_generator(0, dev))
+        by_ckpt, opt, step, _ = ckpt.load_checkpoint(final, trainable_template=template)
+        for tree in (by_cli, by_ckpt):
+            for name, p in tree.named_parameters():
+                if not np.array_equal(p.detach().cpu().numpy(), saved[name]):
+                    raise AssertionError(f"train run {label}: {name} does not reload "
+                                         "bit for bit")
+        if step != result["steps"] or int(opt["1"]["0"]["count"]) != step:
+            raise AssertionError(f"train run {label}: checkpoint step {step}")
+        if label == "A":
+            # step 1 runs at lr 0 (warm-up from 0); step 2 at the peak
+            # must move the trainable
+            init = allm.init_trainable(cfg, make_generator(42 + 1, dev))
+            at2 = _leaves(_read_checkpoint(f"{out}/checkpoint-2")["model"]["trainable"])
+            moved = sum(not np.array_equal(p.detach().cpu().numpy(), at2[n])
+                        for n, p in init.named_parameters())
+            if moved == 0 or not any(not np.array_equal(at2[n], saved[n]) for n in saved):
+                raise AssertionError("train run A: the update did not move the trainable")
+            stats["leaves_moved_by_step_2"] = moved
+            del init
+        stats["checkpoint_reload"] = "bit-equal (trainer loader, inference CLI)"
+        log(json.dumps({"train_path": stats}))
+        runs[label] = launches
+        del by_cli, by_ckpt, template
+        torch.cuda.empty_cache()
+        if label == "B":
+            shutil.rmtree(out)
+    if profile:
+        train_profile(dev, data_path, audio_dir)
     return runs["A"]
 
 
@@ -2042,7 +2263,9 @@ def train_profile(dev, data_path, audio_dir):
     from audio_llama_tpu_torch.data.tokenizer import ByteTokenizer
     from audio_llama_tpu_torch.device import make_generator
     from audio_llama_tpu_torch.models import allm
-    from audio_llama_tpu_torch.training import optim, train_step
+    from audio_llama_tpu_torch.parallel import sharded_train
+    from audio_llama_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from audio_llama_tpu_torch.training import optim
     from audio_llama_tpu_torch.training.train import build_frozen, group_by_modality, to_device
 
     cfg = full_config()
@@ -2051,11 +2274,13 @@ def train_profile(dev, data_path, audio_dir):
                                       dataset_config=DatasetConfig(text_max_length=512))
     batch = to_device(next(group_by_modality(loader, 2)), dev)
     frozen = build_frozen(cfg, 42, dev)
-    state = train_step.init_train_state(
-        allm.init_trainable(cfg, make_generator(43, dev)),
+    mesh = make_mesh(MeshConfig(dp=1))  # one process: the trainer's mesh of one position
+    state = sharded_train.init_sharded_state(
+        mesh, allm.init_trainable(cfg, make_generator(43, dev)),
         lambda p: optim.OptaxAdamW(p, lambda c: 2e-5, weight_decay=0.01, max_grad_norm=2.0))
-    step = train_step.make_train_step(cfg, tk.token_to_id("<audio>"), tk.token_to_id("</audio>"),
-                                      accum_steps=2)
+    step = sharded_train.make_sharded_train_step(
+        cfg, None, mesh, None, tk.token_to_id("<audio>"), tk.token_to_id("</audio>"),
+        accum_steps=2)
     box = {"state": state}
 
     def run():
@@ -2113,7 +2338,7 @@ def host_check_train(dev):
     def one_step(fz, tr, cd, d):
         tr.requires_grad_(True)
         b = allm.AudioLLMBatch(*(x.to(d) for x in batch))
-        loss = train_step.make_loss_fn(cfg, AUDIO_START, AUDIO_END, cd)(tr, fz, b)
+        loss, _ = allm.forward(fz, tr, cfg, b, AUDIO_START, AUDIO_END, cd)
         grads = train_step.gradients(loss, list(tr.parameters()))
         gnorm, leaves = update(tr, grads)
         return loss.item(), gnorm, dict(zip(names, (g.float().cpu() for g in grads))), leaves
@@ -2456,6 +2681,20 @@ def gloo_probe(dev) -> dict:
                 out[f"{op} {tag}"] = "accepted"
             except (RuntimeError, ValueError) as e:
                 out[f"{op} {tag}"] = "refused: " + str(e).splitlines()[0][:160]
+    # point to point (the ring of sp training): the route
+    # `collectives.ppermute` takes here, and one rotation by it. A CUDA
+    # tensor is never handed to gloo's send/recv: gloo reads its address as
+    # host memory (the transport then fails with "writev ... Bad address"
+    # on an H100 under torch 2.11)
+    from audio_llama_tpu_torch.parallel import build_mesh, collectives
+
+    x = torch.full((8,), float(dist.get_rank() + 1), device=dev)
+    peer = 1 - dist.get_rank()
+    axis = build_mesh([("sp", 2)]).axis("sp")
+    got = collectives.ppermute_(x, axis)
+    if not torch.equal(got, torch.full_like(x, float(peer + 1))):
+        raise AssertionError("ppermute: the peer's block did not arrive")
+    out["ppermute route"] = collectives.ppermute_route(axis, x)
     return out
 
 
@@ -2727,6 +2966,317 @@ def multi_path(dev) -> dict:
             "sp_bf16": res[0]["b kv16"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sharded training, 2 ranks on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARM_FLAGS = ["--batch_size", "2", "--grad_accum_steps", "2", "--max_steps", "2",
+                   "--warmup_steps", "1", "--eval_steps", "0", "--save_steps", "2"]
+SHARDED_LOSS_REL = 1e-2  # the first step's loss against the single process (bf16 sums)
+SHARDED_GRAD_REL = 3e-2  # gradients (Adam's mu after 2 steps): HOST_GRAD_TOL's reasoning
+
+
+class CollectiveCounter:
+    """Counts the port's collectives (calls and bytes by name) while
+    installed: `collectives.psum` (f, g, the sums of the loss and the
+    gradients, the clip norm), `all_gather` (the lm_head shards, the
+    checkpoint's gather) and `ppermute_` (the ring's rotations)."""
+
+    def __init__(self):
+        from audio_llama_tpu_torch.parallel import collectives, ring_kernel, sharded_train, \
+            sharding
+
+        self.calls = {}
+        self.sites = [(collectives, "psum"), (collectives, "all_gather"),
+                      (sharded_train, "psum"), (sharding, "all_gather"),
+                      (ring_kernel, "ppermute_")]
+        self.saved = [getattr(m, n) for m, n in self.sites]
+
+    def __enter__(self):
+        for (mod, name), fn in zip(self.sites, self.saved):
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.sites, self.saved):
+            setattr(mod, name, fn)
+
+    def _wrap(self, name, fn):
+        def counted(x, axis, *args, **kw):
+            if axis is not None and axis.size > 1:
+                c = self.calls.setdefault(name, {"calls": 0, "bytes": 0})
+                c["calls"] += 1
+                c["bytes"] += x.numel() * x.element_size()
+            return fn(x, axis, *args, **kw)
+        return counted
+
+    def take(self) -> dict:
+        out, self.calls = self.calls, {}
+        return out
+
+
+def _digest(trainable, flags) -> str:
+    """A hash of the replicated leaves' bytes (bit-equality across ranks)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p, f in zip(trainable.parameters(), flags):
+        if not f:
+            h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _timed_steps(record, counter):
+    """Wrap `sharded_train.make_sharded_train_step` so that every step it
+    makes records its wall ms (synchronized), its collectives, the ring's
+    launches and the digest of the replicated leaves after it."""
+    from audio_llama_tpu_torch.parallel import sharded_train, sharding
+
+    make = sharded_train.make_sharded_train_step
+
+    def wrapped(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(state, frozen, batch):
+            zero_counters()
+            counter.take()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, frozen, batch)
+            torch.cuda.synchronize()
+            c = read_counters()
+            record.append({
+                "ms": (time.perf_counter() - t0) * 1e3, "loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]), "collectives": counter.take(),
+                "ring_launches": {n: c[n] for n in RING_NAMES},
+                "digest": _digest(state.trainable, sharding.sharded_flags(state.trainable))})
+            return state, metrics
+        return timed
+
+    return make, wrapped
+
+
+def _gloo_sizes(dev, ranks_axis) -> dict:
+    """ms per call of the collectives the arms send, 2 ranks on the card over
+    gloo: tp's f/g all-reduce of a [2, 2014, 3072] bf16 activation, the dp /
+    sp gradient all-reduce (the trainable's f32 numel), and one ring
+    rotation of a [2, 1024, 8, 128] bf16 block through the host."""
+    from audio_llama_tpu_torch.parallel import collectives
+
+    out = {}
+    for tag, x, fn in (
+            ("all_reduce [2,2014,3072] bf16 (tp f/g)",
+             torch.ones(2, 2014, 3072, dtype=torch.bfloat16, device=dev),
+             lambda t: collectives.psum(t, ranks_axis)),
+            ("ppermute [2,1024,8,128] bf16 (ring hop, through the host)",
+             torch.ones(2, 1024, 8, 128, dtype=torch.bfloat16, device=dev),
+             lambda t: collectives.ppermute_(t, ranks_axis))):
+        fn(x)
+        out[tag] = min(synced_ms(lambda: fn(x)) for _ in range(3))
+    out["ppermute route"] = collectives.ppermute_route(ranks_axis, x)
+    return out
+
+
+def train_rank(rank, world, device, root):
+    """One rank of the 2-rank training world on `device` (cuda:0; gloo): the
+    dp = 2 and tp = 2 arms through the trainer CLI, then sp = 2 through
+    `make_sharded_train_step` on run A's first two accumulation groups."""
+    import torch.distributed as dist
+
+    from audio_llama_tpu_torch.data.dataset import DatasetConfig
+    from audio_llama_tpu_torch.data.loader import create_dataloaders
+    from audio_llama_tpu_torch.data.tokenizer import load_tokenizer
+    from audio_llama_tpu_torch.device import make_generator
+    from audio_llama_tpu_torch.models import allm
+    from audio_llama_tpu_torch.parallel import sharded_train, sharding
+    from audio_llama_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from audio_llama_tpu_torch.training import optim, train_step
+    from audio_llama_tpu_torch.training.train import build_frozen, group_by_modality, \
+        parse_args, to_device, train
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data_path, audio_dir = f"{root}/examples.json", f"{root}/audio"
+    counter = CollectiveCounter()
+    out = {"gloo": _gloo_sizes(dev, make_mesh(MeshConfig(dp=2)).axis("dp"))}
+    cfg = full_config()
+
+    # dp = 2, then tp = 2: the trainer CLI, run A's flags cut to 2 steps
+    for arm, mesh_flags in (("dp=2", ["--mesh_dp", "2"]),
+                            ("tp=2", ["--mesh_dp", "1", "--mesh_tp", "2"])):
+        record = []
+        make, wrapped = _timed_steps(record, counter)
+        sharded_train.make_sharded_train_step = wrapped
+        torch.cuda.reset_peak_memory_stats()
+        run_dir = f"{root}/run_{arm[:2]}"
+        try:
+            with counter:
+                res = train(parse_args([
+                    "--data_path", data_path, "--audio_dir", audio_dir, "--output_dir", run_dir,
+                    "--synthetic_flagship", "--tokenizer", "byte", "--val_split", "0.1",
+                    "--log_steps", "1", "--no_tensorboard", "--num_workers", "4",
+                    "--text_max_length", "512", *TRAIN_ARM_FLAGS, *mesh_flags, "--distributed",
+                    "--num_processes", str(world), "--process_id", str(rank)]))
+        finally:
+            sharded_train.make_sharded_train_step = make
+        out[arm] = {"steps": record, "final_checkpoint": res["final_checkpoint"],
+                    "run_dir": run_dir, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        dist.barrier()
+        torch.cuda.empty_cache()
+
+    # sp = 2: run A's first two accumulation groups through the sharded step
+    tok = load_tokenizer("byte")
+    sid, eid = tok.token_to_id(cfg.audio_start_token), tok.token_to_id(cfg.audio_end_token)
+    loader, _, _ = create_dataloaders(data_path, audio_dir, tok, batch_size=2, val_split=0.1,
+                                      seed=42, num_workers=4,
+                                      dataset_config=DatasetConfig(text_max_length=512,
+                                                                   max_audio_seconds=30.0))
+    groups = group_by_modality(loader, 2)
+    batches = [to_device(next(groups), dev) for _ in range(2)]
+    frozen = build_frozen(cfg, 42, dev)
+    schedule = optim.cosine_schedule_with_warmup(2e-5, 1, 2)
+
+    def make_opt(params):
+        return optim.OptaxAdamW(params, schedule, weight_decay=0.01, max_grad_norm=2.0)
+
+    whole = allm.init_trainable(cfg, make_generator(43, dev))
+    ref = None
+    if rank == 0:  # the single-process gradients of the first group, the peer waiting
+        state = train_step.init_train_state(whole, make_opt)
+        params = list(state.trainable.parameters())
+        total, grads = 0.0, [torch.zeros_like(p) for p in params]
+        for i in range(2):
+            micro = train_step.micro_batch(batches[0], i)
+            lossi, _ = allm.forward(frozen, state.trainable, cfg, micro, sid, eid)
+            grads = [a + g.float() for a, g in zip(grads, train_step.gradients(lossi, params))]
+            total += float(lossi.detach())
+        ref = {"loss": total / 2, "grads": [(g / 2).cpu() for g in grads]}
+        whole.requires_grad_(False)
+        del state, grads, params
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_mesh(MeshConfig(dp=1, fsdp=1, tp=1, sp=2))
+    state = sharded_train.init_sharded_state(mesh, whole, make_opt)
+    del whole
+    grads_fn = sharded_train.make_sharded_grad_fn(cfg, mesh, None, sid, eid, accum_steps=2)
+    loss, grads = grads_fn(state.trainable, frozen, batches[0])
+    sp = {"first_loss": float(loss)}
+    if rank == 0:
+        rels = [rel_l2(g.cpu(), w) for g, w in zip(grads, ref["grads"])]
+        sp.update(ref_loss=ref["loss"], grad_rel_l2_max=max(rels),
+                  grad_rel_l2_by_leaf=dict(zip((n for n, _ in state.trainable.named_parameters()),
+                                               rels)))
+    del grads
+    record = []
+    make, wrapped = _timed_steps(record, counter)
+    step = wrapped(cfg, None, mesh, None, sid, eid, accum_steps=2)
+    torch.cuda.reset_peak_memory_stats()
+    with counter:
+        for b in batches:
+            state, _ = step(state, frozen, b)
+    sp.update(steps=record, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out["sp=2"] = sp
+    del frozen, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_train_path(dev, root) -> dict:
+    """A world of 2 ranks on cuda:0 over gloo at full width (run A's corpus
+    and flags, B 2, 2014 tokens a row): dp = 2 and tp = 2 through the
+    trainer CLI (`--distributed`, 2 steps, a checkpoint), sp = 2 through
+    `make_sharded_train_step` (2 steps). Each against the single process on
+    the same seeded weights and global batches: the first step's loss within
+    SHARDED_LOSS_REL, the gradients (sp: the gathered gradients of the first
+    step; dp and tp: Adam's mu at step 2 in the checkpoint, the same
+    gradients' moments) within SHARDED_GRAD_REL, the replicated trainables
+    bit-equal on both ranks after every step, the dp/tp checkpoint reloaded
+    by the single-process CLI's loaders bit for bit; the ring's launches
+    exact per rank (rank r: r x 28 per micro-batch, none on rank 0)."""
+    from audio_llama_tpu_torch.inference import cli
+    from audio_llama_tpu_torch.models import allm
+    from audio_llama_tpu_torch.device import make_generator
+    from audio_llama_tpu_torch.parallel import distributed
+    from audio_llama_tpu_torch.training import checkpoint as ckpt
+
+    import os
+    import shutil
+
+    t0 = time.perf_counter()
+    # run A (the single process, train_path) wrote these with the same seeds
+    with open(os.path.join(root, "run_A", "metrics.jsonl")) as f:
+        single = [json.loads(line) for line in f if line.strip()]
+    single_loss = {m["step"]: m["train/loss"] for m in single if "train/loss" in m}
+    single_mu = _leaves(_read_checkpoint(os.path.join(root, "run_A", "checkpoint-2"))
+                        ["optimizer"]["1"]["0"]["mu"])
+    res = distributed.spawn(train_rank, 2, backend="gloo", device=str(dev),
+                            args=(str(dev), root), timeout=900)
+    L = full_config().llama.num_layers
+    report = {"timing": MULTI_LABEL, "gloo_ms": res[0]["gloo"]}
+    for arm in ("dp=2", "tp=2", "sp=2"):
+        steps = [r[arm]["steps"] for r in res]
+        for i, (a, b) in enumerate(zip(*steps)):
+            if a["digest"] != b["digest"]:
+                raise AssertionError(f"{arm}: the replicated trainables differ after step {i + 1}")
+            if a["loss"] != b["loss"]:
+                raise AssertionError(f"{arm}: the ranks' losses differ at step {i + 1}")
+        first = steps[0][0]["loss"]
+        want = res[0]["sp=2"]["ref_loss"] if arm == "sp=2" else single_loss[1]
+        loss_rel = abs(first - want) / abs(want)
+        if not loss_rel <= SHARDED_LOSS_REL:
+            raise AssertionError(f"{arm}: first loss {first} against {want}")
+        for r, rank_steps in enumerate(steps):
+            for s in rank_steps:
+                want_n = {n: (r * L * 2 if arm == "sp=2" else 0) for n in RING_NAMES}
+                if s["ring_launches"] != want_n:
+                    raise AssertionError(f"{arm} rank {r}: ring launches {s['ring_launches']}, "
+                                         f"want {want_n}")
+        entry = {"first_loss": first, "single_process_loss": want, "loss_rel": loss_rel,
+                 "ranks": [{"ms_per_step": [s["ms"] for s in r[arm]["steps"]],
+                            "tokens_per_s": [2 * 2 * 2014 / (s["ms"] / 1e3)
+                                             for s in r[arm]["steps"]],
+                            "peak_mem_gb": r[arm]["peak_mem_gb"],
+                            "collectives_per_step": r[arm]["steps"][-1]["collectives"],
+                            "ring_launches_per_step": r[arm]["steps"][-1]["ring_launches"]}
+                           for r in res]}
+        if arm == "sp=2":
+            rel = res[0]["sp=2"]["grad_rel_l2_max"]
+            entry["grad_rel_l2_max"] = rel
+            if not rel <= SHARDED_GRAD_REL:
+                raise AssertionError(f"sp=2: gradients rel-L2 {rel} against one process")
+        else:
+            final = res[0][arm]["final_checkpoint"]
+            saved = _read_checkpoint(final)
+            mu = _leaves(_read_checkpoint(os.path.join(res[0][arm]["run_dir"], "checkpoint-2"))
+                         ["optimizer"]["1"]["0"]["mu"])
+            rels = {n: rel_l2(torch.from_numpy(mu[n]), torch.from_numpy(single_mu[n]))
+                    for n in single_mu}
+            entry["mu_rel_l2_max"] = max(rels.values())
+            if not entry["mu_rel_l2_max"] <= SHARDED_GRAD_REL:
+                raise AssertionError(f"{arm}: Adam's mu rel-L2 {entry['mu_rel_l2_max']}")
+            leaves = _leaves(saved["model"]["trainable"])
+            cfg, frozen, by_cli, _ = cli.load_audio_llm(final, device=dev)
+            del frozen
+            template = allm.init_trainable(cfg, make_generator(0, dev))
+            by_ckpt, _, step, _ = ckpt.load_checkpoint(final, trainable_template=template)
+            for tree in (by_cli, by_ckpt):
+                for n, p in tree.named_parameters():
+                    if not np.array_equal(p.detach().cpu().numpy(), leaves[n]):
+                        raise AssertionError(f"{arm}: {n} does not reload bit for bit")
+            if tuple(leaves["lora.layers.q_proj.b"].shape) != tuple(
+                    template["lora"]["layers"]["q_proj"]["b"].shape):
+                raise AssertionError(f"{arm}: the checkpoint holds a tp block, not the leaf")
+            entry["checkpoint_reload"] = "bit-equal (trainer loader, inference CLI)"
+            del by_cli, by_ckpt, template
+            torch.cuda.empty_cache()
+            shutil.rmtree(res[0][arm]["run_dir"])
+        report[arm] = entry
+    report["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"sharded_train_path": report}))
+    return {"sp_train": res[1]["sp=2"]["steps"][-1]["ring_launches"]}
+
+
 # bf16 activations through 2 + 2 layers against an f32 host path: each bf16
 # rounding is <= 2^-9 relative, a few dozen of them compound to ~1e-2
 HOST_TOL = 2e-2
@@ -2771,6 +3321,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows += train_kernel_checks(dev, gen)
     torch.cuda.empty_cache()
+    rows += ring_kernel_checks(dev, gen)
+    torch.cuda.empty_cache()
     paths = {"bf16": main_path(dev, profile=args.profile)}
     torch.cuda.empty_cache()
     paths["int4"], model = int4_path(dev, profile=args.profile)
@@ -2790,7 +3342,10 @@ def main(argv=None) -> int:
     host_check_quant(dev, "int8w+kv8, B=1", bits=8, kv_quant=True, seed=6,
                      want={"decode_attention_quantized_mono": L})
     torch.cuda.empty_cache()
-    paths["train"] = train_path(dev, profile=args.profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["train"] = train_path(dev, tmp, profile=args.profile)
+        torch.cuda.empty_cache()
+        paths.update(sharded_train_path(dev, tmp))
     torch.cuda.empty_cache()
     paths.update(multi_path(dev))
     for row in rows:  # each kernel's count on the path that exercises it

@@ -649,7 +649,7 @@ def test_tiny_train_step_on_the_card_matches_the_host(dev):
     def step(fz, tr, cd, d):
         tr.requires_grad_(True)
         b = allm.AudioLLMBatch(*(t.to(d) for t in batch))
-        loss = train_step.make_loss_fn(cfg, 512, 513, cd)(tr, fz, b)
+        loss, _ = allm.forward(fz, tr, cfg, b, 512, 513, cd)
         return loss.item(), [g.float().cpu() for g in train_step.gradients(
             loss, list(tr.parameters()))]
 
@@ -726,7 +726,98 @@ def test_sp_generate_two_ranks_on_the_card(dev):
 
     cfg, frozen, train, ids, kw = _tiny_sp_case(dev)
     want = generate(frozen, train, cfg, ids, torch.ones_like(ids), **kw).tokens.cpu()
-    out = distributed.spawn(_sp_world, 2, backend="gloo", device="cuda:0", timeout=600)
+    out = distributed.spawn(_sp_world, 2, backend="gloo", device="cuda:0", timeout=240)
     assert torch.equal(out[0][0], out[1][0])
     assert torch.equal(out[0][0][:, 0], want[:, 0])
     assert all(launches == cfg.llama.num_layers * 5 for _, launches in out)
+
+
+# --- the ring hop: the tri='never' modes, and the sp ring on the card ---------
+
+def _hop(dev, B, T, Hq, Hkv, hd, pad_from, seed=11):
+    from chip_smoke import ring_hop_case
+
+    return ring_hop_case(dev, torch.Generator(device=dev).manual_seed(seed), B, T, Hq, Hkv, hd,
+                         pad_from)
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,hd,pad_from", [(2, 512, 24, 8, 128, 400),
+                                                    (1, 256, 4, 2, 64, None),
+                                                    (2, 128, 4, 2, 16, 100)])
+def test_never_kernels_match_their_plain_versions(dev, B, T, Hq, Hkv, hd, pad_from):
+    """The forward, dq and dk/dv kernels with tri='never' on a ring hop, the
+    backward fed the row statistics merged over the hop and the local block."""
+    c = _hop(dev, B, T, Hq, Hkv, hd, pad_from)
+    args = (c["qs"], c["k"], c["v"], c["bias"])
+    got = ca.causal_attention_cuda(*args, tri="never")
+    assert tol_ratio(got.o, c["hop"].o, ATOL_ROW_RMS_FRAC["causal_attention_never"]) <= 1
+    torch.testing.assert_close(got.l, c["hop"].l, rtol=1e-2, atol=0)
+    want = ca.causal_attention_bwd_plain(*args, c["o"], c["l"], c["m"], c["do"], tri="never")
+    stats = (c["l"], c["m"], c["do"], c["d"])
+    dq = ca.causal_attention_dq_cuda(*args, *stats, tri="never")
+    dk, dv = ca.causal_attention_dkv_cuda(*args, *stats, tri="never")
+    names = ("causal_attention_dq_never", "causal_attention_dkv_never",
+             "causal_attention_dkv_never")
+    for g, w, name in zip((dq, dk, dv), want, names):
+        assert tol_ratio(g, w, ATOL_ROW_RMS_FRAC[name], GRAD_RMS_DIMS) <= 1, name
+
+
+def test_never_kernels_check_rejects_the_causal_mask_and_the_local_stats(dev):
+    c = _hop(dev, 1, 256, 4, 2, 64, 200)
+    args = (c["qs"], c["k"], c["v"], c["bias"])
+    masked = ca.causal_attention_cuda(*args, tri="always").o
+    assert tol_ratio(masked, c["hop"].o, ATOL_ROW_RMS_FRAC["causal_attention_never"]) > 1
+    want = ca.causal_attention_bwd_plain(*args, c["o"], c["l"], c["m"], c["do"], tri="never")
+    local = ca.causal_attention_dq_cuda(*args, c["hop"].l, c["hop"].m, c["do"], c["d"],
+                                        tri="never")
+    assert tol_ratio(local, want[0], ATOL_ROW_RMS_FRAC["causal_attention_dq_never"],
+                     GRAD_RMS_DIMS) > 1
+
+
+def _ring_world(rank, world):
+    """sp = 2 on the card (gloo, both ranks on cuda:0): this rank's slice of
+    a bf16 causal attention through the kernel ring, its gradients, and its
+    tri='never' launches."""
+    from audio_llama_tpu_torch.parallel import build_mesh
+    from audio_llama_tpu_torch.parallel.ring_kernel import ring_causal_mha_kernel
+
+    q, k, v, mask, w = _ring_case("cuda:0")
+    Tl = q.shape[1] // world
+    sl = slice(rank * Tl, (rank + 1) * Tl)
+    ts = [t[:, sl].contiguous().requires_grad_(True) for t in (q, k, v)]
+    axis = build_mesh([("sp", world)]).axis("sp")
+    n = (ca.launches_never, ca.launches_dq_never, ca.launches_dkv_never)
+    o = ring_causal_mha_kernel(*ts, axis=axis, mask=mask[:, sl].contiguous())
+    grads = torch.autograd.grad(o, ts, w[:, sl])
+    launches = (ca.launches_never - n[0], ca.launches_dq_never - n[1],
+                ca.launches_dkv_never - n[2])
+    return o.detach(), grads, launches
+
+
+def _ring_case(dev, B=2, T=512, Hq=8, Hkv=2, hd=64):
+    q, k, v = (_randn(dev, B, T, h, hd, seed=s) for s, h in ((20, Hq), (21, Hkv), (22, Hkv)))
+    mask = torch.ones(B, T, dtype=torch.int32, device=dev)
+    mask[1, 400:] = 0
+    return q, k, v, mask, _randn(dev, B, T, Hq, hd, seed=23)
+
+
+def test_sp_ring_two_ranks_on_the_card(dev):
+    """Two gloo ranks on one card: the kernel ring's output and gradients
+    against the one-device kernels (bf16, rel-L2 2e-2 on the valid rows),
+    rank 0 launching no tri='never' kernel and rank 1 one of each."""
+    from audio_llama_tpu_torch.parallel import distributed
+
+    q, k, v, mask, w = _ring_case(dev)
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = ca.causal_mha(*ts, mask=mask)
+    want = [o.detach(), *torch.autograd.grad(o, ts, w)]
+    out = distributed.spawn(_ring_world, 2, backend="gloo", device="cuda:0", timeout=240)
+    got = [torch.cat([r[0] for r in out], dim=1)] + [
+        torch.cat([r[1][i] for r in out], dim=1) for i in range(3)]
+    valid = mask.bool().cpu()
+    for i, (g, wnt) in enumerate(zip(got, want)):
+        g, wnt = g.float().cpu(), wnt.float().cpu()
+        if i < 2:  # o and dq: valid query rows
+            g, wnt = g[valid], wnt[valid]
+        assert (g - wnt).norm() <= 2e-2 * wnt.norm(), i
+    assert [r[2] for r in out] == [(0, 0, 0), (1, 1, 1)]

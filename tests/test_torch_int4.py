@@ -195,7 +195,7 @@ def test_quantize_llama_int4_leaf_for_leaf(trees, fmt):
                                _np(deq_j["layers"]["q_proj"]), atol=0.05)
     with pytest.raises(ValueError, match="already-quantized"):
         llama_int4.quantize_llama_int4(tq)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
         llama_int4.quantize_llama_int4(tparams, smooth=True)
 
 

@@ -358,7 +358,7 @@ def world():
     frozen, audio = _encode_inputs()
     return distributed.spawn(ranks.parallel_cases, 4,
                              args=(jax.tree.map(np.asarray, frozen), audio), threads=1,
-                             timeout=300)
+                             timeout=240)
 
 
 @pytest.mark.parametrize("n", [2, 4])

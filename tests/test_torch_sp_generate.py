@@ -120,7 +120,7 @@ def world(model):
     trees = {"f32": tuple(jax.tree.map(np.asarray, t) for t in model)}
     cases = [{k: v for k, v in c.items() if k != "jax_impl"} for c in CASES]
     return distributed.spawn(ranks.generate_cases, 4, args=(trees, cases), threads=1,
-                             timeout=300)
+                             timeout=240)
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in CASES])

@@ -106,7 +106,7 @@ def jax_tokens(trees):
 def world(trees):
     trees_np = {k: tuple(jax.tree.map(np.asarray, t) for t in v) for k, v in trees.items()}
     return distributed.spawn(ranks.generate_cases, 4, args=(trees_np, CASES), threads=1,
-                             timeout=300)
+                             timeout=240)
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in CASES])
@@ -122,7 +122,7 @@ def test_sharded_generate_matches_jax(world, jax_tokens, name):
 def test_sampled_dp_rows_agree_across_ranks(trees):
     static = dict(STATIC, greedy=False, temperature=1.0)
     out = distributed.spawn(ranks.sampled_dp, 2, args=(
-        jax.tree.map(np.asarray, trees["f32"]), _inputs(), static), threads=1, timeout=300)
+        jax.tree.map(np.asarray, trees["f32"]), _inputs(), static), threads=1, timeout=240)
     for a, b in zip(out[0], out[1]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert not np.array_equal(out[0][0].numpy(), out[0][1].numpy())  # the seed matters

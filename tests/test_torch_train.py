@@ -36,8 +36,10 @@ from audio_llama_tpu.training import train_step as j_steps  # noqa: E402
 from audio_llama_tpu_torch import bridge  # noqa: E402
 from audio_llama_tpu_torch.config import AudioLLMConfig  # noqa: E402
 from audio_llama_tpu_torch.inference import cli  # noqa: E402
-from audio_llama_tpu_torch.models import allm, llama  # noqa: E402
+from audio_llama_tpu_torch.models import allm  # noqa: E402
 from audio_llama_tpu_torch.ops import causal_attention as ca  # noqa: E402
+from audio_llama_tpu_torch.parallel import sharded_train  # noqa: E402
+from audio_llama_tpu_torch.parallel.mesh import MeshConfig, make_mesh  # noqa: E402
 from audio_llama_tpu_torch.training import checkpoint as ckpt  # noqa: E402
 from audio_llama_tpu_torch.training import msgpack_io, optim, train_step  # noqa: E402
 from audio_llama_tpu_torch.training.train import (  # noqa: E402
@@ -204,8 +206,11 @@ def test_chunked_loss_equals_the_dense_loss(params):
         assert none is None
         assert abs(chunked.item() - dense.item()) <= 1e-6 * dense.item()
     assert logits.dtype == torch.float32
-    ignored = torch.full(logits.shape[:2], -100, dtype=torch.int64)
-    assert float(llama.causal_lm_loss(logits, ignored)) == 0.0  # nothing to score
+    unscored = b._replace(labels=torch.full_like(b.labels, -100))
+    with torch.no_grad():
+        for chunk in (0, 7):  # nothing to score: the loss is 0, not 0 / 0
+            assert float(allm.forward(tf, tt, CFG, unscored, SID, EID, torch.float32,
+                                      loss_chunk_size=chunk)[0]) == 0.0
 
 
 def test_remat_gives_the_same_gradients(params):
@@ -249,9 +254,13 @@ def test_three_accumulated_steps_match_jax(params):
     jstate = j_steps.init_train_state(jax.tree.map(jnp.asarray, jt), opt)
     jstep = jax.jit(j_steps.make_train_step(JCFG, opt, SID, EID, jnp.float32, accum_steps=2))
     schedule = optim.cosine_schedule_with_warmup(*schedule_args)
-    tstate = train_step.init_train_state(_port_trainable(jt), lambda p: optim.OptaxAdamW(
-        p, schedule, weight_decay=0.01, max_grad_norm=1.0))
-    tstep = train_step.make_train_step(CFG, SID, EID, torch.float32, accum_steps=2)
+    # the port's one train step: the sharded step on the mesh of one position
+    mesh = make_mesh(MeshConfig(dp=1))
+    tstate = sharded_train.init_sharded_state(
+        mesh, _port_trainable(jt),
+        lambda p: optim.OptaxAdamW(p, schedule, weight_decay=0.01, max_grad_norm=1.0))
+    tstep = sharded_train.make_sharded_train_step(CFG, None, mesh, None, SID, EID, torch.float32,
+                                                  accum_steps=2)
     clipped = []
     for i in range(3):
         b = _batch(10 + i, lead=(2,))
@@ -397,8 +406,8 @@ def test_group_by_modality_keeps_audio():
 @pytest.mark.parametrize("flags,error,match", [
     (["--attn_impl", "xla"], ValueError, "'auto' only"),
     (["--mel_impl", "pallas_interpret"], ValueError, "'auto' only"),
-    (["--mesh_fsdp", "2"], NotImplementedError, "ROADMAP queue 1 item 7"),
-    (["--distributed"], NotImplementedError, "ROADMAP queue 1 item 7"),
+    (["--mesh_fsdp", "2"], NotImplementedError, "ROADMAP queue 1 item 1"),
+    (["--num_processes", "2"], ValueError, "needs --distributed"),
     (["--toy_outliers", "4"], NotImplementedError, "outliers"),
 ])
 def test_train_refusals(corpus, tmp_path, flags, error, match):

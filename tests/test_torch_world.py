@@ -61,7 +61,7 @@ def _fails_on_rank_1(rank, world):
 
 
 def test_spawn_returns_each_rank_and_runs_collectives():
-    out = distributed.spawn(_collectives, 4, threads=1, timeout=300)
+    out = distributed.spawn(_collectives, 4, threads=1, timeout=120)
     for r, res in enumerate(out):
         dp, tp = res["coords"]
         assert (dp, tp) == divmod(r, 2)  # JAX's row-major device order
@@ -79,7 +79,7 @@ def test_worlds_spawned_at_once_stay_apart():
     out = {}
 
     def run(tag):
-        out[tag] = distributed.spawn(_world_sum, 2, args=(tag,), threads=1, timeout=300)
+        out[tag] = distributed.spawn(_world_sum, 2, args=(tag,), threads=1, timeout=120)
 
     threads = [threading.Thread(target=run, args=(tag,)) for tag in (1, 10, 100)]
     for t in threads:
@@ -91,7 +91,7 @@ def test_worlds_spawned_at_once_stay_apart():
 
 def test_spawn_fails_the_world_when_a_rank_raises():
     with pytest.raises(Exception, match="rank 1 gives up"):
-        distributed.spawn(_fails_on_rank_1, 2, threads=1, timeout=300)
+        distributed.spawn(_fails_on_rank_1, 2, threads=1, timeout=120)
     with pytest.raises(ValueError, match="card per rank"):
         distributed.spawn(_fails_on_rank_1, 2, backend="nccl", device="cpu")
 
