@@ -79,4 +79,19 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// The last block to arrive (of `expected`) gets true, after a fence that
+// publishes this block's global writes; counter is reset by that block.
+__device__ __forceinline__ bool last_to_arrive(int* counter, int expected, int* flag_smem) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int prev = atomicAdd(counter, 1);
+    *flag_smem = prev == expected - 1;
+  }
+  __syncthreads();
+  const bool last = *flag_smem != 0;
+  if (last) __threadfence();
+  return last;
+}
+
 }  // namespace al

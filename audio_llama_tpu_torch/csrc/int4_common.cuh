@@ -105,19 +105,4 @@ __device__ __forceinline__ void stage_rows_f32(float* xs, const __nv_bfloat16* x
   }
 }
 
-// The last block to arrive (of `expected`) gets true, after a fence that
-// publishes this block's global writes; counter is reset by that block.
-__device__ __forceinline__ bool last_to_arrive(int* counter, int expected, int* flag_smem) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int prev = atomicAdd(counter, 1);
-    *flag_smem = prev == expected - 1;
-  }
-  __syncthreads();
-  const bool last = *flag_smem != 0;
-  if (last) __threadfence();
-  return last;
-}
-
 }  // namespace al

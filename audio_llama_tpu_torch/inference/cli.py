@@ -11,7 +11,14 @@ run on the device (the card unless `--platform cpu`). `--int4_decoder` and
 `--int8_decoder` merge LoRA into the frozen Llama, rotate it with `--rotate`
 (QuaRot, a rotation drawn from a generator seeded 7), then quantize it to
 the fused int4 tree or the weight-only int8 tree. `--kv_quant` keeps an int8
-KV cache, or int4 with `--kv_bits 4`.
+KV cache, or int4 with `--kv_bits 4`. `--decode_impl` picks the decode
+steps' attention kernel, as JAX's does: `auto` (the mono kernels, and at
+B = 1 on the fused int4 tree with an int4 KV cache the whole-stack
+megakernel), `decode_kernel` (the db kernels' normalized mode,
+`csrc/decode_attention_db.cu`, any KV cache) or `decode_packed` (the
+timeline-chunked kernel, `csrc/decode_attention_packed.cu`; bf16 or int8 KV
+only: with `--kv_bits 4` it raises ValueError, as JAX's does). Either A/B
+value keeps the megakernel off.
 
 `--checkpoint_path` loads a trainer's checkpoint (either package's): the
 model config from its `config.json`, the toy or synthetic frozen tree
@@ -20,9 +27,8 @@ trainer ran on: CPU and CUDA generators draw different numbers), and the
 trained projector + LoRA.
 
 Not ported yet, and refused with NotImplementedError: `--llama_path` /
-`--whisper_path` (wait for models/hf_loader.py and checkpoints on disk),
-`--draft_llama_path` (queue 1 item 2, serving: speculative decoding) and a
-`--decode_impl` other than `auto` (queue 2's A/B decode kernels).
+`--whisper_path` (wait for models/hf_loader.py and checkpoints on disk) and
+`--draft_llama_path` (queue 1 item 2, serving: speculative decoding).
 """
 
 from __future__ import annotations
@@ -133,10 +139,6 @@ def generate_response(cfg, frozen, trainable, tokenizer, prompt: str,
     if draft is not None:
         raise NotImplementedError(
             "speculative decoding is not ported yet (ROADMAP queue 1 item 2, serving)")
-    if decode_impl != "auto":
-        raise NotImplementedError(
-            f"decode_impl {decode_impl!r}: the A/B decode kernels are not ported yet "
-            "(ROADMAP queue 2)")
     del gamma
     dev = resolve_device(device)
     if audio_path and cfg.splice_mode == "inplace" and cfg.audio_start_token not in prompt:
@@ -151,7 +153,7 @@ def generate_response(cfg, frozen, trainable, tokenizer, prompt: str,
         audio_start_id=tokenizer.token_to_id(cfg.audio_start_token),
         audio_end_id=tokenizer.token_to_id(cfg.audio_end_token),
         compute_dtype=compute_dtype, has_audio=audio is not None, kv_quant=kv_quant,
-        device=dev,
+        device=dev, attn_impl=decode_impl,
     )
     tokens = result.tokens[0, : int(result.num_generated[0])].cpu().numpy()
     text = tokenizer.decode(tokens, skip_special_tokens=True)
@@ -193,7 +195,12 @@ def parse_args(argv=None):
                    help="speculative decoding draft model (not ported yet)")
     p.add_argument("--gamma", type=int, default=4)
     p.add_argument("--decode_impl", type=str, default="auto",
-                   choices=["auto", "decode_kernel", "decode_packed"])
+                   choices=["auto", "decode_kernel", "decode_packed"],
+                   help="decode-step attention kernel: auto (the mono kernels; at B = 1 on "
+                        "the fused int4 tree with an int4 KV cache, the whole-stack "
+                        "megakernel), decode_kernel (the db kernels' normalized mode, any KV "
+                        "cache) or decode_packed (the timeline-chunked kernel; bf16 or int8 "
+                        "KV). Either A/B value keeps the megakernel off")
     return p.parse_args(argv)
 
 

@@ -141,6 +141,7 @@ def _generate_impl(
     compute_dtype,
     kv_quant,
     megakernel: bool,
+    attn_impl: str = "auto",
     tp_axis=None,
     sp_axis=None,
 ) -> GenerateResult:
@@ -169,7 +170,8 @@ def _generate_impl(
             frozen["llama"], cfg.llama,
             input_ids=tok[:, None], attention_mask=full_mask, positions=positions,
             kv_cache=cache, lora=lora, compute_dtype=compute_dtype, megakernel=megakernel,
-            tp_axis=tp_axis, sp_axis=sp_axis,
+            # the decode steps' kernel choice only; the prefill stays auto
+            attn_impl=attn_impl, tp_axis=tp_axis, sp_axis=sp_axis,
         )
         nxt = sample(step_logits[:, 0])
         nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
@@ -224,6 +226,7 @@ def generate(
     kv_quant=False,
     device: DeviceLike = None,
     megakernel: bool = True,
+    attn_impl: str = "auto",
 ) -> GenerateResult:
     """Sampling defaults mirror the reference CLI (temperature 0.7, top_p
     0.9, 256 new tokens). Runs on `device` (the card unless the caller asks
@@ -234,7 +237,13 @@ def generate(
     per-row scales, decoded by the int8-KV kernel) or 4 (K/V-combined int4
     rows, decoded by the int4-KV kernel, or at B = 1 on the fused int4 tree
     by the decode megakernel; `megakernel=False` keeps those steps on the
-    per-layer kernels)."""
+    per-layer kernels).
+
+    attn_impl: the decode steps' attention kernel (the inference CLI's
+    `--decode_impl`): 'auto' (the mono kernels and the megakernel),
+    'decode_kernel' (the db kernels' normalized mode) or 'decode_packed'
+    (the timeline-chunked kernel; no int4 KV cache); the prefill stays
+    'auto' (`models/llama.py`)."""
     if not greedy and generator is None:
         raise ValueError("sampling needs an explicit torch.Generator")
     dev, input_ids, attention_mask, audio_features = _inputs(
@@ -244,7 +253,7 @@ def generate(
         max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p, top_k=top_k,
         greedy=greedy, eos_id=eos_id, pad_id=pad_id, audio_start_id=audio_start_id,
         audio_end_id=audio_end_id, compute_dtype=compute_dtype, kv_quant=kv_quant,
-        megakernel=megakernel,
+        megakernel=megakernel, attn_impl=attn_impl,
     )
 
 
@@ -252,7 +261,7 @@ def generate(
 _STATIC = dict(
     max_new_tokens=256, temperature=0.7, top_p=0.9, top_k=0, greedy=False, eos_id=2, pad_id=0,
     audio_start_id=0, audio_end_id=0, compute_dtype=torch.bfloat16, has_audio=True,
-    kv_quant=False, device=None, megakernel=True,
+    kv_quant=False, device=None, megakernel=True, attn_impl="auto",
 )
 
 

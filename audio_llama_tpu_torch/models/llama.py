@@ -20,7 +20,14 @@ Three call shapes, as `generate` uses them:
   - T == 1 decode: the decode kernel (`ops/decode_attention_mono.py`, the
     bf16, int8-KV or int4-KV one) appends the new row IN PLACE at the cache
     offset (`cache.length`, or per-row `cache_offsets` [B]) and attends the
-    slots `<= offset` that the attention mask allows.
+    slots `<= offset` that the attention mask allows. `attn_impl` picks the
+    JAX package's A/B decode kernels instead (the inference CLI's
+    `--decode_impl`): 'decode_kernel' the db kernels' normalized mode
+    (`ops/decode_attention_db.py`, every cache format), 'decode_packed' the
+    timeline-chunked kernel (`ops/decode_attention_packed.py`, bf16 and int8
+    caches); both take the host's fill (`KVCache.host_length`) as the
+    offset, write the fresh rows' scales after the kernel, as JAX does, and
+    keep the megakernel off.
 The cache tensors are updated in place (PyTorch's counterpart of the JAX
 package's aliased scan carry); the returned `KVCache` holds the same tensors
 with the new length.
@@ -91,6 +98,7 @@ from ..config import LlamaConfig
 from ..ops import int4_matmul as i4
 from ..ops import mlp_int4 as mlp4
 from ..ops import decode_attention_db as db
+from ..ops import decode_attention_packed as packed
 from ..ops import decode_megakernel as mk
 from ..ops.attention import merge_partial_stats
 from ..ops.causal_attention import causal_mha
@@ -101,6 +109,7 @@ from ..ops.rope import apply_rope, rope_for_config, rope_tables
 from ..parallel import collectives
 from ..parallel.ring_kernel import ring_causal_mha_kernel
 
+ATTN_IMPLS = ("auto", "decode_kernel", "decode_packed")  # the decode steps' kernels
 LINEAR_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 ROW_PARALLEL = ("o_proj", "down_proj")  # tensor parallelism shards their input dim
 
@@ -430,6 +439,7 @@ def llama_forward(
     assume_fresh_cache: bool = False,
     unembed_logits: bool = True,
     megakernel: bool = True,
+    attn_impl: str = "auto",
     remat: bool = False,
     tp_axis=None,
     sp_axis=None,
@@ -440,9 +450,14 @@ def llama_forward(
     states; `unembed_logits=False` returns None for the logits (a caller that
     needs only some positions unembeds them itself). `megakernel=False`
     keeps single-request int4 decode steps on the per-layer kernels.
-    `remat=True` (no cache) recomputes each layer in the backward
-    (`torch.utils.checkpoint`), as the JAX package's `jax.checkpoint`.
+    `attn_impl` (T == 1 steps only, not under `sp_axis`): 'auto' (the mono
+    kernels and the megakernel), 'decode_kernel' or 'decode_packed' (see
+    the module docstring). `remat=True` (no cache) recomputes each layer in
+    the backward (`torch.utils.checkpoint`), as the JAX package's
+    `jax.checkpoint`.
     `tp_axis` / `sp_axis` / `seq_axis`: see the module docstring."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     cd = compute_dtype
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids, cd)
@@ -521,6 +536,18 @@ def llama_forward(
         valid = valid.expand(B, Tk)
         if attention_mask is not None:
             valid = valid * attention_mask.to(torch.int32)
+    # the A/B decode kernels (attn_impl), as the JAX package dispatches them
+    ab_decode = decode and sp_axis is None and attn_impl != "auto"
+    if ab_decode:
+        if attn_impl == "decode_packed" and kv_cache.kv_bits == 4:
+            raise ValueError("attn_impl='decode_packed' has no int4-KV variant; use the "
+                             "default db kernel (attn_impl='auto'/'decode_kernel')")
+        if cache_offsets is not None:
+            raise NotImplementedError(
+                f"attn_impl={attn_impl!r} with per-row cache_offsets: the JAX package's XLA "
+                "cached path is not ported yet (ROADMAP queue 1 item 2, serving)")
+        if host_offset is None:  # a cache built by hand: read its fill once
+            host_offset = int(offset.reshape(-1)[0])
     attn_mask = attention_mask
     if fresh and attn_mask is not None:
         attn_mask = attn_mask[:, :T]
@@ -552,7 +579,8 @@ def llama_forward(
                                       lp["down_proj"]["w_p"].shape[-1])
 
     use_mega = (megakernel and decode and int4 and kv_bits == 4 and B == 1 and lora is None
-                and cache_offsets is None and tp_axis is None and sp_axis is None)
+                and cache_offsets is None and tp_axis is None and sp_axis is None
+                and attn_impl == "auto")
     if use_mega:
         if host_offset is None:  # a cache built by hand: read its fill once
             host_offset = int(offset.reshape(-1)[0])
@@ -601,6 +629,31 @@ def llama_forward(
             ks_all[li, :, :, sp_loc], vs_all[li, :, :, sp_loc] = kq_s, vq_s
         return merge_partial_stats(m, l, acc, sp_axis, out_dtype=q.dtype)[:, None]
 
+    def ab_decode_attention(q, k, v, li):
+        """A T == 1 step through the attn_impl kernel -> [B, 1, Hq, hd]; the
+        fresh rows' scales go into the slabs after the kernel (JAX's order:
+        the kernel reads them from its arguments)."""
+        nonlocal ck, cv
+        q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]
+        use_packed = attn_impl == "decode_packed"
+        if kv_bits == 4:
+            kvp, kq_s, vq_s = quantize_kv_rows4(k1, v1)
+            attn, ck = db.decode_attention_quantized4_db(
+                q1, kvp, ck, ks_all, vs_all, kq_s, vq_s, li, host_offset, valid, scale)
+        elif kv_bits == 8:
+            (kq, kq_s), (vq, vq_s) = quantize_kv_rows(k1), quantize_kv_rows(v1)
+            fn = (packed.decode_attention_quantized_packed if use_packed
+                  else db.decode_attention_quantized_db)
+            attn, ck, cv = fn(q1, kq, vq, ck, cv, ks_all, vs_all, kq_s, vq_s, li, host_offset,
+                              valid, scale)
+        else:
+            fn = packed.decode_attention_packed if use_packed else db.decode_attention_db
+            attn, ck, cv = fn(q1, k1.to(ck.dtype), v1.to(cv.dtype), ck, cv, li, host_offset,
+                              valid, scale)
+        if kv_bits != 16:
+            _write_scales(ks_all, vs_all, kq_s, vq_s, li, offset)
+        return attn[:, None]
+
     def layer_step(x, li):
         nonlocal ck, cv
         def lb(name):
@@ -646,6 +699,8 @@ def llama_forward(
 
         if decode and sp_axis is not None:
             attn = sp_decode_attention(q, k, v, li)
+        elif ab_decode:
+            attn = ab_decode_attention(q, k, v, li)
         elif decode and kv_bits == 4:
             kvp, kq_s, vq_s = quantize_kv_rows4(k[:, 0], v[:, 0])
             # the append slot's scales go in BEFORE the kernel, which never

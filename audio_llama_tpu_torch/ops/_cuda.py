@@ -26,8 +26,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("layer_norm.cu", "enc_attention.cu", "causal_attention.cu", "decode_attention.cu",
            "mel_power.cu", "int4_matmul.cu", "mlp_int4.cu", "decode_attention_q4.cu",
-           "decode_megakernel.cu", "causal_attention_bwd.cu", "decode_attention_db.cu")
-HEADERS = ("common.cuh", "attention_fwd.cuh", "int4_common.cuh")
+           "decode_megakernel.cu", "causal_attention_bwd.cu", "decode_attention_db.cu",
+           "decode_attention_packed.cu")
+HEADERS = ("common.cuh", "attention_fwd.cuh", "int4_common.cuh", "decode_rows.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -53,6 +54,8 @@ SIGNATURES = {
     "al_causal_attention_dq": [_P] * 9 + [_I] * 6 + [_P],
     "al_causal_attention_dkv": [_P] * 10 + [_I] * 6 + [_P],
     "al_decode_db_stats": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F] + [_P] * 4,
+    "al_decode_db": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F] + [_P] * 2,
+    "al_decode_packed": [_I, _I] + [_P] * 10 + [_I] * 9 + [_F] + [_P] * 7,
 }
 
 _lock = threading.Lock()

@@ -93,6 +93,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (the stats kernel 28 times per decode step per rank on the sp paths);
      per-rank times of 2 ranks time-sharing one card (not a scaling
      number) and which gloo collectives take CUDA tensors.
+ 16. --decode_impl arms: the four kernels of the inference CLI's
+     `--decode_impl decode_kernel` / `decode_packed` (the normalized db
+     kernels on bf16, int8 and int4 caches; the timeline-chunked packed
+     kernel on bf16 and int8 caches) at the decoder's geometry, the bf16
+     path's timeline and 3040 slots, B 1 and 4, against their plain
+     versions (the caches bit-equal), on planted faults (p not normalized,
+     a chunk dropped, the stale row read at the offset), timed beside the
+     plain version and SDPA (run after phase 12's kernels); then, at the
+     end of phases 3, 6 and 7 on their models (`decode_ab_path`):
+     decode_kernel with bf16 KV at B = 1, with the int4 tree and int4 KV at
+     B = 1 (the megakernel unlaunched), decode_packed and decode_kernel with
+     int8 KV at B = 4: tokens well formed, launches exact, the first decode
+     step's logits within rel-L2 2e-2 of the auto arm's, decode time per
+     token beside auto's.
 With `--profile`, phases 3, 4, 6 (megakernel off), 7 and 10 add a
 torch.profiler breakdown (encode + prefill + first token, and per decode
 token; one train step) by device kernel group, with the device's busy share
@@ -247,6 +261,12 @@ ATOL_ROW_RMS_FRAC = {
     # to 2048 keys (dq) or 3 x 2048 queries (dk, dv)
     "causal_attention_dq": 2e-2,
     "causal_attention_dkv": 2e-2,
+    # the --decode_impl kernels: the same arithmetic on both sides (packed:
+    # p rounded against the same running max), f32 sums in another order
+    "decode_attention_db": 2.5e-3,
+    "decode_attention_quantized_db": 2.5e-3,
+    "decode_attention_quantized4_db": 2.5e-3,
+    "decode_attention_packed": 2.5e-3,
 }
 
 
@@ -508,6 +528,11 @@ COUNTERS = {
     "causal_attention_never": ("causal_attention", "launches_never"),
     "causal_attention_dq_never": ("causal_attention", "launches_dq_never"),
     "causal_attention_dkv_never": ("causal_attention", "launches_dkv_never"),
+    "decode_attention_db": ("decode_attention_db", "launches_norm"),
+    "decode_attention_quantized_db": ("decode_attention_db", "launches_norm_q8"),
+    "decode_attention_quantized4_db": ("decode_attention_db", "launches_norm_q4"),
+    "decode_attention_packed": ("decode_attention_packed", "launches"),
+    "decode_attention_quantized_packed": ("decode_attention_packed", "launches_q8"),
 }
 
 
@@ -1127,7 +1152,12 @@ KERNEL_PATH = {
     "decode_attention_quantized4_db_stats": "sp_int4",
     "causal_attention_never": "sp_train", "causal_attention_dq_never": "sp_train",
     "causal_attention_dkv_never": "sp_train",
+    "decode_attention_db": "ab_db_bf16", "decode_attention_quantized_db": "ab_db_int8",
+    "decode_attention_quantized4_db": "ab_db_int4", "decode_attention_packed": "ab_packed_int8",
 }
+# a row whose kernel serves several counters (its cache formats) sums them
+ROW_COUNTERS = {"decode_attention_packed": ("decode_attention_packed",
+                                            "decode_attention_quantized_packed")}
 
 AUDIO_START, AUDIO_END, EOS = 128256, 128257, 128001  # resized vocab rows; Llama-3 <|end_of_text|>
 N_NEW, PROMPT = 32, 24
@@ -1234,7 +1264,14 @@ def main_path(dev, profile: bool = False):
     log(json.dumps({"main_path": stats}))
     if profile:
         path_profile(run, "bf16, B=1")
-    return launches
+    L = cfg.llama.num_layers
+    ab = decode_ab_path(
+        dict(model=(cfg, frozen, trainable), ids=ids, mask=mask, audio=mel, kv_quant=False,
+             config=stats["config"]),
+        [("ab_db_bf16", "decode_kernel, bf16 KV, B=1", "decode_kernel",
+          {"decode_attention_db": L * (N_NEW - 1), "decode_attention_mono": 0,
+           "decode_megakernel": 0})])
+    return launches, ab
 
 
 # ---------------------------------------------------------------------------
@@ -1516,7 +1553,13 @@ def b1_path(dev, profile: bool = False):
     path_profile(run, "int4w+kv4, B=1 (megakernel)")
     if profile:
         path_profile(lambda n: run(n, megakernel=False), "int4w+kv4, B=1 (per-layer)")
-    return launches
+    ab = decode_ab_path(
+        dict(model=(cfg, frozen, trainable), ids=ids, mask=mask, audio=wav, kv_quant=4,
+             config=stats["config"]),
+        [("ab_db_int4", "decode_kernel, int4w+kv4, B=1", "decode_kernel",
+          {"decode_attention_quantized4_db": L * (N_NEW - 1), "decode_megakernel": 0,
+           "decode_attention_quantized4_mono": 0, "mlp_int4_stacked": L * (N_NEW - 1)})])
+    return launches, ab
 
 
 def int8_path(dev, profile: bool = False):
@@ -1588,7 +1631,16 @@ def int8_path(dev, profile: bool = False):
     log(json.dumps({"int8_path": stats}))
     if profile:
         path_profile(run, "int8w+kv8, B=4")
-    return launches
+    ab = decode_ab_path(
+        dict(model=(cfg, frozen, trainable), ids=ids, mask=mask, audio=wav, kv_quant=True,
+             config=stats["config"]),
+        [("ab_packed_int8", "decode_packed, int8w+kv8, B=4", "decode_packed",
+          {"decode_attention_quantized_packed": 2 * L * (N_NEW - 1),
+           "decode_attention_packed": 0, "decode_attention_quantized_mono": 0}),
+         ("ab_db_int8", "decode_kernel, int8w+kv8, B=4", "decode_kernel",
+          {"decode_attention_quantized_db": L * (N_NEW - 1),
+           "decode_attention_quantized_mono": 0})])
+    return launches, ab
 
 
 KERNEL_GROUPS = (  # substring of the device kernel's name -> group, first match wins
@@ -1602,6 +1654,7 @@ KERNEL_GROUPS = (  # substring of the device kernel's name -> group, first match
     ("attn_fwd_kernel<128, true>", "causal_attention kernel"),
     ("dq_kernel", "causal_attention_dq kernel"), ("dkv_kernel", "causal_attention_dkv kernel"),
     ("decode_kernel", "decode_attention kernel"),
+    ("db_kernel", "decode_attention_db kernel"), ("packed_", "decode_attention_packed kernel"),
     ("layer_norm_kernel", "layer_norm kernel"),
     ("nvjet", "matmul (cuBLAS)"), ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
     ("xmma", "matmul (cuBLAS)"),
@@ -2487,14 +2540,42 @@ def mono_call(case, bits, li, off, valid, scale):
                                        scale)[0]
 
 
+def sdpa_slab(case, bits, valid, scale, turn):
+    """-> fn() running SDPA (the yardstick of the slab kernels, never used by
+    the port) over the case's slab of the next layer in `turn`: K/V
+    dequantized to bf16 and repeated per query head ahead of time, the
+    valid mask as its boolean mask."""
+    import torch.nn.functional as F
+
+    q = case["q"]
+    Hq, Hkv = q.shape[1], case["caches"][0].shape[2]
+    L = case["caches"][0].shape[0]
+    if bits == 16:
+        kd, vd = case["caches"]
+    else:
+        from audio_llama_tpu_torch.models.llama import unpack_kv4
+
+        ks, vs = case["scales"]
+        kq, vq = case["caches"] if bits == 8 else unpack_kv4(case["caches"][0])
+        kd = kq.to(torch.bfloat16) * ks[..., None].to(torch.bfloat16)
+        vd = vq.to(torch.bfloat16) * vs[..., None].to(torch.bfloat16)
+    kd, vd = (t.repeat_interleave(Hq // Hkv, dim=2) for t in (kd, vd))
+    dmask = (valid != 0)[:, None, None, :]
+
+    def sdpa():
+        li = next(turn) % L
+        return F.scaled_dot_product_attention(q[:, :, None, :], kd[li], vd[li],
+                                              attn_mask=dmask, scale=scale)
+
+    return sdpa
+
+
 def db_kernel_checks(dev, gen):
     """The three stats kernels at the sp serving path's local slab (28
     layers, 8 KV heads, S local slots), B 1 and 4, against their plain
     versions: an owner and a non-owner rank, an all-invalid slab; planted
     faults; two half-slabs merged against the mono kernel on the whole
     slab; timed beside the plain version and SDPA over the same slab."""
-    import torch.nn.functional as F
-
     from audio_llama_tpu_torch.ops import decode_attention_db as db
     from audio_llama_tpu_torch.ops.attention import merge_stats
 
@@ -2588,22 +2669,7 @@ def db_kernel_checks(dev, gen):
                   + 4.0 * Hq * (hd + 2) + 4.0 * S)
         bms, bby = bound(4.0 * Hq * n_valid * hd, nbytes)
         turn = itertools.count()
-        if bits == 16:
-            kd, vd = (c.repeat_interleave(Hq // Hkv, dim=2) for c in case["caches"])
-        else:
-            from audio_llama_tpu_torch.models.llama import unpack_kv4
-
-            ks, vs = case["scales"]
-            if bits == 8:
-                kq, vq = case["caches"]
-            else:
-                kq, vq = unpack_kv4(case["caches"][0])
-            kd = (kq.to(torch.bfloat16) * ks[..., None].to(torch.bfloat16)).repeat_interleave(
-                Hq // Hkv, dim=2)
-            vd = (vq.to(torch.bfloat16) * vs[..., None].to(torch.bfloat16)).repeat_interleave(
-                Hq // Hkv, dim=2)
-        dmask = (valid != 0)[:, None, None, :]
-        qs = case["q"][:, :, None, :]
+        sdpa = sdpa_slab(case, bits, valid, scale, turn)
         fns = {16: (db.db_stats_cuda, db.db_stats_plain), 8: (db.db_stats_q8_cuda,
                                                             db.db_stats_q8_plain),
                4: (db.db_stats_q4_cuda, db.db_stats_q4_plain)}[bits]
@@ -2613,11 +2679,6 @@ def db_kernel_checks(dev, gen):
         def kernel(fn):  # a rank that does not own the fresh row: the slab is only read
             return fn(*args, next(turn) % L, S + 16, valid, scale)
 
-        def sdpa():
-            li = next(turn) % L
-            return F.scaled_dot_product_attention(qs, kd[li], vd[li], attn_mask=dmask,
-                                                  scale=scale)
-
         # CUPTI sums: a call lasts about as long as its wrapper's host work,
         # so CUDA events around back-to-back calls read the host's pace
         # (`ms_events` keeps that reading beside them)
@@ -2625,7 +2686,7 @@ def db_kernel_checks(dev, gen):
         ms_events = events_ms(lambda: kernel(fns[0]), iters=112)
         plain_ms = time_ms(lambda: kernel(fns[1]), iters=10)
         library_ms = time_ms(sdpa, iters=112)
-        del kd, vd
+        del sdpa
         row = dict(
             name=name, route="cuda", source="audio_llama_tpu_torch/csrc/decode_attention_db.cu",
             replaces=replaces,
@@ -2645,6 +2706,217 @@ def db_kernel_checks(dev, gen):
         rows.append(row)
         torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the inference CLI's --decode_impl arms (decode_kernel, decode_packed)
+# ---------------------------------------------------------------------------
+
+AB_ROWS = {  # kernel row -> (cache bits of its instances, TPU kernel it replaces, source)
+    "decode_attention_db": ((16,), "audio_llama_tpu/ops/decode_attention_db.py:29",
+                            "audio_llama_tpu_torch/csrc/decode_attention_db.cu"),
+    "decode_attention_quantized_db": ((8,), "audio_llama_tpu/ops/decode_attention_db.py:151",
+                                      "audio_llama_tpu_torch/csrc/decode_attention_db.cu"),
+    "decode_attention_quantized4_db": ((4,), "audio_llama_tpu/ops/decode_attention_db.py:535",
+                                       "audio_llama_tpu_torch/csrc/decode_attention_db.cu"),
+    "decode_attention_packed": ((16, 8), "audio_llama_tpu/ops/decode_attention_packed.py:69",
+                                "audio_llama_tpu_torch/csrc/decode_attention_packed.cu"),
+}
+AB_FAULT_OFFSET = 40  # a request's early step: one slot of 41 carries the fresh row's weight
+
+
+def ab_call(name, case, bits, li, off, valid, scale, cuda=True, rows=None, fresh=None,
+            copy=True):
+    """One call of a --decode_impl kernel (or its plain version) on copies of
+    the case's caches (on the caches themselves with copy=False) -> (out,
+    caches after). rows / fresh: the fresh rows and their scales to pass (a
+    fault plants others)."""
+    from audio_llama_tpu_torch.ops import decode_attention_db as db
+    from audio_llama_tpu_torch.ops import decode_attention_packed as pk
+
+    caches = [c.clone() for c in case["caches"]] if copy else case["caches"]
+    q, rows, fresh = case["q"], rows or case["rows"], fresh or case["fresh"]
+    if name == "decode_attention_packed":
+        fn = pk.packed_cuda if cuda else pk.packed_plain
+        quant = None if bits == 16 else (*case["scales"], *fresh)
+        return fn(q, rows[0], rows[1], caches[0], caches[1], li, off, valid, scale,
+                  quant_args=quant)[0], caches
+    if bits == 16:
+        fn = db.db_cuda if cuda else db.db_plain
+        return fn(q, rows[0], rows[1], caches[0], caches[1], li, off, valid, scale)[0], caches
+    if bits == 8:
+        fn = db.db_q8_cuda if cuda else db.db_q8_plain
+        return fn(q, rows[0], rows[1], caches[0], caches[1], *case["scales"], *fresh, li, off,
+                  valid, scale)[0], caches
+    fn = db.db_q4_cuda if cuda else db.db_q4_plain
+    return fn(q, rows[0], caches[0], *case["scales"], *fresh, li, off, valid, scale)[0], caches
+
+
+def check_append(label, got, want, before, rows, li, off):
+    """The kernel's caches equal the plain version's; only slot `off` of layer
+    li changed, and it holds the fresh rows."""
+    for g, w, b, r in zip(got, want, before, rows):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{label}: the cache differs from the plain version's")
+        changed = (g != b).any(dim=-1)
+        changed[li, :, :, off] = False
+        if changed.any() or not torch.equal(g[li, :, :, off], r):
+            raise AssertionError(f"{label}: the append is not the fresh row at the offset")
+
+
+def ab_kernel_checks(dev, gen):
+    """The four kernels of the --decode_impl arms (the normalized db kernels
+    on bf16, int8 and int4 caches, the packed kernel on bf16 and int8 caches)
+    at the decoder's geometry (28 layers, 8 KV heads, 24 query heads), the
+    bf16 path's timeline and 3040 slots, B 1 and 4, against their plain
+    versions: the output within the bar, the caches bit-equal; planted
+    faults; timed at B = 1, 3040 slots, beside the plain version and SDPA."""
+    from audio_llama_tpu_torch.ops import decode_attention_packed as pk
+
+    cfg = full_config()
+    lc = cfg.llama
+    L, Hkv, Hq, hd = lc.num_layers, lc.num_kv_heads, lc.num_heads, lc.head_dim
+    scale, li = hd ** -0.5, min(5, L - 1)
+    timelines = (_rounded_len(cfg.audio_seq_len + 2 + PROMPT + N_NEW), 3040)
+    rows = []
+    for name, (instances, replaces, source) in AB_ROWS.items():
+        frac = ATOL_ROW_RMS_FRAC[name]
+        results, faults, times = {}, {}, {}
+        for bits, S, B in itertools.product(instances, timelines, (1, 4)):
+            case = db_case(dev, gen, bits, B, S, L, Hkv, Hq, hd)
+            kpos = torch.arange(S, device=dev)[None, :]
+            off = S - 24  # a decode step's slot, slots still ahead of it
+            valid = (kpos <= off).to(torch.int32).repeat(B, 1)
+            for b in range(B):  # a few masked slots per row
+                valid[b, 100 * b + 3:100 * b + 10] = 0
+            got, gc = ab_call(name, case, bits, li, off, valid, scale)
+            want, wc = ab_call(name, case, bits, li, off, valid, scale, cuda=False)
+            torch.cuda.synchronize()
+            label = f"{name} {bits}-bit cache, S={S}, B={B}"
+            err, ratio = check_close(label, got, want, frac)
+            check_append(label, gc, wc, case["caches"], case["rows"], li, off)
+            results[label] = dict(max_abs_err=err, tol_ratio=ratio)
+            if B == 4 and S == timelines[1]:
+                # planted faults, each against the plain version's right answer
+                if name == "decode_attention_packed":
+                    drop = valid.clone()  # the kernel forgets the second chunk
+                    CH = pk.pick_chunk(S, pk.DEFAULT_CHUNK)
+                    drop[:, CH:2 * CH] = 0
+                    faults[f"{bits}-bit: a chunk dropped"] = must_reject(
+                        name, "a chunk dropped", ab_call(name, case, bits, li, off, drop,
+                                                         scale)[0], want, frac)
+                else:  # the stats kernel's acc is this kernel without the division by l
+                    acc = db_call(case, bits, li, off, valid, scale)[2]
+                    faults[f"{bits}-bit: p not normalized"] = must_reject(
+                        name, "p not normalized", acc.to(want.dtype), want, frac)
+                short = AB_FAULT_OFFSET
+                svalid = (kpos <= short).to(torch.int32).repeat(B, 1)
+                swant = ab_call(name, case, bits, li, short, svalid, scale, cuda=False)[0]
+                check_close(f"{label}, offset {short}",
+                            ab_call(name, case, bits, li, short, svalid, scale)[0], swant, frac)
+                stale = [c[li, :, :, short].clone() for c in case["caches"]]
+                stale_fresh = None if bits == 16 else [s[li, :, :, short].clone()
+                                                       for s in case["scales"]]
+                faults[f"{bits}-bit: stale row read at offset {short}"] = must_reject(
+                    name, "stale row read at the offset",
+                    ab_call(name, case, bits, li, short, svalid, scale, rows=stale,
+                            fresh=stale_fresh)[0], swant, frac)
+            del case, gc, wc
+        # times at B = 1, 3040 slots, the last decode step's slot
+        S = timelines[1]
+        off = S - 24
+        valid = (torch.arange(S, device=dev)[None, :] <= off).to(torch.int32)
+        n_valid = int(valid.sum())
+        for bits in instances:
+            case = db_case(dev, gen, bits, 1, S, L, Hkv, Hq, hd)
+            turn = itertools.count()
+
+            def kernel(cuda):  # appends at one slot again
+                return ab_call(name, case, bits, next(turn) % L, off, valid, scale, cuda=cuda,
+                               copy=False)
+
+            row_bytes = {16: 4 * hd, 8: 2 * hd + 8, 4: hd + 8}[bits]
+            nbytes = (Hkv * n_valid * row_bytes + 2.0 * Hq * hd * 2 + 4.0 * S
+                      + Hkv * row_bytes)
+            times[bits] = dict(
+                ms=time_ms(lambda: kernel(True), iters=56),
+                plain_ms=time_ms(lambda: kernel(False), iters=8),
+                library_ms=time_ms(sdpa_slab(case, bits, valid, scale, turn), iters=112),
+                bound=bound(4.0 * Hq * n_valid * hd, nbytes))
+            del case
+        main_bits = instances[-1]  # the instance the path runs (packed: int8)
+        t = times[main_bits]
+        row = dict(
+            name=name, route="cuda",
+            source=source, replaces=replaces, max_abs_err=max(r["max_abs_err"] for r in results.values()),
+            tol=tol_entry(frac), tol_ratio=max(r["tol_ratio"] for r in results.values()),
+            checks=results, planted_fault_ratios=faults, ms=t["ms"], plain_ms=t["plain_ms"],
+            library_ms=t["library_ms"],
+            library_note="SDPA over the same slab (K/V bf16, dequantized and repeated per query "
+                         "head ahead of time)",
+            launches=None, bound_ms=t["bound"][0], bound_by=t["bound"][1],
+            times_by_cache_bits={b: {k: v for k, v in tt.items() if k != "bound"}
+                                 for b, tt in times.items()},
+            shapes=f"caches [{L},B,{Hkv},S,{hd}], q [B,{Hq},{hd}] bf16, S {timelines}, B 1 "
+                   f"and 4, {'/'.join(f'{b}-bit' for b in instances)} caches; timed at B=1, "
+                   f"S={S}, {n_valid} valid slots, the {main_bits}-bit cache",
+        )
+        log(f"kernel {name} ok: {json.dumps(row)}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def decode_ab_path(ctx, arms) -> dict:
+    """The inference CLI's --decode_impl arms on one model at full width:
+    for each (key, label, decode_impl, launches wanted), 32 greedy tokens
+    through `generate(attn_impl=...)` with the counters zeroed around them:
+    tokens well formed, launches exact, the first decode step's logits
+    within rel-L2 HOST_TOL of the auto arm's on the same weights, and the
+    decode time per token beside auto's, both in this call."""
+    from audio_llama_tpu_torch.inference.generate import generate
+
+    cfg, frozen, trainable = ctx["model"]
+    ids, mask, audio, kv = ctx["ids"], ctx["mask"], ctx["audio"], ctx["kv_quant"]
+    B = ids.shape[0]
+    kw = dict(eos_id=EOS, pad_id=0, audio_start_id=AUDIO_START, audio_end_id=AUDIO_END,
+              compute_dtype=torch.bfloat16, device=ids.device, kv_quant=kv, greedy=True)
+
+    def run(n, impl):
+        return generate(frozen, trainable, cfg, ids, mask, audio, None, max_new_tokens=n,
+                        attn_impl=impl, **kw)
+
+    out = {}
+    for key, label, impl, want in arms:
+        run(2, impl)
+        first_ms = min(synced_ms(lambda: run(1, impl)) for _ in range(2))
+        auto_ms = synced_ms(lambda: run(N_NEW, "auto"))
+        zero_counters()
+        result = {}
+        total_ms = synced_ms(lambda: result.setdefault("out", run(N_NEW, impl)))
+        launches = read_counters()
+        toks = result["out"].tokens
+        check_tokens(label, toks, (B, N_NEW), cfg.llama.vocab_size + 2)
+        for name, n in want.items():
+            if launches[name] != n:
+                raise AssertionError(f"{label}: {name} launched {launches[name]} times, "
+                                     f"want {n}")
+        arm = first_step_logits(frozen, trainable, cfg, ids, mask, audio, kv, attn_impl=impl)
+        auto = first_step_logits(frozen, trainable, cfg, ids, mask, audio, kv, megakernel=True)
+        rel = rel_l2(arm, auto)
+        if not (torch.isfinite(arm).all() and rel <= HOST_TOL):
+            raise AssertionError(f"{label}: first decode step's logits rel-L2 {rel} vs the auto "
+                                 f"arm (bar {HOST_TOL})")
+        stats = dict(
+            label=label, decode_impl=impl, batch=B, new_tokens=N_NEW, config=ctx["config"],
+            decode_ms_per_token=(total_ms - first_ms) / (N_NEW - 1),
+            auto_decode_ms_per_token=(auto_ms - first_ms) / (N_NEW - 1),
+            first_step_logits_rel_l2_vs_auto=rel, tol_rel_l2=HOST_TOL,
+            first_step_argmax_agree=(arm.argmax(-1) == auto.argmax(-1)).float().mean().item(),
+            tokens=toks.tolist(), launches=launches)
+        log(json.dumps({"decode_ab_path": stats}))
+        out[key] = launches
+    return out
 
 
 def gloo_probe(dev) -> dict:
@@ -2708,9 +2980,10 @@ def _host_all_reduce(x):
 
 @torch.no_grad()
 def first_step_logits(frozen, trainable, cfg, ids, mask, audio, kv_quant, tp_axis=None,
-                      sp_axis=None, megakernel=False):
-    """generate's prefill, then one greedy decode step -> the f32 logits
-    [B, V] of that step; sharded when given the axes."""
+                      sp_axis=None, megakernel=False, attn_impl="auto"):
+    """generate's prefill, then one greedy decode step (through the
+    `attn_impl` kernel) -> the f32 logits [B, V] of that step; sharded when
+    given the axes."""
     from audio_llama_tpu_torch.inference.generate import prefill
     from audio_llama_tpu_torch.models import llama
 
@@ -2721,8 +2994,8 @@ def first_step_logits(frozen, trainable, cfg, ids, mask, audio, kv_quant, tp_axi
     logits, _ = llama.llama_forward(
         frozen["llama"], cfg.llama, input_ids=pre.next_logits.argmax(-1)[:, None],
         attention_mask=pre.full_mask, positions=pre.real_len[:, None], kv_cache=pre.cache,
-        lora=pre.lora, compute_dtype=bf, megakernel=megakernel, tp_axis=tp_axis,
-        sp_axis=sp_axis)
+        lora=pre.lora, compute_dtype=bf, megakernel=megakernel, attn_impl=attn_impl,
+        tp_axis=tp_axis, sp_axis=sp_axis)
     return logits[:, 0].float()
 
 
@@ -3319,19 +3592,25 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows += db_kernel_checks(dev, gen)
     torch.cuda.empty_cache()
+    rows += ab_kernel_checks(dev, gen)
+    torch.cuda.empty_cache()
     rows += train_kernel_checks(dev, gen)
     torch.cuda.empty_cache()
     rows += ring_kernel_checks(dev, gen)
     torch.cuda.empty_cache()
-    paths = {"bf16": main_path(dev, profile=args.profile)}
+    paths = {}
+    paths["bf16"], ab = main_path(dev, profile=args.profile)
+    paths.update(ab)
     torch.cuda.empty_cache()
     paths["int4"], model = int4_path(dev, profile=args.profile)
     cli_path(dev, model)
     del model
     torch.cuda.empty_cache()
-    paths["b1"] = b1_path(dev, profile=args.profile)
+    paths["b1"], ab = b1_path(dev, profile=args.profile)
+    paths.update(ab)
     torch.cuda.empty_cache()
-    paths["int8"] = int8_path(dev, profile=args.profile)
+    paths["int8"], ab = int8_path(dev, profile=args.profile)
+    paths.update(ab)
     torch.cuda.empty_cache()
     host_check(dev)
     L = cut_config().llama.num_layers
@@ -3349,7 +3628,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths.update(multi_path(dev))
     for row in rows:  # each kernel's count on the path that exercises it
-        row["launches"] = paths[KERNEL_PATH.get(row["name"], "int4")][row["name"]]
+        counted = paths[KERNEL_PATH.get(row["name"], "int4")]
+        row["launches"] = sum(counted[n] for n in ROW_COUNTERS.get(row["name"], (row["name"],)))
         row["timed_by"] = {k: row[k].by for k in ("ms", "plain_ms", "library_ms")
                            if isinstance(row.get(k), Ms)}
     torch.cuda.empty_cache()

@@ -5,8 +5,9 @@ JAX's `audio_io` (the same numpy and scipy calls). Tokenizers: identical ids
 and text. The CLI runs end to end on the host (`--platform cpu`) with the
 toy model and the int4 KV cache, and `--int4_decoder` on the toy model
 refuses the same way as JAX's (hidden 64 is not a multiple of group 128).
-`--kv_quant` (int8 rows), `--int8_decoder` and `--rotate` run; the flags of
-parts not ported yet name their ROADMAP queue.
+`--kv_quant` (int8 rows), `--int8_decoder`, `--rotate` and both A/B values of
+`--decode_impl` run; the flags of parts not ported yet name their ROADMAP
+queue.
 """
 
 from pathlib import Path
@@ -151,7 +152,8 @@ def test_cli_refusals_match_jax_or_name_the_queue():
     with pytest.raises(ValueError, match="int4 pack needs even N and group"):
         j_cli.main(["--platform", "cpu", "--toy_model", "--prompt", "x", "--int4_decoder",
                     "--max_new_tokens", "1"])
-    for flags in (["--int8_decoder"], ["--rotate"], ["--kv_quant"]):  # ported: they run
+    for flags in (["--int8_decoder"], ["--rotate"], ["--kv_quant"],  # ported: they run
+                  ["--decode_impl", "decode_kernel"], ["--decode_impl", "decode_packed"]):
         text = cli.main(["--platform", "cpu", "--toy_model", "--prompt", "x", "--greedy",
                          "--max_new_tokens", "2"] + flags)
         assert isinstance(text, str)

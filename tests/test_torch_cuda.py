@@ -821,3 +821,110 @@ def test_sp_ring_two_ranks_on_the_card(dev):
             g, wnt = g[valid], wnt[valid]
         assert (g - wnt).norm() <= 2e-2 * wnt.norm(), i
     assert [r[2] for r in out] == [(0, 0, 0), (1, 1, 1)]
+
+
+# --- the --decode_impl kernels: the normalized db modes and the packed kernel -
+
+AB_KERNELS = [("decode_attention_db", 16), ("decode_attention_quantized_db", 8),
+              ("decode_attention_quantized4_db", 4), ("decode_attention_packed", 16),
+              ("decode_attention_packed", 8)]
+
+
+def _ab_case(dev, bits, B, S, Hq, Hkv, hd, dtype=torch.bfloat16, seed=0):
+    from chip_smoke import db_case
+
+    case = db_case(dev, torch.Generator(device=dev).manual_seed(seed + bits), bits, B, S, 2,
+                   Hkv, Hq, hd)
+    if dtype == torch.float32:  # the f32 instance: q (and a 16-bit cache) in f32
+        case["q"] = case["q"].float()
+        if bits == 16:
+            case["rows"] = [r.float() for r in case["rows"]]
+            case["caches"] = [c.float() for c in case["caches"]]
+    return case
+
+
+@pytest.mark.parametrize("name,bits", AB_KERNELS)
+@pytest.mark.parametrize("B,S,off,Hq,Hkv,hd,dtype", [
+    (2, 64, 19, 4, 2, 64, torch.bfloat16), (2, 96, 95, 4, 2, 64, torch.bfloat16),
+    (2, 64, 40, 6, 2, 32, torch.float32), (4, 3040, 3016, 24, 8, 128, torch.bfloat16)])
+def test_decode_ab_kernels(dev, name, bits, B, S, off, Hq, Hkv, hd, dtype):
+    """Each kernel against its plain version: the output within the decode
+    kernels' bar (f32: 1e-4), the caches bit-equal, the fresh rows at the
+    offset and nothing else changed."""
+    from chip_smoke import ab_call, check_append
+
+    case = _ab_case(dev, bits, B, S, Hq, Hkv, hd, dtype)
+    valid = (torch.arange(S, device=dev)[None, :] <= off).to(torch.int32).repeat(B, 1)
+    valid[-1, 3:9] = 0
+    got, gc = ab_call(name, case, bits, 1, off, valid, hd ** -0.5)
+    want, wc = ab_call(name, case, bits, 1, off, valid, hd ** -0.5, cuda=False)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    _close(got, want, dtype, name)
+    check_append(name, gc, wc, case["caches"], case["rows"], 1, off)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_packed_kernel_masked_leading_chunk_and_repeat_launches(dev, quant):
+    """chunk 32 (NC 3 of 96 slots) with the first chunk fully masked: within
+    the bar of the plain version; two launches give the same bits (the merge
+    counters return to zero)."""
+    from audio_llama_tpu_torch.ops import decode_attention_packed as pk
+
+    case = _ab_case(dev, 8 if quant else 16, 2, 96, 24, 8, 128)
+    valid = (torch.arange(96, device=dev)[None, :] <= 70).to(torch.int32).repeat(2, 1)
+    valid[:, :32] = 0
+    qa = (*case["scales"], *case["fresh"]) if quant else None
+
+    def call(fn):
+        ck, cv = (c.clone() for c in case["caches"])
+        return fn(case["q"], *case["rows"], ck, cv, 1, 70, valid, 128 ** -0.5, chunk=32,
+                  quant_args=qa)[0]
+
+    before = pk.launches_q8 if quant else pk.launches
+    got, again = call(pk.packed_cuda), call(pk.packed_cuda)
+    torch.cuda.synchronize()
+    assert (pk.launches_q8 if quant else pk.launches) == before + 4  # two launches a call
+    assert torch.equal(got, again)
+    _close(got, call(pk.packed_plain), torch.bfloat16, "decode_attention_packed")
+
+
+@pytest.mark.parametrize("name,bits", AB_KERNELS)
+def test_decode_ab_check_rejects_a_stale_fresh_row(dev, name, bits):
+    """The fresh row read stale from the cache at the offset, early in a
+    request (one slot of 41 carries its weight): outside the bar."""
+    from chip_smoke import AB_FAULT_OFFSET as off, ab_call
+
+    case = _ab_case(dev, bits, 4, 1568, 24, 8, 128)
+    valid = (torch.arange(1568, device=dev)[None, :] <= off).to(torch.int32).repeat(4, 1)
+    want = ab_call(name, case, bits, 1, off, valid, 128 ** -0.5, cuda=False)[0]
+    stale = [c[1, :, :, off].clone() for c in case["caches"]]
+    fresh = None if bits == 16 else [s[1, :, :, off].clone() for s in case["scales"]]
+    got = ab_call(name, case, bits, 1, off, valid, 128 ** -0.5, rows=stale, fresh=fresh)[0]
+    assert tol_ratio(got, want, ATOL_ROW_RMS_FRAC[name]) > 1
+
+
+@pytest.mark.parametrize("impl,kv", [("decode_kernel", False), ("decode_kernel", True),
+                                     ("decode_kernel", 4), ("decode_packed", False),
+                                     ("decode_packed", True)])
+def test_tiny_generate_decode_impl_on_the_card(dev, impl, kv):
+    """The tiny model at bf16 through generate(attn_impl=...): the kernel
+    launched once a layer a decode step (packed: twice), the first token the
+    auto arm's (the prefill is the same)."""
+    from audio_llama_tpu_torch.inference.generate import generate
+    from audio_llama_tpu_torch.ops import decode_attention_db as db
+    from audio_llama_tpu_torch.ops import decode_attention_packed as pk
+
+    cfg, frozen, train, ids, kw = _tiny_sp_case(dev)
+    kw["kv_quant"] = kv
+    counter = {("decode_kernel", False): (db, "launches_norm"),
+               ("decode_kernel", True): (db, "launches_norm_q8"),
+               ("decode_kernel", 4): (db, "launches_norm_q4"),
+               ("decode_packed", False): (pk, "launches"),
+               ("decode_packed", True): (pk, "launches_q8")}[(impl, kv)]
+    n = getattr(*counter)
+    got = generate(frozen, train, cfg, ids, torch.ones_like(ids), attn_impl=impl, **kw).tokens
+    per_step = 2 if impl == "decode_packed" else 1
+    assert getattr(*counter) - n == per_step * cfg.llama.num_layers * 5
+    want = generate(frozen, train, cfg, ids, torch.ones_like(ids), **kw).tokens
+    assert torch.equal(got[:, 0], want[:, 0])
