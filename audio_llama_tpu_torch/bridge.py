@@ -100,17 +100,25 @@ def to_tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> t
     return t.to(device)
 
 
+# Quantization scales keep the dtype JAX gave them under `from_jax(dtype=...)`:
+# the W8A8 encoder's weight and smoother scales (models/whisper_int8.py) are
+# f32 however its float leaves are stored.
+SCALE_LEAVES = ("w_s", "a_s")
+
+
 def from_jax(
     tree: Mapping[str, Any], device: DeviceLike = None, dtype: Optional[torch.dtype] = None
 ) -> ParamTree:
     """A JAX param pytree (numpy or JAX arrays) -> ParamTree on `device`.
-    `dtype` casts floating leaves; None keeps each leaf's own dtype."""
+    `dtype` casts floating leaves except the quantization scales
+    (`SCALE_LEAVES`); None keeps each leaf's own dtype. Integer leaves (int4
+    and int8 weights) are never cast."""
     dev = resolve_device(device)
 
-    def conv(node):
+    def conv(node, name=None):
         if isinstance(node, Mapping):
-            return {k: conv(v) for k, v in node.items()}
-        return to_tensor(node, dev, dtype)
+            return {k: conv(v, k) for k, v in node.items()}
+        return to_tensor(node, dev, None if name in SCALE_LEAVES else dtype)
 
     return ParamTree(conv(tree))
 

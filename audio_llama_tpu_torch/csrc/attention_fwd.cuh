@@ -14,6 +14,18 @@
 //   O = O r + P V        (WMMA, O kept as f32 in shared memory)
 // and the epilogue writes O / l. Inputs are read through (batch, time, head)
 // element strides, so [B, T, H*hd] projection outputs need no transpose.
+//
+// Two more softmax modes of the same tile loop serve the encoder's A/B
+// kernels; both shift every tile by one FIXED per-row value, so neither
+// rescales O (r = 1) and the order of the key tiles only changes f32 sums:
+//   kSoftmaxBounded (enc_attention_bounded.cu): the Cauchy-Schwarz bound
+//       ||q_i|| * kn[b, h] in place of the row max, p = 0 past the valid
+//       keys, out = l > 0 ? O / l : 0 (a row whose exp all underflows is 0);
+//   kSoftmaxTwoPass (enc_attention_twopass.cu): a first pass over the key
+//       tiles takes the TRUE row max of S plus the padding bias (-1e9 past
+//       the valid keys), then the main loop forms p = exp(S + bias - m),
+//       optionally through a bf16 exp argument (exp_bf16).
+// Both use expf (not __expf) for the row's p.
 #pragma once
 
 #include <mma.h>
@@ -27,6 +39,10 @@ constexpr int kBK = 64;
 constexpr int kWarps = kBQ / 16;
 constexpr int kThreads = kWarps * 32;
 
+constexpr int kSoftmaxOnline = 0;   // running true max (enc v3, causal)
+constexpr int kSoftmaxBounded = 1;  // fixed shift ||q_i|| kn (enc bounded)
+constexpr int kSoftmaxTwoPass = 2;  // max pass, then exp and PV (enc twopass)
+
 struct AttnParams {
   const __nv_bfloat16* q;  // pre-scaled
   const __nv_bfloat16* k;
@@ -35,6 +51,8 @@ struct AttnParams {
   float* l_out;            // [B*Hq, T] row denominators, or null
   float* m_out;            // [B*Hq, T] row maxima, or null
   const float* key_bias;   // [B, T] additive key bias, or null
+  const float* kn;         // [B*Hq] max key norm (kSoftmaxBounded)
+  int exp_bf16;            // kSoftmaxTwoPass: round exp's argument to bf16
   int T;                   // rows of q/k/v/o along time
   int n_keys;              // keys at index >= n_keys are masked
   int Hq, Hkv;
@@ -73,7 +91,29 @@ __device__ __forceinline__ void copy_rows_bf16(__nv_bfloat16* dst, int ld_dst,
   }
 }
 
-template <int HD, bool CAUSAL>
+// S = Q K^T for one warp's 16 rows of the tile, into sS (f32).
+template <int HD>
+__device__ __forceinline__ void scores_tile(const __nv_bfloat16* sQ, const __nv_bfloat16* sK,
+                                            float* sS, int warp) {
+  using namespace nvcuda;
+  using Sm = AttnSmem<HD>;
+  for (int n = 0; n < kBK / 16; ++n) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
+      wmma::load_matrix_sync(fa, sQ + warp * 16 * Sm::LDQ + kk * 16, Sm::LDQ);
+      wmma::load_matrix_sync(fb, sK + n * 16 * Sm::LDQ + kk * 16, Sm::LDQ);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(sS + warp * 16 * Sm::LDS + n * 16, acc, Sm::LDS,
+                            wmma::mem_row_major);
+  }
+}
+
+template <int HD, bool CAUSAL, int MODE>
 __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnParams p) {
   using namespace nvcuda;
   using Sm = AttnSmem<HD>;
@@ -109,6 +149,41 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnParams p) {
 
   int n_tiles = (p.n_keys + kBK - 1) / kBK;
   if (CAUSAL) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);  // skip future tiles
+  constexpr int HC = kBK / 2;
+
+  if constexpr (MODE == kSoftmaxBounded) {
+    // bound = ||q_i|| (f32 norm of the pre-scaled bf16 row) * max_j ||k_j||
+    __syncthreads();  // sQ is written
+    const __nv_bfloat16* qrow_s = sQ + row * Sm::LDQ + half * (HD / 2);
+    float ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < HD / 2; ++c) {
+      const float x = __bfloat162float(qrow_s[c]);
+      ss += x * x;
+    }
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    m_run = sqrtf(ss) * p.kn[bh];
+  }
+  if constexpr (MODE == kSoftmaxTwoPass) {
+    // pass 1: the true row max of S plus the padding bias, over every tile
+    // that holds a valid key (later tiles only add -1e9 terms)
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * kBK;
+      __syncthreads();
+      copy_rows_bf16(sK, Sm::LDQ, kb, p.k_st, k0, kBK, p.T, HD);
+      __syncthreads();
+      scores_tile<HD>(sQ, sK, sS, warp);
+      __syncwarp();
+      const float* srow = sS + row * Sm::LDS + half * HC;
+#pragma unroll
+      for (int j = 0; j < HC; ++j) {
+        const int key = k0 + half * HC + j;
+        m_run = fmaxf(m_run, key >= p.n_keys ? srow[j] + kNeg : srow[j]);
+      }
+      __syncwarp();
+    }
+    m_run = fmaxf(m_run, __shfl_xor_sync(0xffffffffu, m_run, 1));
+  }
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
@@ -117,55 +192,60 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnParams p) {
     copy_rows_bf16(sV, Sm::LDQ, vb, p.v_st, k0, kBK, p.T, HD);
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows
-    for (int n = 0; n < kBK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + warp * 16 * Sm::LDQ + kk * 16, Sm::LDQ);
-        wmma::load_matrix_sync(fb, sK + n * 16 * Sm::LDQ + kk * 16, Sm::LDQ);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sS + warp * 16 * Sm::LDS + n * 16, acc, Sm::LDS,
-                              wmma::mem_row_major);
-    }
+    scores_tile<HD>(sQ, sK, sS, warp);
     __syncwarp();
 
-    // online softmax over this lane's 32 columns of its row
-    constexpr int HC = kBK / 2;
-    float s[HC];
-    float tmax = kNeg;
+    // softmax over this lane's 32 columns of its row
     const float* srow = sS + row * Sm::LDS + half * HC;
-#pragma unroll
-    for (int j = 0; j < HC; ++j) {
-      const int key = k0 + half * HC + j;
-      float v = srow[j];
-      if (bias) v += key < p.T ? bias[key] : 0.f;
-      if (key >= p.n_keys) v = kNeg;
-      if (CAUSAL && key > qrow) v = kNeg;
-      s[j] = v;
-      tmax = fmaxf(tmax, v);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m_run, tmax);
-    const float r = __expf(m_run - m_new);
-    float psum = 0.f;
     __nv_bfloat16* prow = sP + row * Sm::LDP + half * HC;
+    float psum = 0.f;
+    if constexpr (MODE == kSoftmaxOnline) {
+      float s[HC];
+      float tmax = kNeg;
 #pragma unroll
-    for (int j = 0; j < HC; ++j) {
-      const __nv_bfloat16 pb = __float2bfloat16(__expf(s[j] - m_new));
-      prow[j] = pb;
-      psum += __bfloat162float(pb);
+      for (int j = 0; j < HC; ++j) {
+        const int key = k0 + half * HC + j;
+        float v = srow[j];
+        if (bias) v += key < p.T ? bias[key] : 0.f;
+        if (key >= p.n_keys) v = kNeg;
+        if (CAUSAL && key > qrow) v = kNeg;
+        s[j] = v;
+        tmax = fmaxf(tmax, v);
+      }
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      const float m_new = fmaxf(m_run, tmax);
+      const float r = __expf(m_run - m_new);
+#pragma unroll
+      for (int j = 0; j < HC; ++j) {
+        const __nv_bfloat16 pb = __float2bfloat16(__expf(s[j] - m_new));
+        prow[j] = pb;
+        psum += __bfloat162float(pb);
+      }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      l_run = l_run * r + psum;
+      m_run = m_new;
+      float* orow = sO + row * Sm::LDO + half * (HD / 2);
+#pragma unroll
+      for (int c = 0; c < HD / 2; ++c) orow[c] *= r;
+    } else {
+#pragma unroll
+      for (int j = 0; j < HC; ++j) {
+        const int key = k0 + half * HC + j;
+        float e;
+        if constexpr (MODE == kSoftmaxBounded) {
+          e = key < p.n_keys ? expf(srow[j] - m_run) : 0.f;
+        } else {
+          float x = (key >= p.n_keys ? srow[j] + kNeg : srow[j]) - m_run;
+          if (p.exp_bf16) x = __bfloat162float(__float2bfloat16(x));
+          e = expf(x);
+        }
+        const __nv_bfloat16 pb = __float2bfloat16(e);
+        prow[j] = pb;
+        psum += __bfloat162float(pb);
+      }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      l_run += psum;
     }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_run = l_run * r + psum;
-    m_run = m_new;
-    float* orow = sO + row * Sm::LDO + half * (HD / 2);
-#pragma unroll
-    for (int c = 0; c < HD / 2; ++c) orow[c] *= r;
     __syncwarp();
 
     // O += P V
@@ -202,23 +282,23 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnParams p) {
   }
 }
 
-template <int HD, bool CAUSAL>
+template <int HD, bool CAUSAL, int MODE>
 cudaError_t launch_attn_fwd(const AttnParams& p, int B, cudaStream_t stream) {
   const size_t smem = AttnSmem<HD>::total;
-  cudaError_t err = allow_smem(attn_fwd_kernel<HD, CAUSAL>, smem);
+  cudaError_t err = allow_smem(attn_fwd_kernel<HD, CAUSAL, MODE>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.T + kBQ - 1) / kBQ, B * p.Hq);
-  attn_fwd_kernel<HD, CAUSAL><<<grid, kThreads, smem, stream>>>(p);
+  attn_fwd_kernel<HD, CAUSAL, MODE><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool CAUSAL>
+template <bool CAUSAL, int MODE = kSoftmaxOnline>
 cudaError_t dispatch_attn_fwd(const AttnParams& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_attn_fwd<16, CAUSAL>(p, B, stream);
-    case 32: return launch_attn_fwd<32, CAUSAL>(p, B, stream);
-    case 64: return launch_attn_fwd<64, CAUSAL>(p, B, stream);
-    case 128: return launch_attn_fwd<128, CAUSAL>(p, B, stream);
+    case 16: return launch_attn_fwd<16, CAUSAL, MODE>(p, B, stream);
+    case 32: return launch_attn_fwd<32, CAUSAL, MODE>(p, B, stream);
+    case 64: return launch_attn_fwd<64, CAUSAL, MODE>(p, B, stream);
+    case 128: return launch_attn_fwd<128, CAUSAL, MODE>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -67,13 +67,11 @@ def load_audio_llm(checkpoint_path: Optional[str], llama_path: Optional[str] = N
             "--llama_path / --whisper_path: models/hf_loader.py is not ported yet and needs "
             "the checkpoints on disk (ROADMAP queue 1 item 6); use --toy_model or a "
             "checkpoint of a --toy_model / --synthetic_flagship run")
-    if meta_args.get("toy_outliers"):
-        raise NotImplementedError("the checkpoint's frozen tree has injected outliers: "
-                                  "models/outliers.py is not ported yet")
     del whisper_path
     tk = load_tokenizer(tokenizer or "byte")
     cfg = cfg or AudioLLMConfig.tiny()
-    frozen = build_frozen(cfg, meta_args.get("seed", seed), device)
+    frozen = build_frozen(cfg, meta_args.get("seed", seed), device,
+                          meta_args.get("toy_outliers", 0.0))
     trainable = allm.init_trainable(cfg, make_generator(seed + 1, device), torch.float32)
     if checkpoint_path:
         trainable, _, step, _ = ckpt.load_checkpoint(checkpoint_path, trainable_template=trainable)

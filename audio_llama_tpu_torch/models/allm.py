@@ -12,7 +12,8 @@ splice (<audio> ++ audio ++ </audio> ++ text) -> llama_forward.
 `process_audio_features` takes a waveform [B, S] (log-mel through the mel
 kernel, `ops/mel_power.py`; audio longer than one 30 s window as N windows
 folded into the batch) or precomputed log-mel ([B, n_mels, F] or
-[B, 1, n_mels, F]). It runs without autograd, the counterpart of the JAX
+[B, 1, n_mels, F]); a quantized Whisper tree runs the W8A8 encoder
+(`encode`). It runs without autograd, the counterpart of the JAX
 package's `stop_gradient`: gradients reach the projector and LoRA only.
 `forward` is the training forward: audio path, splice ('prepend' or
 'inplace'), the decoder with LoRA and the shifted cross-entropy (dense, or
@@ -72,14 +73,29 @@ def num_trainable_params(trainable: ParamTree) -> int:
 
 
 def init_frozen(cfg: AudioLLMConfig, generator: torch.Generator,
-                dtype=torch.bfloat16) -> ParamTree:
+                dtype=torch.bfloat16, outlier_scale: float = 0.0,
+                outlier_targets: tuple = ("whisper",)) -> ParamTree:
     """Random frozen Llama + Whisper on the generator's device (tests,
     benchmarks; real checkpoints load through an HF loader, not yet
-    ported)."""
-    return ParamTree({
+    ported). outlier_scale > 0 injects the outlier-channel structure of
+    trained checkpoints (`models/outliers.py`) into the targets, Llama first,
+    drawn from the same generator after the weights: deterministic in (seed,
+    scale, targets), so a trainer and a later inference load rebuild the same
+    tree. The numbers are the generator's, not JAX's."""
+    frozen = {
         "llama": llama_mod.init_params(cfg.llama, generator, dtype),
         "whisper": whisper_mod.init_params(cfg.whisper, generator, dtype),
-    })
+    }
+    if outlier_scale:
+        from . import outliers
+
+        if "llama" in outlier_targets:
+            frozen["llama"] = outliers.inject_llama_outliers(frozen["llama"], generator,
+                                                             scale=outlier_scale)
+        if "whisper" in outlier_targets:
+            frozen["whisper"] = outliers.inject_whisper_outliers(frozen["whisper"], generator,
+                                                                 scale=outlier_scale)
+    return ParamTree(frozen)
 
 
 @torch.no_grad()
@@ -102,10 +118,21 @@ def process_audio_features(
                              "window (pad on the host)")
         n_windows = total // S
         mel = mel_power.log_mel(audio.reshape(B * n_windows, S), cfg.mel)
-        enc = whisper_mod.encode(frozen["whisper"], cfg.whisper, mel, compute_dtype)
+        enc = encode(frozen["whisper"], cfg.whisper, mel, compute_dtype)
         return enc.reshape(B, n_windows * enc.shape[1], enc.shape[2])
     mel = audio.squeeze(1) if audio.dim() == 4 else audio
-    return whisper_mod.encode(frozen["whisper"], cfg.whisper, mel, compute_dtype)
+    return encode(frozen["whisper"], cfg.whisper, mel, compute_dtype)
+
+
+def encode(wparams: ParamTree, wcfg, mel: torch.Tensor, compute_dtype=torch.bfloat16):
+    """The W8A8 encoder when the Whisper tree was quantized
+    (`whisper_int8.quantize_encoder`), else the bf16 encoder (JAX's
+    `_encode`, allm.py:171-179)."""
+    from . import whisper_int8
+
+    if whisper_int8.is_quantized(wparams):
+        return whisper_int8.encode_int8(wparams, wcfg, mel, compute_dtype)
+    return whisper_mod.encode(wparams, wcfg, mel, compute_dtype)
 
 
 def combine_text_and_audio_embeddings(

@@ -13,7 +13,8 @@ their own residual lanes and are masked out of attention as keys, then
 sliced off before `ln_post`. The two per-layer LayerNorms run the kernel of
 `ops/layer_norm.py` and attention the kernel of `ops/enc_attention.py`;
 `ln_post` stays the plain LayerNorm, as in the JAX package. The conv stem
-and the projections are plain `F.conv1d` / `torch.matmul`.
+and the projections are plain `F.conv1d` / `torch.matmul`. The W8A8 twin
+over a quantized tree is `models/whisper_int8.py::encode_int8`.
 """
 
 from __future__ import annotations
@@ -86,14 +87,9 @@ def _gelu(x: torch.Tensor, approx: bool) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approx else "none")
 
 
-@torch.no_grad()
-def encode(
-    params: ParamTree,
-    cfg: WhisperConfig,
-    mel: torch.Tensor,  # [B, n_mels, T_mel]
-    compute_dtype=torch.bfloat16,
-) -> torch.Tensor:
-    """Frozen encoder forward -> [B, T_mel // 2, d_model] in compute_dtype."""
+def stem(params: ParamTree, cfg: WhisperConfig, mel: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """The conv stem and position embedding: log-mel [B, n_mels, T_mel] ->
+    [B, T_mel // 2, d_model] in compute_dtype."""
     cd = compute_dtype
     approx = cfg.gelu_approx
     x = mel.to(cd)
@@ -102,14 +98,33 @@ def encode(
     x = _gelu(F.conv1d(x, params["conv2"]["w"].to(cd), params["conv2"]["b"].to(cd),
                        stride=2, padding=1), approx)
     x = x.transpose(1, 2)  # [B, T, D]
-    B, T, D = x.shape
-    x = x + params["pos_embed"][:T].to(cd)
+    return x + params["pos_embed"][:x.shape[1]].to(cd)
 
-    T_real = T
-    T = -(-T // TILE) * TILE
-    if T != T_real:
-        x = F.pad(x, (0, 0, 0, T - T_real))
-    x = x.contiguous()
+
+def pad_to_tile(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, D] -> [B, T rounded up to TILE, D], contiguous, zero rows appended."""
+    T = x.shape[1]
+    pad = -T % TILE
+    return (F.pad(x, (0, 0, 0, pad)) if pad else x).contiguous()
+
+
+@torch.no_grad()
+def encode(
+    params: ParamTree,
+    cfg: WhisperConfig,
+    mel: torch.Tensor,  # [B, n_mels, T_mel]
+    compute_dtype=torch.bfloat16,
+    attn_algo: str = "v3",
+) -> torch.Tensor:
+    """Frozen encoder forward -> [B, T_mel // 2, d_model] in compute_dtype.
+    `attn_algo`: the encoder attention kernel, as JAX's `encode(attn_algo=)`
+    (`ops/enc_attention.py`: 'v3', 'v3q', 'bounded' or 'twopass')."""
+    cd = compute_dtype
+    approx = cfg.gelu_approx
+    x = stem(params, cfg, mel, cd)
+    B, T_real, D = x.shape
+    x = pad_to_tile(x)
+    T = x.shape[1]
 
     H, hd = cfg.num_heads, cfg.head_dim
     lp = params["layers"]
@@ -122,7 +137,7 @@ def encode(
         v = h @ lp["v_proj"]["w"][li].to(cd) + lp["v_proj"]["b"][li].to(cd)
         attn = enc_attention(
             q.view(B, T, H, hd), k.view(B, T, H, hd), v.view(B, T, H, hd),
-            valid_len=T_real, scale=hd ** -0.5,
+            valid_len=T_real, scale=hd ** -0.5, algo=attn_algo,
         ).reshape(B, T, D)
         x = x + (attn @ lp["out_proj"]["w"][li].to(cd) + lp["out_proj"]["b"][li].to(cd))
         h = layer_norm_kernel(x, lp["mlp_ln"]["scale"][li].to(cd),

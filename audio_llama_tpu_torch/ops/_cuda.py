@@ -27,7 +27,8 @@ BUILD_DIR = CSRC / "build"
 SOURCES = ("layer_norm.cu", "enc_attention.cu", "causal_attention.cu", "decode_attention.cu",
            "mel_power.cu", "int4_matmul.cu", "mlp_int4.cu", "decode_attention_q4.cu",
            "decode_megakernel.cu", "causal_attention_bwd.cu", "decode_attention_db.cu",
-           "decode_attention_packed.cu")
+           "decode_attention_packed.cu", "enc_attention_v3q.cu", "enc_attention_bounded.cu",
+           "enc_attention_twopass.cu")
 HEADERS = ("common.cuh", "attention_fwd.cuh", "int4_common.cuh", "decode_rows.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -42,6 +43,9 @@ _STRIDES = [_L] * 12
 SIGNATURES = {
     "al_layer_norm": [_I, _P, _P, _P, _P, _I, _I, _F, _P],
     "al_enc_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I] + _STRIDES + [_P],
+    "al_enc_attention_bounded": [_P] * 5 + [_I] * 5 + _STRIDES + [_P],
+    "al_enc_attention_twopass": [_P] * 4 + [_I] * 6 + _STRIDES + [_P],
+    "al_enc_attention_v3q": [_P] * 6 + [_I] * 4 + [_P],
     "al_causal_attention": [_P] * 7 + [_I] * 5 + _STRIDES + [_I, _P],
     "al_decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P, _P],
     "al_mel_power": [_P, _I, _L, _I, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P],

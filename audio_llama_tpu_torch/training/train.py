@@ -25,10 +25,15 @@ the ranks sharing the cards (rank r on card r mod count).
         --tokenizer byte --data_path examples.json --audio_dir ./audio --num_epochs 1
 
 `--synthetic_flagship` trains the published widths (Llama-3.2-3B,
-Whisper-large-v3-turbo, LoRA r64) on seeded random frozen weights. Refused
-with NotImplementedError: `--llama_path` / `--whisper_path` checkpoints (they
-wait for `models/hf_loader.py`), `--toy_outliers` (`models/outliers.py`),
-`--mesh_fsdp` > 1 (ROADMAP queue 1 item 1), and an `--attn_impl` /
+Whisper-large-v3-turbo, LoRA r64) on seeded random frozen weights.
+`--toy_outliers S` injects outlier channels of scale S into the toy model's
+frozen Whisper (`models/outliers.py`), as JAX's trainer does; the inference
+CLI rebuilds the same tree from the checkpoint's flags. Refused with
+NotImplementedError: `--llama_path` / `--whisper_path` checkpoints (they
+wait for `models/hf_loader.py`), `--toy_outliers` with
+`--synthetic_flagship` (JAX's trainer injects into the toy model only and
+ignores the flag there), `--mesh_fsdp` > 1 (ROADMAP queue 1 item 1), and an
+`--attn_impl` /
 `--enc_attn_impl` / `--mel_impl` other than `auto` (the kernels on the
 card, the plain versions on the host). JAX's CLI has no sequence-parallel
 flag; the sp arm is `parallel.sharded_train.make_sharded_train_step` on a
@@ -115,7 +120,9 @@ def _build_parser():
     p.add_argument("--toy_model", action="store_true",
                    help="random tiny model + byte tokenizer (offline smoke/CI)")
     p.add_argument("--toy_outliers", type=float, default=0.0,
-                   help="outlier-channel injection into the toy frozen weights (not ported)")
+                   help="with --toy_model: inject outlier channels of this scale into the "
+                        "frozen Whisper (models/outliers.py), the hard regime for the int8 "
+                        "encoder's smoothing")
     p.add_argument("--tokenizer", type=str, default=None,
                    help="'byte' or a local tokenizer path (default: llama_path)")
     p.add_argument("--data_path", type=str, required=True)
@@ -195,8 +202,9 @@ def check_supported(args) -> None:
         raise NotImplementedError(f"--mesh_fsdp {args.mesh_fsdp}: fsdp waits for {QUEUE}")
     if args.num_processes > 1 and not args.distributed:
         raise ValueError("--num_processes > 1 needs --distributed")
-    if args.toy_outliers:
-        raise NotImplementedError("--toy_outliers: models/outliers.py is not ported yet")
+    if args.toy_outliers and args.synthetic_flagship:
+        raise NotImplementedError("--toy_outliers injects outliers into the --toy_model's "
+                                  "frozen weights only, as JAX's trainer does")
     if not (args.toy_model or args.synthetic_flagship):
         raise NotImplementedError(
             "--llama_path / --whisper_path: models/hf_loader.py is not ported yet and needs the "
@@ -276,14 +284,16 @@ def build_model_config(args, vocab_size: int):
     )
 
 
-def build_frozen(cfg, seed: int, device):
-    """The seeded random frozen tree (bf16) of a toy or synthetic run: the
-    trainer and a later inference load rebuild the same tree from the seed
-    on the same kind of device."""
+def build_frozen(cfg, seed: int, device, outlier_scale: float = 0.0):
+    """The seeded random frozen tree (bf16) of a toy or synthetic run, with
+    `--toy_outliers`' channels in its Whisper: the trainer and a later
+    inference load rebuild the same tree from the seed on the same kind of
+    device."""
     from ..device import make_generator
     from ..models import allm
 
-    return allm.init_frozen(cfg, make_generator(seed, device), torch.bfloat16)
+    return allm.init_frozen(cfg, make_generator(seed, device), torch.bfloat16,
+                            outlier_scale=outlier_scale)
 
 
 def _to_batch(accum_group):
@@ -388,7 +398,7 @@ def train(args) -> dict:
     mesh = make_mesh(MeshConfig(dp=dp, fsdp=1, tp=tp))
     if world > 1:
         logger.info("rank %d of %d: mesh %s", rank, world, mesh)
-    frozen = build_frozen(cfg, args.seed, device)
+    frozen = build_frozen(cfg, args.seed, device, args.toy_outliers)
     if tp > 1:
         frozen = sharding.shard_frozen_for_generation(mesh, frozen)
     sid = tokenizer.token_to_id(cfg.audio_start_token)

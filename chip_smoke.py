@@ -107,6 +107,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      int8 KV at B = 4: tokens well formed, launches exact, the first decode
      step's logits within rel-L2 2e-2 of the auto arm's, decode time per
      token beside auto's.
+ 17. int8 encoder (bench.py's encode program): (a) the `--enc_algo`
+     kernels v3q, bounded (in v3's [B, T, H*hd] layout and head-major) and
+     twopass (f32 and bf16 exp) at T 1536, 1500 valid keys, H 20, hd 64,
+     B 1 and 8 against their plain versions, on planted faults (valid_len
+     +-1; v3q the next head's V scales; bounded ||q|| taken before q is
+     scaled, which underflows every row; twopass its last key tile
+     skipped), timed beside the plain version and SDPA, and the bounded
+     kernel zeroing the rows its plain version zeroes on outlier keys; (b)
+     8 seeded 30 s waveforms -> log-mel -> `quantize_encoder_smoothed`
+     calibrated on the card on the batch -> `encode_int8` for each of v3,
+     v3q, twopass, bounded -> the projector, beside the bf16 encoder:
+     encode_ms, audio-s/s, launches exact (32 of the chosen kernel, none of
+     the others), v3/twopass/bounded within rel-L2 2e-2 of one another and
+     v3q within 5e-2 of v3; (c) the bf16 path's model with its encoder
+     quantized through `generate` (32 of the v3 kernel, no LayerNorm
+     kernel; the first decode step's logits beside the bf16 encoder's);
+     (d) card vs host at 2 Whisper layers for each algo.
 With `--profile`, phases 3, 4, 6 (megakernel off), 7 and 10 add a
 torch.profiler breakdown (encode + prefill + first token, and per decode
 token; one train step) by device kernel group, with the device's busy share
@@ -132,6 +149,7 @@ import torch
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12  # HBM3
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak
 
 
 def log(msg: str) -> None:
@@ -267,6 +285,12 @@ ATOL_ROW_RMS_FRAC = {
     "decode_attention_quantized_db": 2.5e-3,
     "decode_attention_quantized4_db": 2.5e-3,
     "decode_attention_packed": 2.5e-3,
+    # the encoder's A/B kernels: row 2's bar (P rounded to bf16 / pq to an
+    # int8 level at the same max on both sides, f32 sums in another order;
+    # v3q's pq may flip one level at a rounding tie of exp)
+    "enc_attention_v3q": 3e-2,
+    "enc_attention_bounded": 3e-2,
+    "enc_attention_twopass": 3e-2,
 }
 
 
@@ -533,6 +557,9 @@ COUNTERS = {
     "decode_attention_quantized4_db": ("decode_attention_db", "launches_norm_q4"),
     "decode_attention_packed": ("decode_attention_packed", "launches"),
     "decode_attention_quantized_packed": ("decode_attention_packed", "launches_q8"),
+    "enc_attention_v3q": ("enc_attention", "launches_v3q"),
+    "enc_attention_bounded": ("enc_attention", "launches_bounded"),
+    "enc_attention_twopass": ("enc_attention", "launches_twopass"),
 }
 
 
@@ -1154,6 +1181,8 @@ KERNEL_PATH = {
     "causal_attention_dkv_never": "sp_train",
     "decode_attention_db": "ab_db_bf16", "decode_attention_quantized_db": "ab_db_int8",
     "decode_attention_quantized4_db": "ab_db_int4", "decode_attention_packed": "ab_packed_int8",
+    "enc_attention_v3q": "enc8_v3q", "enc_attention_bounded": "enc8_bounded",
+    "enc_attention_twopass": "enc8_twopass",
 }
 # a row whose kernel serves several counters (its cache formats) sums them
 ROW_COUNTERS = {"decode_attention_packed": ("decode_attention_packed",
@@ -1271,6 +1300,7 @@ def main_path(dev, profile: bool = False):
         [("ab_db_bf16", "decode_kernel, bf16 KV, B=1", "decode_kernel",
           {"decode_attention_db": L * (N_NEW - 1), "decode_attention_mono": 0,
            "decode_megakernel": 0})])
+    enc8_dispatch(dict(model=(cfg, frozen, trainable), ids=ids, mask=mask, audio=mel))
     return launches, ab
 
 
@@ -3550,6 +3580,313 @@ def sharded_train_path(dev, root) -> dict:
     return {"sp_train": res[1]["sp=2"]["steps"][-1]["ring_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the W8A8 int8 encoder and its --enc_algo attention kernels
+# ---------------------------------------------------------------------------
+
+ENC_ROWS = {  # kernel row -> (TPU kernel it replaces, source)
+    "enc_attention_v3q": ("audio_llama_tpu/ops/enc_attention.py:170",
+                          "audio_llama_tpu_torch/csrc/enc_attention_v3q.cu"),
+    "enc_attention_bounded": ("audio_llama_tpu/ops/enc_attention.py:54",
+                              "audio_llama_tpu_torch/csrc/enc_attention_bounded.cu"),
+    "enc_attention_twopass": ("audio_llama_tpu/ops/enc_attention.py:232",
+                              "audio_llama_tpu_torch/csrc/enc_attention_twopass.cu"),
+}
+ENC_ALGOS = ("v3", "v3q", "twopass", "bounded")
+ENC_KERNEL = {"v3": "enc_attention", "v3q": "enc_attention_v3q",
+              "twopass": "enc_attention_twopass", "bounded": "enc_attention_bounded"}
+ENC_B = 8  # bench.py's default --batch
+
+
+def enc_case(dev, gen, B, T=1536, valid=1500, H=20, hd=64, mag=1.0):
+    """Encoder attention inputs at the main path's geometry: q/k/v [B, T, H,
+    hd] bf16 views of [B, T, H*hd] projections (v3's layout), copies stored
+    head-major ([B, H, T, hd], the layout of JAX's bounded and twopass
+    wrappers) seen through the same [B, T, H, hd] index, the pre-scaled q,
+    the key norms and v3q's quantized tensors."""
+    from audio_llama_tpu_torch.ops import enc_attention as ea
+
+    q, k, v = ((torch.randn((B, T, H * hd), generator=gen, device=dev) * mag)
+               .to(torch.bfloat16).view(B, T, H, hd) for _ in range(3))
+    scale = hd ** -0.5
+    qs = q * torch.tensor(scale, dtype=torch.bfloat16, device=dev)
+    return dict(q=q, k=k, v=v, qs=qs, valid=valid, scale=scale, kn=ea.key_norm_max(k),
+                heads=[t.transpose(1, 2).contiguous().transpose(1, 2) for t in (qs, k, v)],
+                v3q=ea.v3q_quantize(q, k, v, scale))
+
+
+def enc_call(name, case, cuda=True, valid=None, layout="v3", exp_dtype=torch.float32,
+             kn=None, sv=None):
+    """One call of an encoder variant kernel (or its plain version) on the
+    case -> [B, T, H, hd]; `valid`, `kn`, `sv`: what to pass in place of the
+    case's (a fault plants others)."""
+    from audio_llama_tpu_torch.ops import enc_attention as ea
+
+    valid = case["valid"] if valid is None else valid
+    if name == "enc_attention_v3q":
+        qi, ki, vti, c, sv0 = case["v3q"]
+        fn = ea.enc_attention_v3q_cuda if cuda else ea.enc_attention_v3q_plain
+        return fn(qi, ki, vti, c, sv0 if sv is None else sv, valid, torch.bfloat16)
+    qs, k, v = case["heads"] if layout == "head-major" else (case["qs"], case["k"], case["v"])
+    if name == "enc_attention_bounded":
+        fn = ea.enc_attention_bounded_cuda if cuda else ea.enc_attention_bounded_plain
+        return fn(qs, k, v, case["kn"] if kn is None else kn, valid)
+    fn = ea.enc_attention_twopass_cuda if cuda else ea.enc_attention_twopass_plain
+    return fn(qs, k, v, valid, exp_dtype)
+
+
+def enc_faults(name, case):
+    """name -> {fault: kwargs of enc_call} for the planted faults."""
+    valid, kw = case["valid"], {}
+    faults = {f"valid_len {valid + d}": dict(valid=valid + d) for d in (1, -1)}
+    if name == "enc_attention_v3q":  # the V scales of the neighbouring head
+        faults["sv of the next head"] = dict(sv=torch.roll(case["v3q"][4], 1, dims=1))
+    elif name == "enc_attention_bounded":  # ||q|| taken before q is scaled
+        faults["qn of the unscaled q"] = dict(kn=case["kn"] / case["scale"])
+    else:  # the last key tile (64 keys) skipped
+        faults["last key tile skipped"] = dict(valid=(valid - 1) // 64 * 64)
+    return faults
+
+
+def enc_outlier_case(dev, gen, T=1536, H=20, hd=64):
+    """tests/test_enc_attention.py::test_outlier_magnitudes_safe_softmax at the
+    main path's geometry: q, k ~ 2 N(0, 1), key 0 of every head a unit
+    direction times 1200."""
+    from audio_llama_tpu_torch.ops import enc_attention as ea
+
+    case = enc_case(dev, gen, 1, T=T, valid=T, H=H, hd=hd, mag=2.0)
+    d = torch.randn((H, hd), generator=gen, device=dev)
+    case["k"][:, 0] = (d / d.norm(dim=-1, keepdim=True) * 1200.0).to(torch.bfloat16)
+    case["kn"] = ea.key_norm_max(case["k"])
+    return case
+
+
+def enc_kernel_checks(dev, gen):
+    """Phase 17 (a): v3q, bounded (both layouts) and twopass (f32 and bf16
+    exp) at T 1536, 1500 valid keys, H 20, hd 64, B 1 and 8, against their
+    plain versions and planted faults; timed at both batches beside the
+    plain version and SDPA (v3q's on its dequantized bf16 tensors)."""
+    import torch.nn.functional as F
+
+    rows = []
+    H, hd, T, valid = 20, 64, 1536, 1500
+    arms = {"enc_attention_v3q": [dict()],
+            "enc_attention_bounded": [dict(), dict(layout="head-major")],
+            "enc_attention_twopass": [dict(), dict(layout="head-major"),
+                                      dict(exp_dtype=torch.bfloat16)]}
+    for name, (replaces, source) in ENC_ROWS.items():
+        frac = ATOL_ROW_RMS_FRAC[name]
+        mag = 2.0 if name == "enc_attention_bounded" else 1.0  # the qn fault underflows
+        row = dict(name=name, route="cuda", source=source, replaces=replaces,
+                   tol=tol_entry(frac), launches=None, checks={})
+        worst = (0.0, 0.0)
+        for B in (1, ENC_B):
+            case = enc_case(dev, gen, B, mag=mag)
+            key_ok = (torch.arange(case["k"].shape[1], device=dev) < case["valid"])[None, :]
+            for arm in arms[name]:
+                label = f"B={B} " + ",".join(f"{k}={v}" for k, v in arm.items())
+                want = enc_call(name, case, cuda=False, **arm)[:, :valid]
+                err, ratio = check_close(f"{name} {label}", enc_call(name, case, **arm)[:, :valid],
+                                         want, frac)
+                faults = {f: must_reject(name, f, enc_call(name, case, **arm, **fk)[:, :valid],
+                                         want, frac)
+                          for f, fk in enc_faults(name, case).items()}
+                row["checks"][label] = dict(max_abs_err=err, tol_ratio=ratio,
+                                            planted_fault_ratios=faults)
+                worst = max(worst, (ratio, err))
+                log(f"kernel {name} {label} ok: max_abs_err={err:.3e} tol_ratio={ratio:.3f} "
+                    f"planted faults rejected: {faults}")
+            flops = 4.0 * B * T * valid * hd * H
+            if name == "enc_attention_v3q":
+                nbytes = 3.0 * B * T * H * hd + 4.0 * B * T * H + 4.0 * B * H * hd + 2.0 * B * T * H * hd
+                bms, bby = bound(flops, nbytes, H100_INT8_OPS)
+                qi, ki, vti, c, sv = case["v3q"]
+                lib = [t.to(torch.bfloat16).contiguous() for t in (  # dequantized [B, H, T, hd]
+                    qi.transpose(1, 2) * (c / case["scale"]).transpose(1, 2)[..., None],
+                    ki.transpose(1, 2).float(), vti.transpose(2, 3) * sv[:, :, None, :])]
+                lib_scale = case["scale"]
+            else:
+                nbytes = 2.0 * 4 * B * T * H * hd
+                bms, bby = bound(flops, nbytes)
+                lib = [t.transpose(1, 2) for t in (case["qs"], case["k"], case["v"])]
+                lib_scale = 1.0
+            suffix = "" if B == 1 else f"_b{B}"
+            row.update({
+                "ms" + suffix: time_ms(lambda: enc_call(name, case)),
+                "plain_ms" + suffix: time_ms(lambda: enc_call(name, case, cuda=False), iters=5),
+                "library_ms" + suffix: time_ms(lambda: F.scaled_dot_product_attention(
+                    *lib, attn_mask=key_ok, scale=lib_scale)),
+                "bound_ms" + suffix: bms, "bound_by" + suffix: bby,
+            })
+            del case, lib
+            torch.cuda.empty_cache()
+        row["tol_ratio"], row["max_abs_err"] = worst
+        row["shapes"] = f"q/k/v[B,{T},{H},{hd}], {valid} valid, B 1 (ms) and {ENC_B} (ms_b{ENC_B})"
+        rows.append(row)
+    # the bounded shift's kept failure: the kernel zeroes the rows its plain
+    # version zeroes on outlier keys
+    case = enc_outlier_case(dev, gen)
+    got = enc_call("enc_attention_bounded", case)
+    want = enc_call("enc_attention_bounded", case, cuda=False)
+    zero_got, zero_want = (got == 0).all(dim=-1), (want == 0).all(dim=-1)
+    if not torch.equal(zero_got, zero_want) or not zero_got.any():
+        raise AssertionError("enc_attention_bounded: the kernel and its plain version zero "
+                             f"different rows on the outlier input, or none "
+                             f"({int(zero_got.sum())} vs {int(zero_want.sum())})")
+    rows[1]["outlier_rows_zeroed"] = f"{int(zero_got.sum())} of {zero_got.numel()}"
+    log(f"kernel enc_attention_bounded on outlier keys: {rows[1]['outlier_rows_zeroed']} "
+        "(batch, row, head) rows zeroed, the same as its plain version")
+    return rows
+
+
+def enc8_path(dev) -> dict:
+    """Phase 17 (b): bench.py's encode program, ported: ENC_B seeded 30 s
+    waveforms -> log-mel (the mel kernel) -> `quantize_encoder_smoothed`
+    calibrated on the card on the same batch -> `encode_int8` for each
+    attn_algo at the full Whisper-large-v3-turbo width -> the projector; the
+    bf16 `whisper.encode` in the same call. Launches exact per encode: the
+    chosen kernel once a layer, none of the other three, no LayerNorm
+    kernel. -> {path label: launch counters} for the kernel rows."""
+    from audio_llama_tpu_torch.models import allm, projector, whisper, whisper_int8 as w8
+    from audio_llama_tpu_torch.ops import mel_power
+
+    cfg = full_config()
+    L, bf = cfg.whisper.num_layers, torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    wparams = whisper.init_params(cfg.whisper, gen, bf)
+    proj = allm.init_trainable(cfg, gen, torch.float32)["projector"]
+    wav = torch.randn((ENC_B, cfg.mel.max_samples), generator=gen, device=dev) * 0.1
+    mel = mel_power.log_mel(wav, cfg.mel)
+    t0 = time.perf_counter()
+    qp = w8.quantize_encoder_smoothed(wparams, cfg.whisper, mel, compute_dtype=bf)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    A, D = cfg.mel.num_frames // 2, cfg.whisper.d_model
+    audio_s = ENC_B * cfg.mel.max_samples / cfg.mel.sample_rate
+    stats, outs, paths = {}, {}, {}
+
+    def measure(label, run):
+        run()  # warm-up
+        zero_counters()
+        out = run()
+        torch.cuda.synchronize()
+        launches = read_counters()
+        if tuple(out.shape) != (ENC_B, A, D) or not torch.isfinite(out).all():
+            raise AssertionError(f"enc8 {label}: encoder output {tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+        emb = projector.project(proj, out, bf)
+        if not torch.isfinite(emb).all():
+            raise AssertionError(f"enc8 {label}: non-finite projector output")
+        ms = float(np.median([synced_ms(run) for _ in range(5)]))
+        outs[label] = out.float()
+        stats[label] = {"encode_ms": ms, "audio_s_per_s": audio_s / (ms / 1e3),
+                        "projected": list(emb.shape)}
+        return launches
+
+    for algo in ENC_ALGOS:
+        launches = measure(algo, lambda: w8.encode_int8(qp, cfg.whisper, mel, bf,
+                                                         attn_algo=algo))
+        want = {k: L * (k == ENC_KERNEL[algo]) for k in ENC_KERNEL.values()}
+        want["layer_norm"] = 0
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"enc8 {algo}: launches {got}, want {want}")
+        stats[algo]["launches"] = got
+        paths[f"enc8_{algo}"] = launches
+    measure("bf16 whisper.encode", lambda: whisper.encode(wparams, cfg.whisper, mel, bf))
+    for algo in ("twopass", "bounded"):
+        stats[algo]["rel_l2_to_v3"] = rel_l2(outs[algo], outs["v3"])
+        if stats[algo]["rel_l2_to_v3"] > ENC8_REL:
+            raise AssertionError(f"enc8 {algo}: rel-L2 to v3 {stats[algo]['rel_l2_to_v3']}")
+    stats["v3q"]["rel_l2_to_v3"] = rel_l2(outs["v3q"], outs["v3"])
+    if stats["v3q"]["rel_l2_to_v3"] > ENC8_V3Q_REL:
+        raise AssertionError(f"enc8 v3q: rel-L2 to v3 {stats['v3q']['rel_l2_to_v3']}")
+    stats["bf16 whisper.encode"]["rel_l2_to_v3"] = rel_l2(outs["bf16 whisper.encode"],
+                                                          outs["v3"])
+    log(json.dumps({"enc8_path": {
+        "config": f"Whisper-large-v3-turbo encoder ({L} layers, d_model {D}, "
+                  f"{cfg.whisper.num_heads} heads, F {cfg.whisper.ffn_dim}), {A} frames padded "
+                  f"to the 128 tile, B = {ENC_B} seeded 30 s waveforms, bf16, W8A8 smoothed "
+                  "(calibrated on the batch), seeded random weights",
+        "calibrate_and_quantize_s": calib_s, "by_algo": stats}}))
+    return paths
+
+
+ENC8_REL = 2e-2  # v3, twopass and bounded: one function, P rounded at other maxima
+ENC8_V3Q_REL = 5e-2  # v3q: int8 q/k/v and an int8 P on top
+
+
+def enc8_dispatch(ctx) -> dict:
+    """Phase 17 (c): the bf16 path's model with its encoder quantized
+    (smoothed, calibrated on the clip) through `generate` at B = 1, 32 greedy
+    tokens: `allm.process_audio_features` dispatches on `w_q`; the v3 kernel
+    once a layer and no LayerNorm kernel; the first decode step's logits
+    beside the bf16 encoder's."""
+    from audio_llama_tpu_torch.bridge import ParamTree
+    from audio_llama_tpu_torch.inference.generate import generate
+    from audio_llama_tpu_torch.models import whisper_int8 as w8
+
+    cfg, frozen, trainable = ctx["model"]
+    ids, mask, audio = ctx["ids"], ctx["mask"], ctx["audio"]
+    bf = torch.bfloat16
+    q = ParamTree(dict(frozen.items()))
+    q["whisper"] = w8.quantize_encoder_smoothed(frozen["whisper"], cfg.whisper, audio,
+                                                compute_dtype=bf)
+    kw = dict(eos_id=EOS, pad_id=0, audio_start_id=AUDIO_START, audio_end_id=AUDIO_END,
+              compute_dtype=bf, device=ids.device)
+    zero_counters()
+    toks = generate(q, trainable, cfg, ids, mask, audio, None, max_new_tokens=N_NEW,
+                    greedy=True, **kw).tokens
+    torch.cuda.synchronize()
+    launches = read_counters()
+    check_tokens("enc8 dispatch", toks, (1, N_NEW), cfg.llama.vocab_size + 2)
+    L = cfg.whisper.num_layers
+    got = {k: launches[k] for k in ("enc_attention", "layer_norm", "enc_attention_v3q",
+                                    "enc_attention_bounded", "enc_attention_twopass")}
+    if got != {"enc_attention": L, "layer_norm": 0, "enc_attention_v3q": 0,
+               "enc_attention_bounded": 0, "enc_attention_twopass": 0}:
+        raise AssertionError(f"enc8 dispatch: launches {got}")
+    card = first_step_logits(q, trainable, cfg, ids, mask, audio, kv_quant=False)
+    bf16_enc = first_step_logits(frozen, trainable, cfg, ids, mask, audio, kv_quant=False)
+    stats = {"path": "bf16 path's model, W8A8 encoder (smoothed on the clip), B=1",
+             "greedy_tokens": toks[0].tolist(), "launches": got,
+             "first_step_logits_rel_l2_to_bf16_encoder": rel_l2(card, bf16_enc),
+             "argmax_agree": bool((card.argmax(-1) == bf16_enc.argmax(-1)).all())}
+    log(json.dumps({"enc8_dispatch": stats}))
+    return stats
+
+
+def host_check_enc8(dev) -> None:
+    """Phase 17 (d): 2 Whisper layers at full width, quantized once on the
+    host (f32, smoothed on the clip); `encode_int8` on the card (kernels,
+    bf16) against the host's plain path (f32) on that tree, each algo within
+    rel-L2 HOST_TOL."""
+    import copy
+
+    from audio_llama_tpu_torch.device import make_generator
+    from audio_llama_tpu_torch.models import whisper, whisper_int8 as w8
+
+    cfg = cut_config().whisper
+    t0 = time.perf_counter()
+    gen = make_generator(8, "cpu")
+    wparams = whisper.init_params(cfg, gen, torch.float32)
+    mel = torch.randn((1, cfg.num_mel_bins, 2 * cfg.max_source_positions), generator=gen)
+    qp = w8.quantize_encoder_smoothed(wparams, cfg, mel, compute_dtype=torch.float32)
+    qp_card = copy.deepcopy(qp).to(dev)
+    res = {}
+    for algo in ENC_ALGOS:
+        card = w8.encode_int8(qp_card, cfg, mel.to(dev), torch.bfloat16,
+                              attn_algo=algo).float().cpu()
+        host = w8.encode_int8(qp, cfg, mel, torch.float32, attn_algo=algo)
+        res[algo] = rel_l2(card, host)
+        if not (torch.isfinite(card).all() and res[algo] <= HOST_TOL):
+            raise AssertionError(f"host check enc8 {algo}: rel-L2 {res[algo]} (bar {HOST_TOL})")
+    log(json.dumps({"host_check_enc8": {
+        "layers": "2 whisper, full width, W8A8 smoothed on the host", "rel_l2_by_algo": res,
+        "tol_rel_l2": HOST_TOL, "seconds": time.perf_counter() - t0}}))
+
+
 # bf16 activations through 2 + 2 layers against an f32 host path: each bf16
 # rounding is <= 2^-9 relative, a few dozen of them compound to ~1e-2
 HOST_TOL = 2e-2
@@ -3598,7 +3935,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows += ring_kernel_checks(dev, gen)
     torch.cuda.empty_cache()
-    paths = {}
+    rows += enc_kernel_checks(dev, gen)
+    torch.cuda.empty_cache()
+    paths = enc8_path(dev)
+    torch.cuda.empty_cache()
     paths["bf16"], ab = main_path(dev, profile=args.profile)
     paths.update(ab)
     torch.cuda.empty_cache()
@@ -3620,6 +3960,7 @@ def main(argv=None) -> int:
                      want={"decode_megakernel": 1, "mlp_int4_stacked": 0})
     host_check_quant(dev, "int8w+kv8, B=1", bits=8, kv_quant=True, seed=6,
                      want={"decode_attention_quantized_mono": L})
+    host_check_enc8(dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         paths["train"] = train_path(dev, tmp, profile=args.profile)

@@ -928,3 +928,105 @@ def test_tiny_generate_decode_impl_on_the_card(dev, impl, kv):
     assert getattr(*counter) - n == per_step * cfg.llama.num_layers * 5
     want = generate(frozen, train, cfg, ids, torch.ones_like(ids), **kw).tokens
     assert torch.equal(got[:, 0], want[:, 0])
+
+
+ENC_ARMS = [("enc_attention_v3q", {}), ("enc_attention_bounded", {}),
+            ("enc_attention_bounded", {"layout": "head-major"}), ("enc_attention_twopass", {}),
+            ("enc_attention_twopass", {"layout": "head-major"}),
+            ("enc_attention_twopass", {"exp_dtype": torch.bfloat16})]
+
+
+@pytest.mark.parametrize("name,arm", ENC_ARMS)
+@pytest.mark.parametrize("B,T,H,valid", [(1, 1536, 20, 1500), (2, 256, 4, 200),
+                                         (1, 128, 2, 128)])
+def test_enc_variant_kernels(dev, name, arm, B, T, H, valid):
+    """v3q, bounded and twopass at the main path's geometry and at small ones,
+    within the encoder attention's bar of their plain versions."""
+    from chip_smoke import enc_call, enc_case
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    case = enc_case(dev, gen, B, T=T, valid=valid, H=H)
+    got = enc_call(name, case, **arm)
+    torch.cuda.synchronize()
+    want = enc_call(name, case, cuda=False, **arm)
+    _close(got[:, :valid], want[:, :valid], torch.bfloat16, name)
+
+
+@pytest.mark.parametrize("name", ["enc_attention_v3q", "enc_attention_bounded",
+                                  "enc_attention_twopass"])
+def test_enc_variant_checks_reject_planted_faults(dev, name):
+    """valid_len +- 1 for each; v3q with the next head's V scales; bounded
+    with ||q|| taken before q is scaled (every row underflows); twopass with
+    its last key tile skipped: each outside the bar."""
+    from chip_smoke import enc_call, enc_case, enc_faults
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    case = enc_case(dev, gen, 1, T=256, valid=200, H=4,
+                    mag=2.0 if name == "enc_attention_bounded" else 1.0)
+    want = enc_call(name, case, cuda=False)[:, :200]
+    for fault, kw in enc_faults(name, case).items():
+        got = enc_call(name, case, **kw)[:, :200]
+        assert tol_ratio(got, want, ATOL_ROW_RMS_FRAC[name]) > 1, fault
+
+
+def test_bounded_kernel_zeroes_the_plain_versions_rows_on_outlier_keys(dev):
+    from chip_smoke import enc_call, enc_outlier_case
+
+    case = enc_outlier_case(dev, torch.Generator(device=dev).manual_seed(7), T=256, H=4)
+    got = enc_call("enc_attention_bounded", case)
+    want = enc_call("enc_attention_bounded", case, cuda=False)
+    zero = (want == 0).all(dim=-1)
+    assert zero.any() and torch.equal((got == 0).all(dim=-1), zero)
+
+
+@pytest.mark.parametrize("algo,softmax,counter", [
+    ("v3", "safe", "launches"), ("v3", "bounded", "launches_bounded"),
+    ("bounded", "safe", "launches_bounded"), ("twopass", "safe", "launches_twopass"),
+    ("v3q", "safe", "launches_v3q")])
+def test_enc_attention_algos_launch_their_kernels(dev, algo, softmax, counter):
+    q, k, v = (_randn(dev, 1, 128, 2 * 64, seed=i).view(1, 128, 2, 64) for i in range(3))
+    before = {c: getattr(ea, c) for c in ("launches", "launches_v3q", "launches_bounded",
+                                          "launches_twopass")}
+    ea.enc_attention(q, k, v, valid_len=100, algo=algo, softmax=softmax)
+    torch.cuda.synchronize()
+    after = {c: getattr(ea, c) for c in before}
+    assert {c: after[c] - before[c] for c in before} == {c: int(c == counter) for c in before}
+
+
+def test_int_mm_on_the_card_is_exact(dev):
+    """The W8A8 linears' int8 product (torch._int_mm) at the encoder's shapes:
+    exact int32 sums, as on the host."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    a = torch.randint(-127, 128, (1536, 1280), generator=g, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (1280, 5120), generator=g, device=dev, dtype=torch.int8)
+    got = torch._int_mm(a, b)
+    assert torch.equal(got.cpu(), torch._int_mm(a.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("algo", ["v3", "v3q", "bounded", "twopass"])
+def test_tiny_int8_encoder_on_the_card_matches_the_host(dev, algo):
+    """A 2-layer W8A8 encoder (hd 64, the v3q kernel's width) quantized once
+    on the host: the card (kernels, bf16) within rel-L2 2e-2 of the host's
+    plain path (f32), the chosen kernel once a layer."""
+    import copy
+    import dataclasses
+
+    from audio_llama_tpu_torch.config import WhisperConfig
+    from audio_llama_tpu_torch.models import whisper, whisper_int8 as w8
+
+    cfg = dataclasses.replace(WhisperConfig.tiny(), d_model=256, num_heads=4, ffn_dim=512,
+                              max_source_positions=128)
+    gen = torch.Generator().manual_seed(9)
+    params = whisper.init_params(cfg, gen, torch.float32)
+    mel = torch.randn((2, cfg.num_mel_bins, 256), generator=gen)
+    qp = w8.quantize_encoder_smoothed(params, cfg, mel, compute_dtype=torch.float32)
+    counter = {"v3": "launches", "v3q": "launches_v3q", "bounded": "launches_bounded",
+               "twopass": "launches_twopass"}[algo]
+    before = getattr(ea, counter)
+    card = w8.encode_int8(copy.deepcopy(qp).to(dev), cfg, mel.to(dev), torch.bfloat16,
+                          attn_algo=algo)
+    torch.cuda.synchronize()
+    assert getattr(ea, counter) - before == cfg.num_layers
+    host = w8.encode_int8(qp, cfg, mel, torch.float32, attn_algo=algo)
+    rel = ((card.float().cpu() - host).norm() / host.norm()).item()
+    assert rel < 2e-2, rel

@@ -408,7 +408,7 @@ def test_group_by_modality_keeps_audio():
     (["--mel_impl", "pallas_interpret"], ValueError, "'auto' only"),
     (["--mesh_fsdp", "2"], NotImplementedError, "ROADMAP queue 1 item 1"),
     (["--num_processes", "2"], ValueError, "needs --distributed"),
-    (["--toy_outliers", "4"], NotImplementedError, "outliers"),
+    (["--toy_outliers", "4", "--synthetic_flagship"], NotImplementedError, "outliers"),
 ])
 def test_train_refusals(corpus, tmp_path, flags, error, match):
     with pytest.raises(error, match=match):
