@@ -23,18 +23,24 @@
 // the source shard's key-padding bias still applies. Bound: all of QK^T and
 // PV, 4 * hd * Hq * T^2 FLOP per batch row (25.8 GFLOP at the sp = 2 hop of
 // training, B 2, T 1024: 26 us at 989 TFLOP/s).
+//
+// tri = 2 is the kernel's tri='cond' mode (causal_attention.py:125-131,
+// `causal_mha(fwd_impl='blocks_cond')`, the JAX package's measured A/B arm):
+// the causal mask only on the key tiles that reach past a block's first
+// query. It computes exactly what 'always' computes (attention_fwd.cuh), so
+// its result is the same bits; the bound is tri='always''s.
 #include "attention_fwd.cuh"
 
 // q (pre-scaled) and o: [B, T, Hq, hd]-strided bf16; k, v: [B, T, Hkv, hd]-
-// strided; key_bias: [B, T] f32; l_out, m_out: [B*Hq, T] f32. causal: 1 for
-// tri='always', 0 for tri='never'.
+// strided; key_bias: [B, T] f32; l_out, m_out: [B*Hq, T] f32. tri: 1 for
+// 'always', 0 for 'never', 2 for 'cond'.
 AL_EXPORT int al_causal_attention(const void* q, const void* k, const void* v, void* o,
                                   void* l_out, void* m_out, const void* key_bias, int B,
                                   int T, int Hq, int Hkv, int hd, long long q_sb,
                                   long long q_st, long long q_sh, long long k_sb,
                                   long long k_st, long long k_sh, long long v_sb,
                                   long long v_st, long long v_sh, long long o_sb,
-                                  long long o_st, long long o_sh, int causal,
+                                  long long o_st, long long o_sh, int tri,
                                   void* stream) {
   if (B == 0 || T == 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
@@ -55,6 +61,10 @@ AL_EXPORT int al_causal_attention(const void* q, const void* k, const void* v, v
   p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_st = o_st; p.o_sh = o_sh;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return causal ? al::dispatch_attn_fwd<true>(p, B, hd, s)
-                : al::dispatch_attn_fwd<false>(p, B, hd, s);
+  switch (tri) {
+    case 0: return al::dispatch_attn_fwd<false>(p, B, hd, s);
+    case 1: return al::dispatch_attn_fwd<true>(p, B, hd, s);
+    case 2: return al::dispatch_attn_fwd<true, al::kSoftmaxOnline, true>(p, B, hd, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -27,6 +27,18 @@
 //    f32 out) into a per-group partial, and scales the partial into the f32
 //    accumulator in registers, where the accumulator layout of mma.sync is
 //    known. Loads are not pipelined yet: TMA and wgmma come later.
+//
+// The contraction-split twin, replacing ::_kernel_stacked_ksplit (:393;
+// block_k or the INT4_BK default, 768 or 1536 at K 3072): K is cut into
+// blocks of bk rows; each block's groups are summed into a fresh f32 partial
+// in order, and the partials are added into the accumulator in block order,
+// then rounded once (the TPU kernel's VMEM scratch across its minor grid
+// axis). Its bounds are the whole-K kernel's (the same bytes and FLOP). In
+// the decode shape the blocks along K are the split-K blocks, bk / 128
+// groups each, whose workspace reduce already adds the partials in block
+// order; in the prefill shape (KSPLIT) the block walks the K blocks in order
+// itself, each in a register partial added to the accumulator at the block's
+// end, with no workspace.
 #include "int4_common.cuh"
 
 namespace {
@@ -133,11 +145,13 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
 }
 
 // grid (nh / 64, ceil(M / 64)); 4 warps, warp w owns rows w*16 .. w*16+15 of
-// the block and all 128 output columns (16 n-tiles of 8).
+// the block and all 128 output columns (16 n-tiles of 8). KSPLIT: gpb groups
+// a K block, each block's groups summed in `blk` and added to acc at its end.
+template <bool KSPLIT>
 __global__ void __launch_bounds__(kPrefillThreads)
 w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
                   const int8_t* __restrict__ p, int nh, const float* __restrict__ s, int fmt,
-                  __nv_bfloat16* __restrict__ out, long long ldo, long long hi_off) {
+                  int gpb, __nv_bfloat16* __restrict__ out, long long ldo, long long hi_off) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64 rows][kLD]
   __nv_bfloat16* sW = sX + kPM * kLD;  // [128 output columns][kLD], column-major in k
@@ -148,10 +162,17 @@ w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
   const int n_groups = K / kGroup;
 
   float acc[16][4];
+  float blk[KSPLIT ? 16 : 1][4];
 #pragma unroll
   for (int t = 0; t < 16; ++t)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[t][i] = 0.f;
+  if constexpr (KSPLIT) {
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) blk[t][i] = 0.f;
+  }
 
   for (int g = 0; g < n_groups; ++g) {
     __syncthreads();  // every warp is done with the previous group's tiles
@@ -197,14 +218,35 @@ w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
         mma_bf16(part[t], a0, a1, a2, a3, lds32(wb), lds32(wb + 8));
       }
     }
+    if constexpr (KSPLIT) {
 #pragma unroll
-    for (int t = 0; t < 16; ++t) {
-      const int c = t * 8 + tig * 2;
-      const float s0 = sS[c], s1 = sS[c + 1];
-      acc[t][0] += part[t][0] * s0;
-      acc[t][1] += part[t][1] * s1;
-      acc[t][2] += part[t][2] * s0;
-      acc[t][3] += part[t][3] * s1;
+      for (int t = 0; t < 16; ++t) {
+        const int c = t * 8 + tig * 2;
+        const float s0 = sS[c], s1 = sS[c + 1];
+        blk[t][0] += part[t][0] * s0;
+        blk[t][1] += part[t][1] * s1;
+        blk[t][2] += part[t][2] * s0;
+        blk[t][3] += part[t][3] * s1;
+      }
+      if ((g + 1) % gpb == 0) {  // the K block's end: its partial joins the accumulator
+#pragma unroll
+        for (int t = 0; t < 16; ++t)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[t][i] += blk[t][i];
+            blk[t][i] = 0.f;
+          }
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        const int c = t * 8 + tig * 2;
+        const float s0 = sS[c], s1 = sS[c + 1];
+        acc[t][0] += part[t][0] * s0;
+        acc[t][1] += part[t][1] * s1;
+        acc[t][2] += part[t][2] * s0;
+        acc[t][3] += part[t][3] * s1;
+      }
     }
   }
 
@@ -242,14 +284,17 @@ cudaError_t launch_decode(const __nv_bfloat16* x, int M, int K, const int8_t* p,
 // the layer's [K/128, 2*nh] f32; out bf16: low-nibble column j of row m at
 // out[m*ldo + j], high-nibble column j at out[hi_off + m*ldo + j].
 // M <= 64 takes the decode shape with mc rows per block (1, 2, 4 or 8), gps
-// groups per block and ksplit = ceil(K/128 / gps) blocks along K; ws holds
+// groups per block and ksplit = ceil(K/128 / gps) blocks along K (a K-split
+// call passes gps = bk / 128 and ksplit = K / bk); ws holds
 // f32 [ceil(M/mc), ksplit, mc, 2*nh] and counters ceil(M/mc) * nh/128 ints
 // that are zero at entry (and left zero). Requires K % 128 == 0,
 // nh % 128 == 0, 16-byte aligned x and packed (checked by the wrapper).
+// M > 64 takes the prefill shape; gpb > 0 (groups per K block, dividing
+// K / 128) makes it the K-split kernel, 0 the whole-K one.
 AL_EXPORT int al_int4_matmul(const void* x, int M, int K, const void* packed, int nh,
                              const void* scales, int fmt, void* out, long long ldo,
                              long long hi_off, void* ws, void* counters, int mc, int gps,
-                             int ksplit, void* stream) {
+                             int ksplit, int gpb, void* stream) {
   if (M == 0) return cudaSuccess;
   if (K % kGroup || nh % kDecodeCols) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -260,11 +305,19 @@ AL_EXPORT int al_int4_matmul(const void* x, int M, int K, const void* packed, in
   auto* w = static_cast<float*>(ws);
   auto* c = static_cast<int*>(counters);
   if (M > 64) {
-    cudaError_t err = al::allow_smem(w4_prefill_kernel, kPrefillSmem);
-    if (err != cudaSuccess) return err;
     dim3 grid(nh / kPN, (M + kPM - 1) / kPM);
-    w4_prefill_kernel<<<grid, kPrefillThreads, kPrefillSmem, st>>>(xb, M, K, p, nh, s, fmt, o,
-                                                                   ldo, hi_off);
+    if (gpb > 0) {
+      if ((K / kGroup) % gpb) return cudaErrorInvalidValue;
+      cudaError_t err = al::allow_smem(w4_prefill_kernel<true>, kPrefillSmem);
+      if (err != cudaSuccess) return err;
+      w4_prefill_kernel<true><<<grid, kPrefillThreads, kPrefillSmem, st>>>(
+          xb, M, K, p, nh, s, fmt, gpb, o, ldo, hi_off);
+    } else {
+      cudaError_t err = al::allow_smem(w4_prefill_kernel<false>, kPrefillSmem);
+      if (err != cudaSuccess) return err;
+      w4_prefill_kernel<false><<<grid, kPrefillThreads, kPrefillSmem, st>>>(
+          xb, M, K, p, nh, s, fmt, 0, o, ldo, hi_off);
+    }
     return cudaGetLastError();
   }
   switch (mc) {

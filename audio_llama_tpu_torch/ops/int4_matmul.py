@@ -21,10 +21,22 @@ group the f32 dot of x with the integer nibbles, times the group's f32
 scale, summed over groups, cast to x's dtype. `int4_matmul_ref` and
 `int4_matmul_stacked_ref` are the JAX package's oracles (dequantize, then
 matmul in the compute dtype).
+
+`block_k` (or the `INT4_BK` environment default, read at import as the JAX
+package reads it) selects the contraction-split twin `_kernel_stacked_ksplit`
+(int4_matmul.py:393): K in blocks of bk rows, each block's groups summed into
+a fresh f32 partial, the partials added in block order, one cast at the end
+(`int4_matmul_stacked_ksplit_plain`; the same kernel source, its K-split
+launch). As in JAX, a bk that does not divide K or is not a multiple of the
+group falls back to the whole-K grid (`ksplit_block`): at Llama-3.2-3B
+widths 768 and 1536 split K 3072 (q|k|v, o, gate|up) and leave the down
+projection's K 8192 whole. Each launch counts in `launches` (whole K) or
+`launches_ksplit`.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -34,11 +46,16 @@ from . import _cuda
 GROUP = 128  # contraction rows per scale group
 DEFAULT_FMT = "pair"
 FMT_CODE = {"pair": 0, "obin": 1}
+# the contraction block of the stacked matmuls when the caller gives none; 0
+# keeps the whole K (audio_llama_tpu/ops/int4_matmul.py:66)
+INT4_BK = int(os.environ.get("INT4_BK", "0"))
 
-launches = 0  # kernel launches through `int4_matmul_stacked`
+launches = 0  # whole-K kernel launches through `int4_matmul_stacked`
+launches_ksplit = 0  # K-split kernel launches (block_k or INT4_BK in effect)
 
 DECODE_MAX_M = 64  # rows up to which the kernel takes its weight-streaming shape
 _TARGET_BLOCKS = 264  # two blocks per SM of the H100's 132
+_SMEM_MAX = 232448  # shared memory a block can use on the H100
 
 
 def _fmt(fmt: Optional[str]) -> str:
@@ -135,22 +152,72 @@ def int4_matmul_stacked_ref(x, packed_all, scales_all, layer, group: int = GROUP
     return y
 
 
-def int4_matmul_stacked_plain(x, packed_all, scales_all, layer, group: int = GROUP,
-                              return_planes: bool = False, fmt: Optional[str] = None):
-    """The kernel's arithmetic in PyTorch (f32 per-group dots, scaled, summed
-    over groups in order, cast to x's dtype)."""
-    *lead, K = x.shape
-    p, s = packed_all[layer], scales_all[layer].to(torch.float32)
-    Nh = p.shape[-1]
-    lo, hi = _unpack_planes(p, fmt)
-    x2 = x.reshape(-1, K).to(torch.float32)
-    acc_lo = torch.zeros((x2.shape[0], Nh), dtype=torch.float32, device=x.device)
+def ksplit_block(K: int, block_k: int, group: int = GROUP) -> int:
+    """The contraction block a call runs with, by the JAX package's rule
+    (int4_matmul.py:460-462): block_k, or INT4_BK when it is 0; 0 (the whole
+    K) where that block does not divide K or is not a multiple of the group."""
+    bk = block_k or INT4_BK
+    if bk and (K % bk or bk % group):
+        return 0
+    return bk
+
+
+def _group_sums(x2, lo, hi, s, g0, g1, group, Nh):
+    """f32 sums over scale groups [g0, g1) in order, from zero: (lo, hi)."""
+    acc_lo = torch.zeros((x2.shape[0], Nh), dtype=torch.float32, device=x2.device)
     acc_hi = torch.zeros_like(acc_lo)
-    for g in range(K // group):
+    for g in range(g0, g1):
         rows = slice(g * group, (g + 1) * group)
         xg = x2[:, rows]
         acc_lo = acc_lo + (xg @ lo[rows].to(torch.float32)) * s[g, :Nh]
         acc_hi = acc_hi + (xg @ hi[rows].to(torch.float32)) * s[g, Nh:]
+    return acc_lo, acc_hi
+
+
+def int4_matmul_stacked_plain(x, packed_all, scales_all, layer, group: int = GROUP,
+                              return_planes: bool = False, fmt: Optional[str] = None,
+                              block_k: int = 0):
+    """The kernel's arithmetic in PyTorch (f32 per-group dots, scaled, summed
+    over groups in order, cast to x's dtype); with a block_k that splits K
+    (`ksplit_block`), the K-split's (`int4_matmul_stacked_ksplit_plain`)."""
+    *lead, K = x.shape
+    bk = ksplit_block(K, block_k, group) if block_k else 0
+    if bk:
+        return int4_matmul_stacked_ksplit_plain(x, packed_all, scales_all, layer, bk, group,
+                                                return_planes, fmt)
+    p, s = packed_all[layer], scales_all[layer].to(torch.float32)
+    Nh = p.shape[-1]
+    lo, hi = _unpack_planes(p, fmt)
+    x2 = x.reshape(-1, K).to(torch.float32)
+    acc_lo, acc_hi = _group_sums(x2, lo, hi, s, 0, K // group, group, Nh)
+    lo_out = acc_lo.to(x.dtype).reshape(*lead, Nh)
+    hi_out = acc_hi.to(x.dtype).reshape(*lead, Nh)
+    if return_planes:
+        return lo_out, hi_out
+    return torch.cat([lo_out, hi_out], dim=-1)
+
+
+def int4_matmul_stacked_ksplit_plain(x, packed_all, scales_all, layer, block_k: int,
+                                     group: int = GROUP, return_planes: bool = False,
+                                     fmt: Optional[str] = None):
+    """`_kernel_stacked_ksplit`'s arithmetic (int4_matmul.py:393-421): for
+    each K block of block_k rows, in order, a fresh f32 sum over its scale
+    groups in order, added into an f32 accumulator; one cast at the end.
+    block_k must divide K and be a multiple of the group."""
+    *lead, K = x.shape
+    if block_k <= 0 or K % block_k or block_k % group:
+        raise ValueError(f"block_k={block_k} must divide K={K} and be a multiple of {group}")
+    p, s = packed_all[layer], scales_all[layer].to(torch.float32)
+    Nh = p.shape[-1]
+    lo, hi = _unpack_planes(p, fmt)
+    x2 = x.reshape(-1, K).to(torch.float32)
+    gpb = block_k // group
+    acc_lo = torch.zeros((x2.shape[0], Nh), dtype=torch.float32, device=x.device)
+    acc_hi = torch.zeros_like(acc_lo)
+    for g0 in range(0, K // group, gpb):
+        blk_lo, blk_hi = _group_sums(x2, lo, hi, s, g0, g0 + gpb, group, Nh)
+        acc_lo = acc_lo + blk_lo
+        acc_hi = acc_hi + blk_hi
     lo_out = acc_lo.to(x.dtype).reshape(*lead, Nh)
     hi_out = acc_hi.to(x.dtype).reshape(*lead, Nh)
     if return_planes:
@@ -170,9 +237,11 @@ def decode_split(M: int, K: int, Nh: int, group: int = GROUP):
 
 
 def int4_matmul_stacked_cuda(x, packed_all, scales_all, layer, group: int = GROUP,
-                             return_planes: bool = False, fmt: Optional[str] = None):
-    """Launch the kernel (same arguments as the plain version)."""
-    global launches
+                             return_planes: bool = False, fmt: Optional[str] = None,
+                             block_k: int = 0):
+    """Launch the kernel (same arguments as the plain version): the K-split
+    launch where block_k splits K (`ksplit_block`), else the whole-K one."""
+    global launches, launches_ksplit
     name = "int4_matmul_stacked"
     _cuda.require_cuda(name, x, packed_all, scales_all)
     code = FMT_CODE[_fmt(fmt)]
@@ -203,7 +272,17 @@ def int4_matmul_stacked_cuda(x, packed_all, scales_all, layer, group: int = GROU
     else:
         out = torch.empty((M, N), dtype=x.dtype, device=x.device)
         ldo, hi_off = N, Nh
-    mc, gps, ksplit = decode_split(M, K, Nh) if M <= DECODE_MAX_M else (0, 0, 1)
+    bk = ksplit_block(K, block_k) if block_k else 0
+    gpb = bk // GROUP if M > DECODE_MAX_M else 0
+    if M > DECODE_MAX_M:
+        mc, gps, ksplit = 0, 0, 1
+    elif bk:  # the decode shape's blocks along K are the K blocks
+        mc, gps, ksplit = decode_split(M, K, Nh)[0], bk // GROUP, K // bk
+        if 4 * (mc * bk + 8 * mc * 256) > _SMEM_MAX:
+            raise ValueError(f"{name}: block_k={bk} leaves the decode shape's x rows and "
+                             f"partials ({mc} rows) past {_SMEM_MAX} bytes of shared memory")
+    else:
+        mc, gps, ksplit = decode_split(M, K, Nh)
     mz = -(-M // mc) if mc else 0
     if ksplit > 1:
         ws = torch.empty((mz, ksplit, mc, N), dtype=torch.float32, device=x.device)
@@ -213,21 +292,29 @@ def int4_matmul_stacked_cuda(x, packed_all, scales_all, layer, group: int = GROU
         ws_ptr = cnt_ptr = None
     err = _cuda.library().al_int4_matmul(
         x2.data_ptr(), M, K, p.data_ptr(), Nh, s.data_ptr(), code, out.data_ptr(), ldo, hi_off,
-        ws_ptr, cnt_ptr, mc, gps, ksplit, _cuda.stream_handle(x),
+        ws_ptr, cnt_ptr, mc, gps, ksplit, gpb, _cuda.stream_handle(x),
     )
     _cuda.check(err, name)
-    launches += 1
+    if bk:
+        launches_ksplit += 1
+    else:
+        launches += 1
     if return_planes:
         return out[0].reshape(*lead, Nh), out[1].reshape(*lead, Nh)
     return out.reshape(*lead, N)
 
 
 def int4_matmul_stacked(x, packed_all, scales_all, layer, group: int = GROUP,
-                        return_planes: bool = False, fmt: Optional[str] = None):
+                        return_planes: bool = False, fmt: Optional[str] = None,
+                        block_k: int = 0):
     """x [..., K] @ dequant(packed_all[layer]) -> [..., N] in x's dtype, or
     the (lo, hi) column-half planes [..., N/2] each with `return_planes`.
-    The kernel on CUDA tensors, the plain version on CPU tensors."""
+    block_k (0: the INT4_BK default) splits the contraction where it divides
+    K (`ksplit_block`). The kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    bk = ksplit_block(x.shape[-1], block_k, group)
     if x.device.type == "cpu":
         return int4_matmul_stacked_plain(x, packed_all, scales_all, layer, group,
-                                         return_planes, fmt)
-    return int4_matmul_stacked_cuda(x, packed_all, scales_all, layer, group, return_planes, fmt)
+                                         return_planes, fmt, bk)
+    return int4_matmul_stacked_cuda(x, packed_all, scales_all, layer, group, return_planes, fmt,
+                                    bk)

@@ -560,6 +560,13 @@ COUNTERS = {
     "enc_attention_v3q": ("enc_attention", "launches_v3q"),
     "enc_attention_bounded": ("enc_attention", "launches_bounded"),
     "enc_attention_twopass": ("enc_attention", "launches_twopass"),
+    "causal_attention_cond": ("causal_attention", "launches_cond"),
+    "causal_attention_bounded": ("causal_attention", "launches_bounded"),
+    "causal_attention_bounded_cond": ("causal_attention", "launches_bounded_cond"),
+    "causal_attention_twopass": ("causal_attention", "launches_twopass"),
+    "causal_attention_dma": ("causal_attention", "launches_dma"),
+    "causal_attention_dma2": ("causal_attention", "launches_dma2"),
+    "int4_matmul_stacked_ksplit": ("int4_matmul", "launches_ksplit"),
 }
 
 
@@ -1183,10 +1190,15 @@ KERNEL_PATH = {
     "decode_attention_quantized4_db": "ab_db_int4", "decode_attention_packed": "ab_packed_int8",
     "enc_attention_v3q": "enc8_v3q", "enc_attention_bounded": "enc8_bounded",
     "enc_attention_twopass": "enc8_twopass",
+    "causal_attention_cond": "causal_variants", "causal_attention_bounded": "causal_variants",
+    "causal_attention_twopass": "causal_variants", "causal_attention_dma": "causal_variants",
+    "causal_attention_dma2": "causal_variants", "int4_matmul_stacked_ksplit": "int4_ksplit",
 }
-# a row whose kernel serves several counters (its cache formats) sums them
+# a row whose kernel serves several counters (its cache formats, its modes) sums them
 ROW_COUNTERS = {"decode_attention_packed": ("decode_attention_packed",
-                                            "decode_attention_quantized_packed")}
+                                            "decode_attention_quantized_packed"),
+                "causal_attention_bounded": ("causal_attention_bounded",
+                                             "causal_attention_bounded_cond")}
 
 AUDIO_START, AUDIO_END, EOS = 128256, 128257, 128001  # resized vocab rows; Llama-3 <|end_of_text|>
 N_NEW, PROMPT = 32, 24
@@ -1409,7 +1421,7 @@ def int4_path(dev, profile: bool = False):
     log(json.dumps({"int4_path": stats}))
     if profile:
         path_profile(run, "int4w+kv4, B=4")
-    return launches, (cfg, frozen, trainable)
+    return launches, (cfg, frozen, trainable), dict(ids=ids, mask=mask, wav=wav)
 
 
 def cli_path(dev, model) -> None:
@@ -3887,6 +3899,558 @@ def host_check_enc8(dev) -> None:
         "tol_rel_l2": HOST_TOL, "seconds": time.perf_counter() - t0}}))
 
 
+# ---------------------------------------------------------------------------
+# phase 18: causal_mha's forward variants and the K-split W4A16 (INT4_BK)
+# ---------------------------------------------------------------------------
+
+VARIANT_ROWS = {  # kernel row -> (fwd_impl, softmax_mode, TPU kernel it replaces, source)
+    "causal_attention_cond": ("blocks_cond", "online",
+                              "audio_llama_tpu/ops/causal_attention.py:101 (tri='cond')",
+                              "audio_llama_tpu_torch/csrc/causal_attention.cu"),
+    "causal_attention_bounded": ("blocks", "bounded",
+                                 "audio_llama_tpu/ops/causal_attention.py:101 "
+                                 "(softmax='bounded')",
+                                 "audio_llama_tpu_torch/csrc/causal_attention_fixed.cu"),
+    "causal_attention_twopass": ("blocks", "twopass", "audio_llama_tpu/ops/causal_attention.py:188",
+                                 "audio_llama_tpu_torch/csrc/causal_attention_fixed.cu"),
+    "causal_attention_dma": ("dma", "bounded", "audio_llama_tpu/ops/causal_attention.py:250",
+                             "audio_llama_tpu_torch/csrc/causal_attention_dma.cu"),
+    "causal_attention_dma2": ("dma2", "bounded", "audio_llama_tpu/ops/causal_attention.py:321",
+                              "audio_llama_tpu_torch/csrc/causal_attention_dma.cu"),
+}
+# the bounded row also runs under blocks_cond (its own counter, summed in the row)
+VARIANT_ARMS = [(v[0], v[1]) for v in VARIANT_ROWS.values()] + [("blocks_cond", "bounded")]
+VARIANT_T, VARIANT_REAL = 2560, 2014  # experiments/causal_dma_bench.py's T; train A's tokens
+ATOL_ROW_RMS_FRAC.update({n: ATOL_ROW_RMS_FRAC["causal_attention"] for n in VARIANT_ROWS})
+ATOL_ROW_RMS_FRAC["int4_matmul_stacked_ksplit"] = ATOL_ROW_RMS_FRAC["int4_matmul_stacked"]
+STAT_BARS = (("l", 0.0, 2.0 ** -8), ("m", 1e-4, 1e-5))  # row 3's bars on l and the shift
+
+
+def variant_case(dev, gen, B):
+    """The JAX package's A/B geometry (Llama-3.2-3B attention, T 2560, bf16):
+    qs pre-scaled [B, T, 24, 128], k/v [B, T, 8, 128], the last batch row's
+    keys padded from VARIANT_REAL, the key bias, kn."""
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+
+    T, real = VARIANT_T, VARIANT_REAL
+    lc = full_config().llama
+    Hq, Hkv, hd, bf = lc.num_heads, lc.num_kv_heads, lc.head_dim, torch.bfloat16
+    qs = (torch.randn((B, T, Hq, hd), generator=gen, device=dev).to(bf)
+          * torch.tensor(hd ** -0.5, dtype=bf, device=dev))
+    k, v = (torch.randn((B, T, Hkv, hd), generator=gen, device=dev).to(bf) for _ in range(2))
+    mask = torch.ones(B, T, dtype=torch.int32, device=dev)
+    mask[-1, real:] = 0
+    key_bias = torch.where(mask != 0, torch.zeros((), device=dev), ca.NEG)
+    return dict(qs=qs, k=k, v=v, mask=mask, key_bias=key_bias, kn=ca.key_norm_max(k))
+
+
+def variant_call(name, case, cuda=True, **over):
+    """One call of a variant's kernel (or its plain version) -> CausalOut;
+    `over` replaces inputs of the case (a fault plants others)."""
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+
+    c = {**case, **over}
+    fwd_impl, softmax = VARIANT_ROWS[name][:2] if name in VARIANT_ROWS else name
+    plain, kernel = ca.variant_forward(fwd_impl, softmax)
+    return (kernel if cuda else plain)(c["qs"], c["k"], c["v"], c["key_bias"], c["kn"])
+
+
+def variant_reference(case, visible, softmax, kn=None, max_keys=None, v_next=False):
+    """A variant's arithmetic in f32 for a key visibility [T, T]: the faulty
+    functions the planted faults stand for. 'online' / 'twopass' shift by the
+    row max (over `max_keys` only, if given), 'bounded' by ||q|| kn; v_next:
+    the keys below a row's diagonal tile meet the V rows one tile (64 keys)
+    later, as a PV that reads tile j+1's stage."""
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+
+    qs, k, v, key_bias = case["qs"], case["k"], case["v"], case["key_bias"]
+    B, T, Hq, hd = qs.shape
+    Hkv = k.shape[2]
+    qg = qs.float().reshape(B, T, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) + key_bias[:, None, None, None, :]
+    s = s.masked_fill(~visible, ca.NEG)
+    if softmax == "bounded":
+        c = ca.row_bound(qs, case["kn"] if kn is None else kn)
+        p = torch.exp(s - c)
+        l = p.sum(-1, keepdim=True)
+        p = p.to(v.dtype).float()
+    else:
+        c = (s if max_keys is None else s.masked_fill(~max_keys, ca.NEG)).amax(-1, keepdim=True)
+        p = torch.exp(s - c).to(v.dtype).float()
+        l = p.sum(-1, keepdim=True)
+    del s
+    if v_next:
+        t = torch.arange(T, device=qs.device)
+        below = (t[None, :] // 64) < (t[:, None] // 64)
+        o = (torch.einsum("bhgqk,bkhd->bqhgd", p * below, torch.roll(v, -64, dims=1).float())
+             + torch.einsum("bhgqk,bkhd->bqhgd", p * ~below, v.float()))
+    else:
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return ca._out(o, l, c.expand_as(l), qs.dtype)
+
+
+def lc_ratios(got, want, mask) -> dict:
+    """l and the shift m (c) of the valid rows against the plain version's:
+    max |got - want| / (atol + rtol |want|) with row 3's bars; pass <= 1."""
+    B, T = mask.shape
+    valid = mask != 0
+    out = {}
+    for stat, atol, rtol in STAT_BARS:
+        g = getattr(got, stat).reshape(B, -1, T).transpose(1, 2)[valid]
+        w = getattr(want, stat).reshape(B, -1, T).transpose(1, 2)[valid]
+        err, bar = (g - w).abs(), atol + rtol * w.abs()
+        ratio = torch.where(err == 0, 0.0, err / bar).max().item()
+        out["c" if stat == "m" else "l"] = ratio
+    return out
+
+
+def variant_outlier_case(dev, gen):
+    """tests/test_causal_attention.py::_outlier_setup at this geometry (B 1):
+    q, k ~ 2 N(0, 1), key 0 of every KV head a unit direction times 1500,
+    v ~ N(0, 1), no padding."""
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+
+    lc, T = full_config().llama, VARIANT_T
+    Hq, Hkv, hd, bf = lc.num_heads, lc.num_kv_heads, lc.head_dim, torch.bfloat16
+    q = torch.randn((1, T, Hq, hd), generator=gen, device=dev) * 2.0
+    k = torch.randn((1, T, Hkv, hd), generator=gen, device=dev) * 2.0
+    d = torch.randn((hd,), generator=gen, device=dev)
+    k[:, 0] = d / d.norm() * 1500.0
+    v = torch.randn((1, T, Hkv, hd), generator=gen, device=dev)
+    k = k.to(bf)
+    return dict(qs=(q * hd ** -0.5).to(bf), k=k, v=v.to(bf),
+                mask=torch.ones(1, T, dtype=torch.int32, device=dev),
+                key_bias=torch.zeros(1, T, device=dev), kn=ca.key_norm_max(k))
+
+
+def causal_variant_checks(dev, gen):
+    """Phase 18 (a): the forward variants' kernels (cond online, bounded
+    under blocks and blocks_cond, twopass, dma, dma2) at T 2560 (2014 real
+    in the last row), Hq 24, Hkv 8, hd 128, B 2 and 8 against their plain
+    versions: o on the valid rows within row 3's bar, l and c within row 3's
+    l / m bars; cond == always and bounded-cond, dma, dma2 == bounded bit
+    for bit; two launches bit-equal; planted faults (cond: the diagonal tile
+    left unmasked; twopass: its last valid tile left out of pass 1; bounded:
+    kn over the valid keys only, and kn of KV head h % Hkv for h // G; dma:
+    the diagonal tile not fetched; dma2: tile j's PV read from tile j+1's V
+    stage); the outlier input; timed by CUPTI at B 2 and 8 beside the plain
+    version and SDPA (causal, GQA, no padding mask)."""
+    import torch.nn.functional as F
+
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+
+    rows, T = [], VARIANT_T
+    lc = full_config().llama
+    Hq, Hkv, hd = lc.num_heads, lc.num_kv_heads, lc.head_dim
+    t = torch.arange(T, device=dev)
+    causal = t[None, :] <= t[:, None]
+    diag = (t[None, :] // 64) == (t[:, None] // 64)
+    results = {n: dict(checks={}) for n in VARIANT_ROWS}
+    for B in (2, 8):
+        case = variant_case(dev, gen, B)
+        valid = case["mask"] != 0
+        always = ca.causal_attention_cuda(case["qs"], case["k"], case["v"], case["key_bias"])
+        got = {}
+        for name in list(VARIANT_ROWS) + [("blocks_cond", "bounded")]:
+            out = variant_call(name, case)
+            label = name if isinstance(name, str) else "causal_attention_bounded (blocks_cond)"
+            row = label.split(" ")[0]
+            if not all(torch.equal(a, b) for a, b in zip(out, variant_call(name, case))):
+                raise AssertionError(f"{label}: two launches differ")
+            want = variant_call(name, case, cuda=False)
+            err, ratio = check_close(f"{label} B={B}", out.o[valid], want.o[valid],
+                                     ATOL_ROW_RMS_FRAC[row])
+            stats = lc_ratios(out, want, case["mask"])
+            if max(stats.values()) > 1:
+                raise AssertionError(f"{label} B={B}: l or c outside row 3's bars {stats}")
+            results[row]["checks"][f"B={B}" + (" blocks_cond" if label != row else "")] = dict(
+                max_abs_err=err, tol_ratio=ratio, l_ratio=stats["l"], c_ratio=stats["c"])
+            got[label] = out
+            del want
+        same = {"causal_attention_cond": always,
+                "causal_attention_bounded (blocks_cond)": got["causal_attention_bounded"],
+                "causal_attention_dma": got["causal_attention_bounded"],
+                "causal_attention_dma2": got["causal_attention_bounded"]}
+        for label, ref in same.items():
+            if not all(torch.equal(a, b) for a, b in zip(got[label], ref)):
+                raise AssertionError(f"{label} B={B}: not bit-equal to its blocks kernel")
+        if B == 2:
+            faults = {n: {} for n in VARIANT_ROWS}
+
+            def o_fault(name, fault, want, rows_from=0):
+                v = valid.clone()
+                v[:, :rows_from] = False
+                faults[name][fault] = must_reject(name, fault, got[name].o[v], want.o[v],
+                                                  ATOL_ROW_RMS_FRAC[name])
+
+            def c_fault(name, fault, out, want, rows_from=0):  # the shift must leave its bar
+                m = case["mask"].clone()
+                m[:, :rows_from] = 0
+                r = lc_ratios(out, want, m)
+                if not r["c"] > 1:
+                    raise AssertionError(f"{name}: planted fault '{fault}' passes the c bar {r}")
+                faults[name][fault] = r
+
+            o_fault("causal_attention_cond", "diagonal tile left unmasked",
+                    variant_reference(case, causal | diag, "online"))
+            c_fault("causal_attention_twopass", "last valid tile skipped in pass 1",
+                    got["causal_attention_twopass"],
+                    variant_reference(case, causal, "twopass", max_keys=causal & ~diag),
+                    rows_from=64)  # tile 0's rows have no other tile: their max is -1e9
+            big = case["k"].clone()
+            big[-1, VARIANT_REAL + 7] *= 3  # a padded key with the largest norm
+            planted = {**case, "k": big, "kn": ca.key_norm_max(big)}
+            c_fault("causal_attention_bounded", "kn over the valid keys only",
+                    variant_call("causal_attention_bounded", planted),
+                    variant_call("causal_attention_bounded", planted, cuda=False,
+                                 kn=ca.key_norm_max(big * valid[:, :, None, None])))
+            qn = case["qs"].float().pow(2).sum(-1).sqrt()  # [B, T, Hq]
+            kv_of = torch.arange(Hq, device=dev) % Hkv  # for h // G
+            bounded = got["causal_attention_bounded"]
+            c_fault("causal_attention_bounded", "kn of KV head h % Hkv (not h // G)", bounded,
+                    bounded._replace(m=(qn * case["kn"][:, None, kv_of]).transpose(1, 2)
+                                     .reshape(B * Hq, T)))
+            o_fault("causal_attention_dma", "diagonal tile not fetched",
+                    variant_reference(case, causal & ~diag, "bounded"),
+                    rows_from=64)  # tile 0's rows would see no key at all
+            o_fault("causal_attention_dma2", "tile j's PV read from tile j+1's V stage",
+                    variant_reference(case, causal, "bounded", v_next=True))
+            for name in VARIANT_ROWS:
+                results[name]["planted_fault_ratios"] = faults[name]
+            log(f"causal variants: planted faults rejected: {json.dumps(faults)}")
+        flops = 4.0 * hd * Hq * B * T * (T + 1) / 2
+        nbytes = 2.0 * B * T * hd * (2 * Hq + 2 * Hkv) + 4.0 * B * T * (1 + 2 * Hq) + 4.0 * B * Hkv
+        bms, bby = bound(flops, nbytes)
+        qh, kh, vh = (case[n].transpose(1, 2).contiguous() for n in ("qs", "k", "v"))
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                              scale=1.0, enable_gqa=True))
+        suffix = "" if B == 2 else f"_b{B}"
+        for name in VARIANT_ROWS:
+            results[name].update({
+                "ms" + suffix: time_ms(lambda: variant_call(name, case)),
+                "plain_ms" + suffix: time_ms(lambda: variant_call(name, case, cuda=False),
+                                             iters=3, warmup=1),
+                "library_ms" + suffix: sdpa, "bound_ms" + suffix: bms, "bound_by" + suffix: bby})
+        results["causal_attention_bounded"]["ms_blocks_cond" + suffix] = time_ms(
+            lambda: variant_call(("blocks_cond", "bounded"), case))
+        results["causal_attention_cond"]["ms_always" + suffix] = time_ms(
+            lambda: ca.causal_attention_cuda(case["qs"], case["k"], case["v"], case["key_bias"]))
+        del case, got, always, qh, kh, vh
+        torch.cuda.empty_cache()
+    # the outlier input: the bounded family zeroes the rows its plain version
+    # zeroes; twopass and cond stay within the bar of online
+    case = variant_outlier_case(dev, gen)
+    online = ca.causal_attention_cuda(case["qs"], case["k"], case["v"], case["key_bias"])
+    zero_want = (variant_call("causal_attention_bounded", case, cuda=False).o == 0).all(dim=-1)
+    for name in VARIANT_ROWS:
+        out = variant_call(name, case)
+        if name in ("causal_attention_twopass", "causal_attention_cond"):
+            ratio = check_close(f"{name} on outlier keys vs online", out.o, online.o,
+                                ATOL_ROW_RMS_FRAC[name])[1]
+            results[name]["outlier_tol_ratio_vs_online"] = ratio
+        else:
+            zero = (out.o == 0).all(dim=-1)
+            if not torch.equal(zero, zero_want) or not zero.any():
+                raise AssertionError(f"{name}: zeroes {int(zero.sum())} rows on outlier keys, "
+                                     f"its plain version {int(zero_want.sum())}")
+            results[name]["outlier_rows_zeroed"] = f"{int(zero.sum())} of {zero.numel()}"
+    del case, online
+    for name, (fwd_impl, softmax, replaces, source) in VARIANT_ROWS.items():
+        r = results[name]
+        worst = max((c["tol_ratio"], c["max_abs_err"]) for c in r.pop("checks").values())
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            fwd_impl=fwd_impl, softmax_mode=softmax, max_abs_err=worst[1], tol_ratio=worst[0],
+            tol={**tol_entry(ATOL_ROW_RMS_FRAC[name]), "l": "rtol 2^-8", "c": "atol 1e-4 + "
+                 "rtol 1e-5"}, launches=None,
+            shapes=f"qs[B,{T},{Hq},{hd}] k/v[B,{T},{Hkv},{hd}] bf16, last row's keys from "
+                   f"{VARIANT_REAL} padded; B 2 (ms) and 8 (ms_b8)",
+            notes="library_ms: SDPA(is_causal, enable_gqa), no padding mask", **r))
+        log(f"kernel {name} ok: {json.dumps(rows[-1])}")
+    return rows
+
+
+def flip_budget(qs, k, v, key_bias, o, l, m, do):
+    """One bf16 rounding flip of the largest term of each gradient sum: dq_i =
+    sum_j bf16(dS_ij) k_j, dk_j = sum_i bf16(dS_ij) qs_i, dv_j = sum_i
+    bf16(P_ij) dO_i. A flip moves a term by one bf16 ulp, at most 2^-7 of it.
+    In a query row of the first tile P sits on a few keys, |dS| reaches 4-8,
+    and one flip (the kernel and the plain version on either side of a
+    rounding boundary, their P 1e-7..1e-6 apart) exceeds 2e-2 of the slab's
+    RMS (PERF.md, PR 9). -> (dq, dk, dv) budgets broadcastable to the
+    gradients."""
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+
+    B, T, Hq, hd = qs.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = qs.float().reshape(B, T, Hkv, G, hd)
+    s = ca._scores(qg, k, key_bias, "always")
+    lq = l.reshape(B, Hkv, G, T, 1)
+    p = torch.exp(s - m.reshape(B, Hkv, G, T, 1)) * torch.where(
+        lq > 0, 1.0 / torch.where(lq > 0, lq, 1.0), 0.0)
+    del s
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do.float().reshape(B, T, Hkv, G, hd), v.float())
+    d = ca.attention_bwd_prologue(o, do).reshape(B, Hkv, G, T, 1)
+    ds = (p * (dp - d)).abs()
+    del dp
+    kmax = k.float().abs().amax(dim=(1, 3))  # [B, Hkv]
+    qmax = qg.abs().amax(dim=(1, 3, 4))
+    domax = do.float().abs().reshape(B, T, Hkv, G, hd).amax(dim=(1, 3, 4))
+    fq = (ds.amax(-1) * kmax[:, :, None, None]).reshape(B, Hq, T).transpose(1, 2)[..., None]
+    fk = (ds.amax(dim=(2, 3)) * qmax[:, :, None]).transpose(1, 2)[..., None]
+    fv = (p.amax(dim=(2, 3)) * domax[:, :, None]).transpose(1, 2)[..., None]
+    return tuple(BF16_ULP * f for f in (fq, fk, fv))
+
+
+def grad_ratios(got, want, frac, budget) -> dict:
+    """rows 11-12's ratio (atol frac x the (batch, head) slab's RMS + 2^-7
+    |want|) and the checked one, whose bar also admits `budget`."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bar = frac * want.pow(2).mean(dim=GRAD_RMS_DIMS, keepdim=True).sqrt() + BF16_ULP * want.abs()
+    plain = torch.where(err == 0, 0.0, err / bar).max().item()
+    flip = torch.where(err == 0, 0.0, err / (bar + budget)).max().item()
+    return dict(max_abs_err=err.max().item(), ratio_rows_11_12_bar=plain,
+                ratio_with_one_flip=flip, worst_row=int(err.argmax()) // got[0, 0].numel()
+                % got.shape[1])
+
+
+def causal_variant_path(dev, gen) -> dict:
+    """Phase 18 (b): `causal_mha(fwd_impl=..., softmax_mode=...)` forward and
+    backward through autograd for every variant arm at B 2, T 2560, the
+    counters zeroed just before and read just after: one forward launch of
+    each variant's kernel, one dq and one dk/dv a call, no online 'always'
+    forward. Then dq, dk, dv of twopass, bounded and dma2 against the plain
+    backward on the kernel's residuals: rows 11-12's bar plus one bf16
+    rounding flip of each sum's largest term (`flip_budget`), with the ratio
+    to rows 11-12's bar alone reported beside it; fwd+bwd time of each arm by
+    CUDA events."""
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+
+    B, T, bf = 2, VARIANT_T, torch.bfloat16
+    lc = full_config().llama
+    Hq, Hkv, hd = lc.num_heads, lc.num_kv_heads, lc.head_dim
+    q = torch.randn((B, T, Hq, hd), generator=gen, device=dev).to(bf)
+    k, v = (torch.randn((B, T, Hkv, hd), generator=gen, device=dev).to(bf) for _ in range(2))
+    do = torch.randn((B, T, Hq, hd), generator=gen, device=dev).to(bf)
+    mask = torch.ones(B, T, dtype=torch.int32, device=dev)
+    mask[-1, VARIANT_REAL:] = 0
+
+    def fwd_bwd(fwd_impl, softmax):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = ca.causal_mha(*leaves, mask, fwd_impl=fwd_impl, softmax_mode=softmax)
+        return torch.autograd.grad(o, leaves, do)
+
+    torch.cuda.synchronize()
+    zero_counters()
+    grads = {arm: fwd_bwd(*arm) for arm in VARIANT_ARMS}
+    torch.cuda.synchronize()
+    launches = read_counters()
+    n = len(VARIANT_ARMS)
+    want = {"causal_attention_cond": 1, "causal_attention_bounded": 1,
+            "causal_attention_bounded_cond": 1, "causal_attention_twopass": 1,
+            "causal_attention_dma": 1, "causal_attention_dma2": 1, "causal_attention": 0,
+            "causal_attention_dq": n, "causal_attention_dkv": n}
+    for name, count in want.items():
+        if launches[name] != count:
+            raise AssertionError(f"causal variants: {name} launched {launches[name]} times, "
+                                 f"want {count}")
+    scale = torch.tensor(hd ** -0.5, dtype=bf, device=dev)
+    qs = q * scale
+    key_bias = torch.where(mask != 0, torch.zeros((), device=dev), ca.NEG)
+    kn = ca.key_norm_max(k)
+    checked = {}
+    for arm in (("blocks", "twopass"), ("blocks", "bounded"), ("dma2", "bounded")):
+        res = ca.variant_forward(*arm)[1](qs, k, v, key_bias, kn)
+        wq, wk, wv = ca.causal_attention_bwd_plain(qs, k, v, key_bias, res.o, res.l, res.m, do)
+        budgets = flip_budget(qs, k, v, key_bias, res.o, res.l, res.m, do)
+        budgets = (budgets[0] * scale.float(),) + budgets[1:]  # dq = dqs x the scale
+        checked["/".join(arm)] = r = {}
+        for g, got, w, budget in zip("qkv", grads[arm], (wq * scale, wk, wv), budgets):
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"causal_mha {arm} d{g}: non-finite gradient")
+            r[g] = grad_ratios(got, w, ATOL_ROW_RMS_FRAC[
+                "causal_attention_dq" if g == "q" else "causal_attention_dkv"], budget)
+            if r[g]["ratio_with_one_flip"] > 1:
+                raise AssertionError(f"causal_mha {arm} d{g}: outside rows 11-12's bar plus one "
+                                     f"bf16 flip: {r[g]}")
+        del res, wq, wk, wv, budgets
+    fwd_bwd_ms = {"/".join(arm): events_ms(lambda: fwd_bwd(*arm), iters=5, warmup=1)
+                  for arm in VARIANT_ARMS + [("blocks", "online")]}
+    log(json.dumps({"causal_variant_path": dict(
+        label="causal_mha fwd+bwd per variant arm", batch=B, T=T, real=VARIANT_REAL,
+        launches=launches, grads_vs_plain_backward=checked, fwd_bwd_ms_events=fwd_bwd_ms)}))
+    return launches
+
+
+def ksplit_kernel_checks(dev, gen):
+    """Phase 18 (c): the K-split W4A16 launch at block_k 768 and 1536, both
+    pack formats, at decode q|k|v (M 4, K 3072, N 5120) and prefill gate|up
+    (M 6104, N 16384) against the K-split plain version; planted faults (the
+    last K block dropped; every K block read with block 0's scales); K 8192
+    (the down projection) falls back to the whole-K launch bit for bit; timed
+    beside the whole-K launch and a bf16 matmul on the dequantized weight."""
+    from audio_llama_tpu_torch.ops import int4_matmul as i4
+
+    cfg = full_config()
+    lc = cfg.llama
+    B = len(INT4_PROMPTS)
+    M_pre = B * (cfg.audio_seq_len + 2 + max(INT4_PROMPTS))
+    L, D, Fd, bf = lc.num_layers, lc.hidden_size, lc.intermediate_size, torch.bfloat16
+    Nqkv = (lc.num_heads + 2 * lc.num_kv_heads) * lc.head_dim
+    li = min(5, L - 1)
+    name = "int4_matmul_stacked_ksplit"
+    frac = ATOL_ROW_RMS_FRAC[name]
+
+    def rand_bytes(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int32
+                             ).to(torch.int8)
+
+    def rand_scales(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 0.02 + 0.002
+
+    by_shape, faults, worst = [], {}, (0.0, 0.0)
+    for label, M, K, N in (("decode q|k|v", B, D, Nqkv), ("prefill gate|up", M_pre, D, 2 * Fd)):
+        packed, scales = rand_bytes(L, K, N // 2), rand_scales(L, K // 128, N)
+        x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+        for fmt in ("pair", "obin"):
+            for bk in (768, 1536):
+                want = i4.int4_matmul_stacked_ksplit_plain(x, packed, scales, li, bk, fmt=fmt)
+                got = i4.int4_matmul_stacked_cuda(x, packed, scales, li, fmt=fmt, block_k=bk)
+                lo, hi = i4.int4_matmul_stacked_cuda(x, packed, scales, li, fmt=fmt, block_k=bk,
+                                                     return_planes=True)
+                if not torch.equal(torch.cat([lo, hi], dim=-1), got):
+                    raise AssertionError(f"{name} {label}: planes differ from the row output")
+                err, ratio = check_close(f"{name} {label} {fmt} bk {bk}", got, want, frac)
+                worst = max(worst, (ratio, err))
+                if fmt == "pair":
+                    nb, gpb = K // bk, bk // 128
+                    dropped = x.clone()
+                    dropped[:, (nb - 1) * bk:] = 0
+                    faults[f"{label} bk {bk}: the last K block dropped"] = must_reject(
+                        name, "a K block dropped", got, i4.int4_matmul_stacked_ksplit_plain(
+                            dropped, packed, scales, li, bk), frac)
+                    if nb > 1:
+                        s0 = scales.clone()
+                        s0[li] = scales[li, :gpb].repeat(nb, 1)
+                        faults[f"{label} bk {bk}: every block read with block 0's scales"] = \
+                            must_reject(name, "block 0's scales", i4.int4_matmul_stacked_cuda(
+                                x, packed, s0, li, block_k=bk), want, frac)
+                        del s0
+                    del dropped
+                del want, got, lo, hi
+        w_deq = i4.dequantize_ref(packed[li], scales[li]).to(bf)
+        flops, nbytes = 2.0 * M * K * N, K * N / 2 + (K / 128) * N * 4 + 2.0 * M * (K + N)
+        bms, bby = bound(flops, nbytes)
+        iters = 56 if M <= 64 else 10
+        turn = itertools.count()
+        shape_row = dict(shape=label, M=M, K=K, N=N, fmt="pair", bound_ms=bms, bound_by=bby)
+        for bk in (768, 1536):
+            shape_row[f"ms_bk{bk}"] = time_ms(lambda: i4.int4_matmul_stacked_cuda(
+                x, packed, scales, next(turn) % L, block_k=bk), iters=iters)
+        shape_row["ms_whole_k"] = time_ms(lambda: i4.int4_matmul_stacked_cuda(
+            x, packed, scales, next(turn) % L), iters=iters)
+        shape_row["plain_ms"] = time_ms(lambda: i4.int4_matmul_stacked_ksplit_plain(
+            x, packed, scales, li, 768), iters=10 if M <= 64 else 3)
+        shape_row["library_ms"] = time_ms(lambda: x @ w_deq, iters=iters)
+        by_shape.append(shape_row)
+        log(f"kernel {name} {label} ok: {json.dumps(shape_row)}")
+        del packed, scales, x, w_deq
+        torch.cuda.empty_cache()
+    # the down projection's K 8192 divides by neither block: the whole-K launch
+    fallback = {}
+    for M in (B, M_pre):
+        packed, scales = rand_bytes(2, Fd, D // 2), rand_scales(2, Fd // 128, D)
+        x = torch.randn((M, Fd), generator=gen, device=dev).to(bf)
+        whole = i4.int4_matmul_stacked_cuda(x, packed, scales, 1)
+        for bk in (768, 1536):
+            before = (i4.launches, i4.launches_ksplit)
+            got = i4.int4_matmul_stacked(x, packed, scales, 1, block_k=bk)
+            if (i4.launches - before[0], i4.launches_ksplit - before[1]) != (1, 0) or \
+                    not torch.equal(got, whole):
+                raise AssertionError(f"{name}: K 8192 at bk {bk}, M {M} is not the whole-K launch")
+        fallback[f"M {M}"] = "whole-K launch, bit-equal"
+        del packed, scales, x, whole, got
+    first = by_shape[0]
+    row = dict(
+        name=name, route="cuda", source="audio_llama_tpu_torch/csrc/int4_matmul.cu",
+        replaces="audio_llama_tpu/ops/int4_matmul.py:393", max_abs_err=worst[1],
+        tol=tol_entry(frac), tol_ratio=worst[0], planted_fault_ratios=faults,
+        geometry_fallback=fallback, ms=first["ms_bk768"], ms_whole_k=first["ms_whole_k"],
+        plain_ms=first["plain_ms"], library_ms=first["library_ms"], bound_ms=first["bound_ms"],
+        bound_by=first["bound_by"], launches=None,
+        shapes="the row's times are decode q|k|v (M 4) at block_k 768; by_shape has bk 1536, "
+               "prefill gate|up and the whole-K launch beside each",
+        notes="library_ms: x @ the dequantized bf16 weight (cuBLAS)", by_shape=by_shape)
+    log(f"kernel {name} ok: planted faults rejected: {faults}")
+    return [row]
+
+
+def ksplit_path(dev, model, request) -> dict:
+    """Phase 18 (d): the int4 path's model and request (int4w+kv4, B = 4) with
+    INT4_BK = 768 for the run (restored after), the JAX package's round-5
+    decode arm: 32 greedy tokens with the counters zeroed around them
+    (K-split launches for every q|k|v, o and prefill gate|up call, whole-K for
+    the prefill down projection's K 8192); the first decode step's logits
+    within rel-L2 HOST_TOL of the whole-K run's; decode time per token beside
+    the whole-K run's, both in this call."""
+    from audio_llama_tpu_torch.inference.generate import generate
+    from audio_llama_tpu_torch.ops import int4_matmul as i4
+
+    cfg, frozen, trainable = model
+    ids, mask, wav = request["ids"], request["mask"], request["wav"]
+    B, L = ids.shape[0], cfg.llama.num_layers
+    kw = dict(eos_id=EOS, pad_id=0, audio_start_id=AUDIO_START, audio_end_id=AUDIO_END,
+              compute_dtype=torch.bfloat16, device=dev, kv_quant=4, greedy=True)
+
+    def run(n):
+        return generate(frozen, trainable, cfg, ids, mask, wav, None, max_new_tokens=n, **kw)
+
+    def timed():
+        run(2)
+        first_ms = min(synced_ms(lambda: run(1)) for _ in range(2))
+        return first_ms, synced_ms(lambda: run(N_NEW))
+
+    saved = i4.INT4_BK
+    i4.INT4_BK = 0
+    whole_first, whole_total = timed()
+    whole = first_step_logits(frozen, trainable, cfg, ids, mask, wav, 4)
+    try:
+        i4.INT4_BK = 768
+        split_first, _ = timed()
+        zero_counters()
+        result = {}
+        total_ms = synced_ms(lambda: result.setdefault("out", run(N_NEW)))
+        launches = read_counters()
+        split = first_step_logits(frozen, trainable, cfg, ids, mask, wav, 4)
+    finally:
+        i4.INT4_BK = saved
+    toks = result["out"].tokens
+    check_tokens("int4 K-split", toks, (B, N_NEW), cfg.llama.vocab_size + 2)
+    want = {"int4_matmul_stacked_ksplit": 3 * L + 2 * L * (N_NEW - 1),
+            "int4_matmul_stacked": L, "mlp_int4_stacked": L * (N_NEW - 1),
+            "decode_attention_quantized4_mono": L * (N_NEW - 1)}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"int4 K-split: {name} launched {launches[name]} times, "
+                                 f"want {n}")
+    rel = rel_l2(split, whole)
+    if not (torch.isfinite(split).all() and rel <= HOST_TOL):
+        raise AssertionError(f"int4 K-split: first decode step's logits rel-L2 {rel} vs the "
+                             f"whole-K run (bar {HOST_TOL})")
+    stats = dict(
+        label="int4w+kv4, B=4, INT4_BK=768", batch=B, new_tokens=N_NEW,
+        decode_ms_per_token=(total_ms - split_first) / (N_NEW - 1),
+        whole_k_decode_ms_per_token=(whole_total - whole_first) / (N_NEW - 1),
+        prefill_ms_with_encode=split_first, whole_k_prefill_ms_with_encode=whole_first,
+        first_step_logits_rel_l2_vs_whole_k=rel, tol_rel_l2=HOST_TOL,
+        first_step_argmax_agree=(split.argmax(-1) == whole.argmax(-1)).float().mean().item(),
+        tokens=toks.tolist(), launches=launches)
+    log(json.dumps({"ksplit_path": stats}))
+    return launches
+
+
 # bf16 activations through 2 + 2 layers against an f32 host path: each bf16
 # rounding is <= 2^-9 relative, a few dozen of them compound to ~1e-2
 HOST_TOL = 2e-2
@@ -3937,14 +4501,21 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows += enc_kernel_checks(dev, gen)
     torch.cuda.empty_cache()
+    rows += causal_variant_checks(dev, gen)
+    torch.cuda.empty_cache()
+    rows += ksplit_kernel_checks(dev, gen)
+    torch.cuda.empty_cache()
     paths = enc8_path(dev)
+    paths["causal_variants"] = causal_variant_path(dev, gen)
+    torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     paths["bf16"], ab = main_path(dev, profile=args.profile)
     paths.update(ab)
     torch.cuda.empty_cache()
-    paths["int4"], model = int4_path(dev, profile=args.profile)
+    paths["int4"], model, request = int4_path(dev, profile=args.profile)
     cli_path(dev, model)
-    del model
+    paths["int4_ksplit"] = ksplit_path(dev, model, request)
+    del model, request
     torch.cuda.empty_cache()
     paths["b1"], ab = b1_path(dev, profile=args.profile)
     paths.update(ab)

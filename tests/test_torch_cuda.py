@@ -21,7 +21,7 @@ import torch
 
 torch.set_num_threads(2)
 
-from chip_smoke import ATOL_ROW_RMS_FRAC, GRAD_RMS_DIMS, tol_ratio  # noqa: E402
+from chip_smoke import ATOL_ROW_RMS_FRAC, GRAD_RMS_DIMS, tol_ratio, variant_reference  # noqa: E402
 from audio_llama_tpu_torch.ops import causal_attention as ca  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_attention_mono as dm  # noqa: E402
 from audio_llama_tpu_torch.ops import enc_attention as ea  # noqa: E402
@@ -1030,3 +1030,223 @@ def test_tiny_int8_encoder_on_the_card_matches_the_host(dev, algo):
     host = w8.encode_int8(qp, cfg, mel, torch.float32, attn_algo=algo)
     rel = ((card.float().cpu() - host).norm() / host.norm()).item()
     assert rel < 2e-2, rel
+
+
+# --- the causal forward variants (fwd_impl / softmax_mode) ---------------------
+
+CAUSAL_VARIANTS = {  # kernel -> (plain, kernel) of (qs, k, v, key_bias, kn)
+    "causal_attention_cond": ca.variant_forward("blocks_cond", "online"),
+    "causal_attention_bounded": ca.variant_forward("blocks", "bounded"),
+    "causal_attention_bounded_cond": ca.variant_forward("blocks_cond", "bounded"),
+    "causal_attention_twopass": ca.variant_forward("blocks", "twopass"),
+    "causal_attention_dma": ca.variant_forward("dma", "bounded"),
+    "causal_attention_dma2": ca.variant_forward("dma2", "bounded"),
+}
+
+
+def _variant_case(dev, B, T, Hq, Hkv, hd, pad_from, seed=21):
+    qs = _randn(dev, B, T, Hq, hd, seed=seed) * torch.tensor(hd ** -0.5, dtype=torch.bfloat16,
+                                                             device=dev)
+    k, v = _randn(dev, B, T, Hkv, hd, seed=seed + 1), _randn(dev, B, T, Hkv, hd, seed=seed + 2)
+    mask = torch.ones(B, T, dtype=torch.int32, device=dev)
+    mask[B - 1, pad_from:] = 0
+    key_bias = torch.where(mask != 0, torch.zeros((), device=dev), ca.NEG)
+    return qs, k, v, key_bias, ca.key_norm_max(k), mask
+
+
+def _variant_close(got, want, mask):
+    for b in range(mask.shape[0]):
+        real = int(mask[b].sum())
+        assert tol_ratio(got.o[b, :real], want.o[b, :real],
+                         ATOL_ROW_RMS_FRAC["causal_attention"]) <= 1
+    torch.testing.assert_close(got.m, want.m, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(got.l, want.l, atol=0.0, rtol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("name", list(CAUSAL_VARIANTS))
+@pytest.mark.parametrize("B,T,Hq,Hkv,hd,pad_from", [(2, 256, 8, 2, 128, 200),
+                                                    (1, 320, 4, 4, 64, 300),
+                                                    (2, 128, 6, 2, 32, 100)])
+def test_causal_variant_kernels(dev, name, B, T, Hq, Hkv, hd, pad_from):
+    """Each forward variant's kernel against its plain version: o on the
+    valid rows within row 3's bar, l and the shift m (c) as row 3's; the
+    same bits on a second launch."""
+    qs, k, v, key_bias, kn, mask = _variant_case(dev, B, T, Hq, Hkv, hd, pad_from)
+    plain, kernel = CAUSAL_VARIANTS[name]
+    got = kernel(qs, k, v, key_bias, kn)
+    torch.cuda.synchronize()
+    _variant_close(got, plain(qs, k, v, key_bias, kn), mask)
+    again = kernel(qs, k, v, key_bias, kn)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("name,same_as", [("causal_attention_cond", None),
+                                          ("causal_attention_bounded_cond",
+                                           "causal_attention_bounded"),
+                                          ("causal_attention_dma", "causal_attention_bounded"),
+                                          ("causal_attention_dma2", "causal_attention_bounded")])
+def test_causal_variants_equal_their_blocks_kernel_bit_for_bit(dev, name, same_as):
+    """cond masks fewer tiles and dma/dma2 copy K/V asynchronously, with the
+    per-tile arithmetic of 'always' / the bounded blocks kernel: the same
+    bits."""
+    qs, k, v, key_bias, kn, _ = _variant_case(dev, 2, 384, 8, 2, 128, 333)
+    got = CAUSAL_VARIANTS[name][1](qs, k, v, key_bias, kn)
+    if same_as is None:
+        want = ca.causal_attention_cuda(qs, k, v, key_bias, "always")
+    else:
+        want = CAUSAL_VARIANTS[same_as][1](qs, k, v, key_bias, kn)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_causal_variant_checks_reject_planted_faults(dev):
+    """The check above fails on each planted fault (`chip_smoke.
+    variant_reference` computes the faulty functions): cond's diagonal tile
+    unmasked, twopass's last valid tile left out of the max (seen in c),
+    bounded's kn over the valid keys only (a padded key holds the largest
+    norm; seen in c), dma's diagonal tile not fetched (its keys dropped),
+    dma2's PV of tile j read from tile j+1's V."""
+    B, T, Hq, Hkv, hd = 2, 256, 8, 2, 128
+    qs, k, v, key_bias, kn, mask = _variant_case(dev, B, T, Hq, Hkv, hd, 200)
+    k[1, 230] *= 3  # a padded key with the largest norm
+    case = dict(qs=qs, k=k, v=v, key_bias=key_bias, kn=ca.key_norm_max(k))
+    frac, real = ATOL_ROW_RMS_FRAC["causal_attention"], 200
+    t = torch.arange(T, device=dev)
+    diag = (t[None, :] // 64) == (t[:, None] // 64)
+    causal = t[None, :] <= t[:, None]
+
+    def run(name):
+        return CAUSAL_VARIANTS[name][1](qs, k, v, key_bias, case["kn"])
+
+    def o_ratio(got, want, q0=0):
+        return tol_ratio(got.o[:, q0:real], want.o[:, q0:real], frac)
+
+    def shift_differs(got, want, q0=0):  # the check of m (c): atol 1e-4, rtol 1e-5
+        g, w = got.m.reshape(B, Hq, T)[:, :, q0:real], want.m.reshape(B, Hq, T)[:, :, q0:real]
+        return ((g - w).abs() > 1e-4 + 1e-5 * w.abs()).any()
+
+    assert o_ratio(run("causal_attention_cond"), variant_reference(case, causal | diag,
+                                                                   "online")) > 1
+    kn_valid = ca.key_norm_max(k * (mask != 0)[:, :, None, None])
+    assert shift_differs(run("causal_attention_bounded"),
+                         ca.causal_attention_bounded_plain(qs, k, v, key_bias, kn_valid))
+    # the max over fewer keys moves c, and l with it (o is invariant to the shift)
+    assert shift_differs(run("causal_attention_twopass"), variant_reference(
+        case, causal, "twopass", max_keys=causal & ~diag), q0=64)
+    assert o_ratio(run("causal_attention_dma"),
+                   variant_reference(case, causal & ~diag, "bounded"), q0=64) > 1
+    assert o_ratio(run("causal_attention_dma2"),
+                   variant_reference(case, causal, "bounded", v_next=True), q0=128) > 1
+
+
+@pytest.mark.parametrize("fwd_impl,softmax_mode,counter", [
+    ("blocks_cond", "online", "launches_cond"), ("blocks", "bounded", "launches_bounded"),
+    ("blocks_cond", "bounded", "launches_bounded_cond"),
+    ("blocks", "twopass", "launches_twopass"), ("blocks_cond", "twopass", "launches_twopass"),
+    ("dma", "online", "launches_dma"), ("dma2", "twopass", "launches_dma2")])
+def test_causal_mha_variants_launch_their_kernels(dev, fwd_impl, softmax_mode, counter):
+    """autograd through `causal_mha(fwd_impl=, softmax_mode=)`: one launch of
+    the variant's forward kernel, one dq, one dk/dv (dma and dma2 take the
+    bounded mode whatever is asked), the gradients within rows 11-12's bars
+    of the plain backward on the kernel's residuals."""
+    B, T, Hq, Hkv, hd = 2, 200, 8, 2, 128
+    q = _randn(dev, B, T, Hq, hd, seed=31).requires_grad_(True)
+    k = _randn(dev, B, T, Hkv, hd, seed=32).requires_grad_(True)
+    v = _randn(dev, B, T, Hkv, hd, seed=33).requires_grad_(True)
+    mask = torch.ones(B, T, dtype=torch.int32, device=dev)
+    mask[1, 150:] = 0
+    do = _randn(dev, B, T, Hq, hd, seed=34)
+    before = (getattr(ca, counter), ca.launches, ca.launches_dq, ca.launches_dkv)
+    o = ca.causal_mha(q, k, v, mask, fwd_impl=fwd_impl, softmax_mode=softmax_mode)
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    after = (getattr(ca, counter), ca.launches, ca.launches_dq, ca.launches_dkv)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 0, 1, 1)
+    pad = (0, 0, 0, 0, 0, 56)
+    qs = torch.nn.functional.pad(q.detach(), pad) * torch.tensor(hd ** -0.5, dtype=q.dtype,
+                                                                   device=dev)
+    kp, vp = (torch.nn.functional.pad(t.detach(), pad) for t in (k, v))
+    key_bias = torch.where(torch.nn.functional.pad(mask, (0, 56)) != 0,
+                           torch.zeros((), device=dev), ca.NEG)
+    res = ca.variant_forward(fwd_impl, softmax_mode)[1](qs, kp, vp, key_bias, ca.key_norm_max(kp))
+    wq, wk, wv = ca.causal_attention_bwd_plain(qs, kp, vp, key_bias, res.o, res.l, res.m,
+                                               torch.nn.functional.pad(do, pad))
+    wq = wq * torch.tensor(hd ** -0.5, dtype=q.dtype, device=dev)
+    ratios = [_grad_ratio(g, w[:, :T], name)
+              for g, w, name in zip((dq, dk, dv), (wq, wk, wv), BWD_NAMES)]
+    assert max(ratios) <= 1, ratios
+
+
+def test_bounded_variants_zero_the_plain_versions_rows_on_outlier_keys(dev):
+    """tests/test_causal_attention.py::_outlier_setup on the card: the bounded
+    kernels (blocks, dma, dma2) zero the rows their plain version zeroes;
+    twopass and cond stay within the bar of online."""
+    B, T, Hq, Hkv, hd = 1, 256, 2, 1, 128
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((B, T, Hq, hd), generator=g, device=dev) * 2.0
+    k = torch.randn((B, T, Hkv, hd), generator=g, device=dev) * 2.0
+    d = torch.randn((hd,), generator=g, device=dev)
+    k[:, 0] = d / d.norm() * 1500.0
+    v = torch.randn((B, T, Hkv, hd), generator=g, device=dev)
+    qs = (q * hd ** -0.5).to(torch.bfloat16)
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    key_bias = torch.zeros((B, T), device=dev)
+    kn = ca.key_norm_max(k)
+    want = ca.causal_attention_bounded_plain(qs, k, v, key_bias, kn)
+    zero_want = (want.o == 0).all(dim=-1)
+    assert zero_want.any()
+    for name in ("causal_attention_bounded", "causal_attention_dma", "causal_attention_dma2"):
+        got = CAUSAL_VARIANTS[name][1](qs, k, v, key_bias, kn)
+        assert torch.equal((got.o == 0).all(dim=-1), zero_want), name
+    online = ca.causal_attention_cuda(qs, k, v, key_bias)
+    for name in ("causal_attention_twopass", "causal_attention_cond"):
+        got = CAUSAL_VARIANTS[name][1](qs, k, v, key_bias, kn)
+        assert tol_ratio(got.o, online.o, ATOL_ROW_RMS_FRAC["causal_attention"]) <= 1, name
+
+
+# --- the K-split W4A16 (block_k / INT4_BK) -----------------------------------------
+
+@pytest.mark.parametrize("fmt", ["pair", "obin"])
+@pytest.mark.parametrize("M,K,Nh,bk", [(4, 3072, 2560, 768), (4, 3072, 2560, 1536),
+                                       (1, 1024, 256, 256), (8, 1536, 128, 1536),
+                                       (72, 512, 256, 256), (200, 3072, 384, 768),
+                                       (300, 3072, 128, 1536)])
+def test_int4_ksplit_kernel(dev, fmt, M, K, Nh, bk):
+    """The K-split launch (both shapes) against the K-split plain version;
+    a K block dropped, and block ki read with block 0's scales, fail the
+    same check."""
+    L = 2
+    packed, scales = _bytes(dev, L, K, Nh), _scales(dev, L, K // 128, 2 * Nh, seed=1)
+    x = _randn(dev, M, K, seed=2)
+    want = i4.int4_matmul_stacked_ksplit_plain(x, packed, scales, 1, bk, fmt=fmt)
+    for planes in (False, True):
+        before = (i4.launches, i4.launches_ksplit)
+        got = i4.int4_matmul_stacked(x, packed, scales, 1, return_planes=planes, fmt=fmt,
+                                     block_k=bk)
+        torch.cuda.synchronize()
+        assert (i4.launches, i4.launches_ksplit) == (before[0], before[1] + 1)
+        got = torch.cat(got, dim=-1) if planes else got
+        assert _ratio(got, want, "int4_matmul_stacked") <= 1
+    nb, gpb = K // bk, bk // 128
+    dropped = x.clone()
+    dropped[:, (nb - 1) * bk:] = 0  # the last K block left out
+    assert _ratio(want, i4.int4_matmul_stacked_ksplit_plain(dropped, packed, scales, 1, bk,
+                                                            fmt=fmt), "int4_matmul_stacked") > 1
+    if nb > 1:
+        s0 = scales.clone()
+        s0[1] = scales[1, :gpb].repeat(nb, 1)  # every block with block 0's scales
+        got = i4.int4_matmul_stacked(x, packed, s0.contiguous(), 1, fmt=fmt, block_k=bk)
+        assert _ratio(got, want, "int4_matmul_stacked") > 1
+
+
+@pytest.mark.parametrize("M", [4, 6104])
+def test_int4_ksplit_geometry_fallback_is_the_whole_k_kernel(dev, M):
+    """K 8192 (the down projection) divides by neither 768 nor 1536: the call
+    is the whole-K launch, bit for bit, counted as whole K."""
+    K, Nh = 8192, 128
+    packed, scales = _bytes(dev, 2, K, Nh), _scales(dev, 2, K // 128, 2 * Nh, seed=3)
+    x = _randn(dev, M, K, seed=4)
+    whole = i4.int4_matmul_stacked_cuda(x, packed, scales, 0)
+    for bk in (768, 1536):
+        before = (i4.launches, i4.launches_ksplit)
+        got = i4.int4_matmul_stacked(x, packed, scales, 0, block_k=bk)
+        assert (i4.launches, i4.launches_ksplit) == (before[0] + 1, before[1])
+        assert torch.equal(got, whole)
