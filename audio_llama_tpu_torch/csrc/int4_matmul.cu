@@ -328,3 +328,17 @@ AL_EXPORT int al_int4_matmul(const void* x, int M, int K, const void* packed, in
     default: return cudaErrorInvalidValue;
   }
 }
+
+// The unstacked W4A16, replacing audio_llama_tpu/ops/int4_matmul.py::_kernel
+// (int4_matmul): x [M, K] bf16 @ dequant(packed [K, N/2], scales [K/128, N])
+// -> out [M, N] bf16 with f32 accumulation, the TPU kernel's lo and hi planes
+// written side by side as one row (its [2, M, N/2] output concatenated). The
+// same device code as the stacked launch with the layer's slab the whole
+// weight: the decode shape (split-K workspace `ws`, `counters`) up to 64
+// rows, the prefill shape past them, whole K.
+AL_EXPORT int al_int4_matmul_2d(const void* x, int M, int K, const void* packed, int nh,
+                                const void* scales, int fmt, void* out, void* ws,
+                                void* counters, int mc, int gps, int ksplit, void* stream) {
+  return al_int4_matmul(x, M, K, packed, nh, scales, fmt, out, 2LL * nh, nh, ws, counters, mc,
+                        gps, ksplit, 0, stream);
+}

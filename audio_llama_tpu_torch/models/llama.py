@@ -10,7 +10,7 @@ tree carries its rotation as `params["rot"]`: the stream is rotated once
 after the embedding and un-rotated once before the final norm (the QuaRot
 sandwich).
 
-Three call shapes, as `generate` uses them:
+Four call shapes, as `generate` and the serving pool use them:
   - no cache: full causal self-attention over T positions (the causal
     kernel, `ops/causal_attention.py`);
   - fresh-cache prefill (`assume_fresh_cache=True`, T > 1): the T new K/V
@@ -28,6 +28,15 @@ Three call shapes, as `generate` uses them:
     caches); both take the host's fill (`KVCache.host_length`) as the
     offset, write the fresh rows' scales after the kernel, as JAX does, and
     keep the megakernel off.
+  - T > 1 new rows into a filled cache (a prefix-cached suffix or a chunked
+    prefill piece of `inference/serving/`), at the cache's fill or at
+    per-row `cache_offsets`, and per-row offsets under an A/B `attn_impl`
+    (whose kernels take one scalar offset): JAX's XLA cached path, in
+    PyTorch. The rows are written as JAX's `_cache_write` does (a scalar
+    offset's window clamped to fit, T == 1 rows outside the timeline
+    dropped, one clamped window per row for T > 1), quantized to the
+    cache's format, and the queries attend the whole dequantized layer
+    timeline under slot causality (`mha`).
 The cache tensors are updated in place (PyTorch's counterpart of the JAX
 package's aliased scan carry); the returned `KVCache` holds the same tensors
 with the new length.
@@ -100,7 +109,7 @@ from ..ops import mlp_int4 as mlp4
 from ..ops import decode_attention_db as db
 from ..ops import decode_attention_packed as packed
 from ..ops import decode_megakernel as mk
-from ..ops.attention import merge_partial_stats
+from ..ops.attention import NEG_INF, combine_bias, merge_partial_stats, mha, padding_bias
 from ..ops.causal_attention import causal_mha
 from ..ops.decode_attention_mono import (decode_attention_mono, decode_attention_quantized4_mono,
                                          decode_attention_quantized_mono)
@@ -368,13 +377,40 @@ def _layer_weight(w, li: int):
     return w[li]
 
 
-def _linear(x, w, lora_branch, compute_dtype, x_main=None, tp_axis=None, row=False):
+def _int4_weight_2d(w):
+    """A per-layer int4 weight {'w_p' [K, N/2] or [K, tp, N/(2 tp)], 'w_s'
+    [K/g, N]} -> (w_p [K, N/2], w_s): a pack-after-shard block axis is
+    squeezed where it is a singleton, refused where it is not (the bytes
+    would permute the output columns)."""
+    p = w["w_p"]
+    if p.dim() == 3:
+        if p.shape[1] != 1:
+            raise ValueError(f"int4 weight packed for tp={p.shape[1]} used without "
+                             "tensor-parallel sharding (models/llama_int4.py)")
+        p = p.reshape(p.shape[0], p.shape[2])
+    return p, w["w_s"]
+
+
+def _linear(x, w, lora_branch, compute_dtype, x_main=None, tp_axis=None, row=False,
+            fmt=None):
     """x @ w, plus the LoRA delta x @ a @ b * scaling when given. An int8
     weight (w_q, w_s) computes (x @ w_q) * w_s in the compute dtype.
     `x_main` (x through f under tensor parallelism) feeds the frozen
-    product in place of x."""
+    product in place of x.
+
+    A per-layer int4 weight {'w_p', 'w_s'} (optionally 'w_r', the smoothed
+    tree's per-input-row equalizer) runs the unstacked W4A16
+    (`ops/int4_matmul.py::int4_matmul`: the kernel on the card, its plain
+    version on the host) in pack format `fmt`, the group size read from the
+    shapes; w_r multiplies the frozen product's input only, the LoRA branch
+    keeps x."""
     xm = x if x_main is None else x_main
-    if isinstance(w, tuple):
+    if isinstance(w, (dict, ParamTree)) and "w_p" in w:
+        w_p, w_s = _int4_weight_2d(w)
+        xq = xm * w["w_r"].to(xm.dtype) if "w_r" in w else xm
+        g = w_p.shape[-2] // w_s.shape[-2]
+        y = i4.int4_matmul(xq.to(compute_dtype), w_p, w_s, group=g, fmt=fmt)
+    elif isinstance(w, tuple):
         w_q, w_s = w
         y = (xm @ w_q.to(compute_dtype)) * w_s.to(compute_dtype)
     else:
@@ -452,7 +488,8 @@ def llama_forward(
     keeps single-request int4 decode steps on the per-layer kernels.
     `attn_impl` (T == 1 steps only, not under `sp_axis`): 'auto' (the mono
     kernels and the megakernel), 'decode_kernel' or 'decode_packed' (see
-    the module docstring). `remat=True` (no cache) recomputes each layer in
+    the module docstring; with per-row `cache_offsets` their steps take the
+    cached arm, as JAX's fall back to XLA). `remat=True` (no cache) recomputes each layer in
     the backward (`torch.utils.checkpoint`), as the JAX package's
     `jax.checkpoint`.
     `tp_axis` / `sp_axis` / `seq_axis`: see the module docstring."""
@@ -486,10 +523,17 @@ def llama_forward(
             raise ValueError("sp_axis needs its static sp_size (> 1)")
         if not (fresh or decode):
             raise ValueError("sp decode supports fresh prefill or T==1 steps")
-    if kv_cache is not None and not (fresh or decode):
-        raise NotImplementedError(
-            "cached forward supports a fresh-cache prefill or T == 1 decode steps"
-        )
+    # JAX's XLA cached path: T > 1 new rows into a filled cache (a prefix
+    # suffix, a chunked-prefill piece), and per-row offsets under the A/B
+    # decode kernels, which take one scalar offset (JAX falls back there too)
+    if (decode and sp_axis is None and attn_impl == "decode_packed"
+            and kv_cache.kv_bits == 4):
+        raise ValueError("attn_impl='decode_packed' has no int4-KV variant; use the "
+                         "default db kernel (attn_impl='auto'/'decode_kernel')")
+    xla_cached = kv_cache is not None and not fresh and (
+        not decode or (cache_offsets is not None and attn_impl != "auto"))
+    if xla_cached:
+        decode = False
     host_offset = None
     if kv_cache is not None:
         offset = kv_cache.length if cache_offsets is None else cache_offsets
@@ -539,15 +583,21 @@ def llama_forward(
     # the A/B decode kernels (attn_impl), as the JAX package dispatches them
     ab_decode = decode and sp_axis is None and attn_impl != "auto"
     if ab_decode:
-        if attn_impl == "decode_packed" and kv_cache.kv_bits == 4:
-            raise ValueError("attn_impl='decode_packed' has no int4-KV variant; use the "
-                             "default db kernel (attn_impl='auto'/'decode_kernel')")
-        if cache_offsets is not None:
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r} with per-row cache_offsets: the JAX package's XLA "
-                "cached path is not ported yet (ROADMAP queue 1 item 2, serving)")
         if host_offset is None:  # a cache built by hand: read its fill once
             host_offset = int(offset.reshape(-1)[0])
+    cached_bias = None
+    if xla_cached:
+        if cache_offsets is None and host_offset is None:  # a cache built by hand
+            host_offset = int(offset.reshape(-1)[0])
+        # causality over PHYSICAL slots: query t of a row sits at slot
+        # offset + t and sees the written slots at or before it
+        kpos = torch.arange(Tk, device=dev)[None, :]
+        qslot = off_col + torch.arange(T, device=dev)[None, :]  # [1|B, T]
+        allowed = (kpos[:, None, :] <= qslot[:, :, None]) & (kpos < off_col + T)[:, None, :]
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        cached_bias = torch.where(allowed, zero, NEG_INF)[:, None]  # [1|B, 1, T, Tk]
+        if attention_mask is not None:
+            cached_bias = combine_bias(cached_bias, padding_bias(attention_mask))
     attn_mask = attention_mask
     if fresh and attn_mask is not None:
         attn_mask = attn_mask[:, :T]
@@ -607,6 +657,50 @@ def llama_forward(
             ks_all[li, :, :, slots], vs_all[li, :, :, slots] = khs, vhs
         else:
             ck[li, :, :, slots], cv[li, :, :, slots] = kh.to(ck.dtype), vh.to(cv.dtype)
+
+    def cache_write(buf, val, li):
+        """val [B, Hkv, T, ...] into layer li of buf [L, B, Hkv, Tk, ...], as
+        JAX's `_cache_write`: a scalar offset writes one window whose start is
+        clamped so that it fits (dynamic_update_slice); per-row offsets
+        scatter T == 1 rows, dropping those outside the timeline, and write a
+        clamped window per row for T > 1."""
+        val = val.to(buf.dtype)
+        if cache_offsets is None:
+            start = min(max(host_offset, 0), Tk - T)
+            buf[li, :, :, start:start + T] = val
+            return
+        rows = torch.arange(B, device=dev)
+        if T == 1:
+            inside = ((offset >= 0) & (offset < Tk)).reshape(B, *([1] * (val.dim() - 2)))
+            slot = offset.clamp(0, Tk - 1).long()
+            buf[li, rows, :, slot] = torch.where(inside, val[:, :, 0], buf[li, rows, :, slot])
+            return
+        idx = offset.clamp(0, Tk - T).long()[:, None] + torch.arange(T, device=dev)  # [B, T]
+        buf[li, rows[:, None], :, idx] = val.transpose(1, 2)
+
+    def cached_attention(q, k, v, li):
+        """JAX's XLA cached path -> [B, T, Hq, hd]: the T new rows written at
+        the offset (quantized to the cache's format), then attention over the
+        whole layer timeline, dequantized, under the slot-causal bias."""
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)  # [B, Hkv, T, hd]
+        if kv_bits == 4:
+            kvh, khs, vhs = quantize_kv_rows4(kh, vh)
+            for buf, val in ((ck, kvh), (ks_all, khs), (vs_all, vhs)):
+                cache_write(buf, val, li)
+            ak, av = unpack_kv4(ck[li])
+        else:
+            if kv_bits == 8:
+                (kh, khs), (vh, vhs) = quantize_kv_rows(kh), quantize_kv_rows(vh)
+                cache_write(ks_all, khs, li)
+                cache_write(vs_all, vhs, li)
+            cache_write(ck, kh, li)
+            cache_write(cv, vh, li)
+            ak, av = ck[li], cv[li]
+        ak, av = ak.to(cd), av.to(cd)
+        if kv_bits != 16:
+            ak = ak * ks_all[li][..., None].to(cd)
+            av = av * vs_all[li][..., None].to(cd)
+        return mha(q, ak, av, bias=cached_bias, scale=scale, kv_head_major=True)
 
     def sp_decode_attention(q, k, v, li):
         """A T == 1 step under sp -> [B, 1, Hq, hd]: the owner of the slot
@@ -701,6 +795,8 @@ def llama_forward(
             attn = sp_decode_attention(q, k, v, li)
         elif ab_decode:
             attn = ab_decode_attention(q, k, v, li)
+        elif xla_cached:
+            attn = cached_attention(q, k, v, li)
         elif decode and kv_bits == 4:
             kvp, kq_s, vq_s = quantize_kv_rows4(k[:, 0], v[:, 0])
             # the append slot's scales go in BEFORE the kernel, which never

@@ -28,7 +28,8 @@ SOURCES = ("layer_norm.cu", "enc_attention.cu", "causal_attention.cu", "decode_a
            "mel_power.cu", "int4_matmul.cu", "mlp_int4.cu", "decode_attention_q4.cu",
            "decode_megakernel.cu", "causal_attention_bwd.cu", "decode_attention_db.cu",
            "decode_attention_packed.cu", "enc_attention_v3q.cu", "enc_attention_bounded.cu",
-           "enc_attention_twopass.cu", "causal_attention_fixed.cu", "causal_attention_dma.cu")
+           "enc_attention_twopass.cu", "causal_attention_fixed.cu", "causal_attention_dma.cu",
+           "decode_attention_single.cu")
 HEADERS = ("common.cuh", "attention_fwd.cuh", "int4_common.cuh", "decode_rows.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -52,6 +53,7 @@ SIGNATURES = {
     "al_decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P, _P],
     "al_mel_power": [_P, _I, _L, _I, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P],
     "al_int4_matmul": [_P, _I, _I, _P, _I, _P, _I, _P, _L, _L, _P, _P, _I, _I, _I, _I, _P],
+    "al_int4_matmul_2d": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     "al_mlp_int4": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "al_decode_attention_q4": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P, _P],
     "al_decode_attention_q8": [_I] + [_P] * 11 + [_I] * 7 + [_F, _P, _P],
@@ -62,6 +64,7 @@ SIGNATURES = {
     "al_decode_db_stats": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F] + [_P] * 4,
     "al_decode_db": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F] + [_P] * 2,
     "al_decode_packed": [_I, _I] + [_P] * 10 + [_I] * 9 + [_F] + [_P] * 7,
+    "al_decode_attention_single": [_I, _I] + [_P] * 11 + [_I] * 6 + [_F, _P, _P],
 }
 
 _lock = threading.Lock()

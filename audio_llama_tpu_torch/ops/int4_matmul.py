@@ -22,6 +22,14 @@ scale, summed over groups, cast to x's dtype. `int4_matmul_ref` and
 `int4_matmul_stacked_ref` are the JAX package's oracles (dequantize, then
 matmul in the compute dtype).
 
+`int4_matmul` replaces the unstacked `_kernel` (int4_matmul.py:256): x
+[..., K] @ dequant(packed [K, N/2], scales [K/group, N]) -> [..., N] in x's
+dtype, f32 accumulation; the TPU kernel writes lo and hi planes and
+concatenates them, the CUDA launch (`al_int4_matmul_2d` in the same source,
+the stacked kernel's device code with the weight as the whole slab) writes
+them side by side. `int4_matmul_plain` is its arithmetic in PyTorch. Its one
+caller is `models/llama.py::_linear`'s per-layer `w_p` branch.
+
 `block_k` (or the `INT4_BK` environment default, read at import as the JAX
 package reads it) selects the contraction-split twin `_kernel_stacked_ksplit`
 (int4_matmul.py:393): K in blocks of bk rows, each block's groups summed into
@@ -52,6 +60,7 @@ INT4_BK = int(os.environ.get("INT4_BK", "0"))
 
 launches = 0  # whole-K kernel launches through `int4_matmul_stacked`
 launches_ksplit = 0  # K-split kernel launches (block_k or INT4_BK in effect)
+launches_2d = 0  # unstacked kernel launches through `int4_matmul`
 
 DECODE_MAX_M = 64  # rows up to which the kernel takes its weight-streaming shape
 _TARGET_BLOCKS = 264  # two blocks per SM of the H100's 132
@@ -302,6 +311,60 @@ def int4_matmul_stacked_cuda(x, packed_all, scales_all, layer, group: int = GROU
     if return_planes:
         return out[0].reshape(*lead, Nh), out[1].reshape(*lead, Nh)
     return out.reshape(*lead, N)
+
+
+def int4_matmul_plain(x, packed, scales, group: int = GROUP, fmt: Optional[str] = None):
+    """The unstacked kernel's arithmetic in PyTorch (f32 per-group dots,
+    scaled, summed over groups in order, cast to x's dtype)."""
+    return int4_matmul_stacked_plain(x, packed[None], scales[None], 0, group, fmt=fmt)
+
+
+def int4_matmul_cuda(x, packed, scales, group: int = GROUP, fmt: Optional[str] = None):
+    """Launch the unstacked kernel (same arguments as the plain version)."""
+    global launches_2d
+    name = "int4_matmul"
+    _cuda.require_cuda(name, x, packed, scales)
+    code = FMT_CODE[_fmt(fmt)]
+    *lead, K = x.shape
+    Kp, Nh = packed.shape
+    N = 2 * Nh
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: x must be bfloat16, got {x.dtype}")
+    if packed.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"{name}: expected int8 packed and f32 scales")
+    if group != GROUP or Kp != K or K % GROUP or Nh % 128:
+        raise ValueError(f"{name}: needs group 128, K % 128 == 0 and N/2 % 128 == 0; "
+                         f"got K={K} N/2={Nh} group={group}")
+    _cuda.require_shape(name, scales, (K // GROUP, N))
+    packed, scales = packed.contiguous(), scales.contiguous()
+    x2 = x.reshape(-1, K).contiguous()
+    M = x2.shape[0]
+    if not (_cuda.aligned16(x2) and _cuda.aligned16(packed)):
+        raise ValueError(f"{name}: x and the packed weight must be 16-byte aligned")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    mc, gps, ksplit = (0, 0, 1) if M > DECODE_MAX_M else decode_split(M, K, Nh)
+    ws_ptr = cnt_ptr = None
+    if ksplit > 1:
+        mz = -(-M // mc)
+        ws = torch.empty((mz, ksplit, mc, N), dtype=torch.float32, device=x.device)
+        ws_ptr = ws.data_ptr()
+        cnt_ptr = _cuda.counters(x.device, mz * (Nh // 128)).data_ptr()
+    err = _cuda.library().al_int4_matmul_2d(
+        x2.data_ptr(), M, K, packed.data_ptr(), Nh, scales.data_ptr(), code, out.data_ptr(),
+        ws_ptr, cnt_ptr, mc, gps, ksplit, _cuda.stream_handle(x),
+    )
+    _cuda.check(err, name)
+    launches_2d += 1
+    return out.reshape(*lead, N)
+
+
+def int4_matmul(x, packed, scales, group: int = GROUP, fmt: Optional[str] = None):
+    """x [..., K] @ dequant(packed [K, N/2], scales [K/group, N]) -> [..., N]
+    in x's dtype. The kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, packed, scales, group, fmt)
+    return int4_matmul_cuda(x, packed, scales, group, fmt)
 
 
 def int4_matmul_stacked(x, packed_all, scales_all, layer, group: int = GROUP,

@@ -124,6 +124,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
      quantized through `generate` (32 of the v3 kernel, no LayerNorm
      kernel; the first decode step's logits beside the bf16 encoder's);
      (d) card vs host at 2 Whisper layers for each algo.
+ 18. causal variants and the K-split W4A16 (see `causal_variant_checks`,
+     `ksplit_kernel_checks`, `causal_variant_path`, `ksplit_path`).
+ 19. the last three Pallas kernels: (a) single-buffered decode attention
+     (`decode_attention` on a bf16 cache, `decode_attention_quantized` on an
+     int8 one) at [28, B, 8, S, 128] caches, S 1568 and 3040, B 1 and 4,
+     against their plain versions (caches bit-equal, scales untouched), on
+     planted faults (p not normalized, a stale fresh row), timed beside the
+     plain version and SDPA, then their own path (4 decode steps through
+     every layer, counted); (b) the unstacked W4A16 `int4_matmul` at q_proj
+     and down_proj, M 4 and 6104, both pack formats, on planted faults,
+     timed beside a bf16 matmul on the dequantized weight, and its path,
+     `_linear` on a 2-D and a w_r-smoothed w_p tree.
+ 20. serving: `inference.serving.ServingEngine` (4 rows, chunks of 8) on
+     the int4w+kv4 tree at full width behind `inference.server` on
+     127.0.0.1: a /v1/prefix registration (a 30 s WAV and an instruction)
+     and 8 concurrent /v1/generate requests of 32 tokens (four 30 s WAVs, one
+     streamed; four suffixes of the prefix, two sampled): all answered,
+     launches exact per decode chunk and prefill, /healthz and /v1/stats
+     consistent, each audio request's prefill and first decode-step logits
+     within rel-L2 2e-2 of `generate` at B = 1 (and under chunked prefill of
+     512), stop() failing a request in flight; requests/s, tokens/s, time to
+     first token, ms per chunk, peak memory; then the pool card vs host at
+     2 + 2 layers.
 With `--profile`, phases 3, 4, 6 (megakernel off), 7 and 10 add a
 torch.profiler breakdown (encode + prefill + first token, and per decode
 token; one train step) by device kernel group, with the device's busy share
@@ -291,6 +314,12 @@ ATOL_ROW_RMS_FRAC = {
     "enc_attention_v3q": 3e-2,
     "enc_attention_bounded": 3e-2,
     "enc_attention_twopass": 3e-2,
+    # the single-buffered decode kernels: the same arithmetic on both sides
+    # (p normalized and rounded before PV), f32 sums in another order
+    "decode_attention": 2.5e-3,
+    "decode_attention_quantized": 2.5e-3,
+    # the unstacked W4A16: row 6's bar (the same device code)
+    "int4_matmul": 1e-3,
 }
 
 
@@ -567,6 +596,9 @@ COUNTERS = {
     "causal_attention_dma": ("causal_attention", "launches_dma"),
     "causal_attention_dma2": ("causal_attention", "launches_dma2"),
     "int4_matmul_stacked_ksplit": ("int4_matmul", "launches_ksplit"),
+    "decode_attention": ("decode_attention", "launches"),
+    "decode_attention_quantized": ("decode_attention", "launches_q8"),
+    "int4_matmul": ("int4_matmul", "launches_2d"),
 }
 
 
@@ -1193,6 +1225,8 @@ KERNEL_PATH = {
     "causal_attention_cond": "causal_variants", "causal_attention_bounded": "causal_variants",
     "causal_attention_twopass": "causal_variants", "causal_attention_dma": "causal_variants",
     "causal_attention_dma2": "causal_variants", "int4_matmul_stacked_ksplit": "int4_ksplit",
+    "decode_attention": "single_decode", "decode_attention_quantized": "single_decode",
+    "int4_matmul": "int4_2d",
 }
 # a row whose kernel serves several counters (its cache formats, its modes) sums them
 ROW_COUNTERS = {"decode_attention_packed": ("decode_attention_packed",
@@ -4451,6 +4485,596 @@ def ksplit_path(dev, model, request) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the last three Pallas kernels (single-buffered decode attention on
+# bf16 and int8 caches, the unstacked W4A16)
+# ---------------------------------------------------------------------------
+
+SINGLE_ROWS = {  # kernel row -> (cache bits, TPU kernel it replaces)
+    "decode_attention": (16, "audio_llama_tpu/ops/decode_attention.py:34"),
+    "decode_attention_quantized": (8, "audio_llama_tpu/ops/decode_attention.py:189"),
+}
+SINGLE_STEPS = 4  # decode steps of the single kernels' own path, every layer each
+
+
+def single_call(case, bits, li, off, valid, scale, cuda=True, rows=None, fresh=None,
+                copy=True):
+    """One call of a single-buffered decode kernel (or its plain version) on
+    copies of the case's caches (the caches themselves with copy=False) ->
+    (out, caches after). The int8 kernel reads layer li's scales and the fresh
+    rows' scales; `rows` / `fresh` plant others."""
+    from audio_llama_tpu_torch.ops import decode_attention as da
+
+    caches = [c.clone() for c in case["caches"]] if copy else case["caches"]
+    q, rows, fresh = case["q"], rows or case["rows"], fresh or case["fresh"]
+    if bits == 16:
+        fn = da.decode_attention_cuda if cuda else da.decode_attention_plain
+        return fn(q, rows[0], rows[1], caches[0], caches[1], li, off, valid, scale)[0], caches
+    fn = da.decode_attention_quantized_cuda if cuda else da.decode_attention_quantized_plain
+    ks, vs = (s_[li] for s_ in case["scales"])
+    return fn(q, rows[0], rows[1], caches[0], caches[1], ks, vs, *fresh, li, off, valid,
+              scale)[0], caches
+
+
+def single_decode_checks(dev, gen):
+    """Phase 19 (a): `decode_attention` (bf16 cache) and
+    `decode_attention_quantized` (int8 cache) at the decoder's geometry (28
+    layers, 8 KV heads, 24 query heads), 1568 and 3040 slots, B 1 and 4,
+    against their plain versions: the output within the bar, the caches
+    bit-equal with only the offset's slot changed, the int8 kernel's scale
+    arrays untouched; planted faults (p not normalized: the db stats kernel's
+    acc; a stale fresh row); timed at B = 1, 3040 slots beside the plain
+    version and SDPA on the same slab. Then the kernels' own path:
+    SINGLE_STEPS decode steps through every layer at B = 4, counted."""
+    cfg = full_config()
+    lc = cfg.llama
+    L, Hkv, Hq, hd = lc.num_layers, lc.num_kv_heads, lc.num_heads, lc.head_dim
+    scale, li = hd ** -0.5, min(5, L - 1)
+    timelines = (_rounded_len(cfg.audio_seq_len + 2 + PROMPT + N_NEW), 3040)
+    rows, cases = [], {}
+    for name, (bits, replaces) in SINGLE_ROWS.items():
+        frac = ATOL_ROW_RMS_FRAC[name]
+        results, faults = {}, {}
+        for S, B in itertools.product(timelines, (1, 4)):
+            case = db_case(dev, gen, bits, B, S, L, Hkv, Hq, hd)
+            kpos = torch.arange(S, device=dev)[None, :]
+            off = S - 24
+            valid = (kpos <= off).to(torch.int32).repeat(B, 1)
+            for b in range(B):
+                valid[b, 100 * b + 3:100 * b + 10] = 0
+            scales0 = [s_.clone() for s_ in case["scales"] or ()]
+            got, gc = single_call(case, bits, li, off, valid, scale)
+            want, wc = single_call(case, bits, li, off, valid, scale, cuda=False)
+            torch.cuda.synchronize()
+            label = f"{name} S={S}, B={B}"
+            err, ratio = check_close(label, got, want, frac)
+            check_append(label, gc, wc, case["caches"], case["rows"], li, off)
+            if any(not torch.equal(a, b) for a, b in zip(case["scales"] or (), scales0)):
+                raise AssertionError(f"{label}: the kernel wrote the scale arrays")
+            results[label] = dict(max_abs_err=err, tol_ratio=ratio)
+            if B == 4 and S == timelines[1]:
+                acc = db_call(case, bits, li, off, valid, scale)[2]
+                faults["p not normalized"] = must_reject(name, "p not normalized",
+                                                         acc.to(want.dtype), want, frac)
+                short = AB_FAULT_OFFSET
+                svalid = (kpos <= short).to(torch.int32).repeat(B, 1)
+                swant = single_call(case, bits, li, short, svalid, scale, cuda=False)[0]
+                check_close(f"{label}, offset {short}",
+                            single_call(case, bits, li, short, svalid, scale)[0], swant, frac)
+                stale = [c[li, :, :, short].clone() for c in case["caches"]]
+                stale_fresh = None if bits == 16 else [s_[li, :, :, short].clone()
+                                                       for s_ in case["scales"]]
+                faults[f"stale row read at offset {short}"] = must_reject(
+                    name, "stale row read at the offset",
+                    single_call(case, bits, li, short, svalid, scale, rows=stale,
+                                fresh=stale_fresh)[0], swant, frac)
+                cases[name] = (case, valid, off)
+            else:
+                del case
+            del gc, wc
+        S = timelines[1]
+        off = S - 24
+        valid = (torch.arange(S, device=dev)[None, :] <= off).to(torch.int32)
+        n_valid = int(valid.sum())
+        case = db_case(dev, gen, bits, 1, S, L, Hkv, Hq, hd)
+        turn = itertools.count()
+
+        def kernel(cuda):  # appends at one slot again, layer by layer
+            return single_call(case, bits, next(turn) % L, off, valid, scale, cuda=cuda,
+                               copy=False)
+
+        row_bytes = {16: 4 * hd, 8: 2 * hd + 8}[bits]
+        nbytes = Hkv * n_valid * row_bytes + 2.0 * Hq * hd * 2 + 4.0 * S + Hkv * row_bytes
+        bms, bby = bound(4.0 * Hq * n_valid * hd, nbytes)
+        row = dict(
+            name=name, route="cuda", source="audio_llama_tpu_torch/csrc/decode_attention_single.cu",
+            replaces=replaces, max_abs_err=max(r["max_abs_err"] for r in results.values()),
+            tol=tol_entry(frac), tol_ratio=max(r["tol_ratio"] for r in results.values()),
+            checks=results, planted_fault_ratios=faults,
+            ms=time_ms(lambda: kernel(True), iters=56),
+            plain_ms=time_ms(lambda: kernel(False), iters=8),
+            library_ms=time_ms(sdpa_slab(case, bits, valid, scale, turn), iters=112),
+            library_note="SDPA over the same slab (K/V bf16, dequantized and repeated per query "
+                         "head ahead of time)",
+            launches=None, bound_ms=bms, bound_by=bby,
+            shapes=f"caches [{L},B,{Hkv},S,{hd}] ({bits}-bit), q [B,{Hq},{hd}] bf16, S "
+                   f"{timelines}, B 1 and 4; timed at B=1, S={S}, {n_valid} valid slots")
+        log(f"kernel {name} ok: {json.dumps(row)}")
+        rows.append(row)
+        del case
+        torch.cuda.empty_cache()
+    # the kernels' own path: every layer of SINGLE_STEPS decode steps, B = 4
+    zero_counters()
+    for name, (bits, _) in SINGLE_ROWS.items():
+        case, valid, off = cases[name]
+        for step in range(SINGLE_STEPS):
+            valid[:, off + step] = 1
+            for layer in range(L):
+                single_call(case, bits, layer, off + step, valid, scale, copy=False)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    for name in SINGLE_ROWS:
+        if launches[name] != SINGLE_STEPS * L:
+            raise AssertionError(f"single decode path: {name} launched {launches[name]} "
+                                 f"times, want {SINGLE_STEPS * L}")
+    log(json.dumps({"single_decode_path": {
+        "steps": SINGLE_STEPS, "layers": L, "batch": 4, "slots": timelines[1],
+        "launches": {n: launches[n] for n in SINGLE_ROWS}}}))
+    return rows, launches
+
+
+def int4_2d_checks(dev, gen):
+    """Phase 19 (b): the unstacked W4A16 `int4_matmul` at q_proj (K 3072, N
+    3072) and down_proj (K 8192, N 3072), M 4 and 6104, both pack formats,
+    against `int4_matmul_plain`; planted faults (the last scale group's rows
+    dropped; every group read with group 0's scales); timed at M 4 (q_proj)
+    beside the plain version and a bf16 matmul on the dequantized weight.
+    Then its path: `models/llama.py::_linear` on a 2-D w_p tree and on a
+    pack-after-shard [K, 1, N/2] one smoothed by w_r, at M 4 and 6104,
+    against the plain version, counted."""
+    from audio_llama_tpu_torch.models import llama
+    from audio_llama_tpu_torch.ops import int4_matmul as i4
+
+    cfg = full_config()
+    lc = cfg.llama
+    D, Fd, bf = lc.hidden_size, lc.intermediate_size, torch.bfloat16
+    Nq = lc.num_heads * lc.head_dim
+    M_pre = len(INT4_PROMPTS) * (cfg.audio_seq_len + 2 + max(INT4_PROMPTS))
+    name = "int4_matmul"
+    frac = ATOL_ROW_RMS_FRAC[name]
+
+    def weight(K, N):
+        packed = torch.randint(-128, 128, (K, N // 2), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int8)
+        return packed, torch.rand((K // 128, N), generator=gen, device=dev) * 0.02 + 0.002
+
+    results, faults, by_shape = {}, {}, []
+    weights = {}
+    for label, K, N in (("q_proj", D, Nq), ("down_proj", Fd, D)):
+        packed, scales = weights[label] = weight(K, N)
+        for M in (len(INT4_PROMPTS), M_pre):
+            x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+            for fmt in ("pair", "obin"):
+                got = i4.int4_matmul_cuda(x, packed, scales, fmt=fmt)
+                want = i4.int4_matmul_plain(x, packed, scales, fmt=fmt)
+                key = f"{label} M={M} {fmt}"
+                err, ratio = check_close(f"{name} {key}", got, want, frac)
+                results[key] = dict(max_abs_err=err, tol_ratio=ratio)
+                if fmt == "pair":
+                    dropped = x.clone()
+                    dropped[:, K - 128:] = 0
+                    faults[f"{label} M={M}: the last group dropped"] = must_reject(
+                        name, "a group dropped", got, i4.int4_matmul_plain(dropped, packed,
+                                                                           scales), frac)
+                    s0 = scales[:1].repeat(K // 128, 1)
+                    faults[f"{label} M={M}: group 0's scales everywhere"] = must_reject(
+                        name, "group 0's scales", i4.int4_matmul_cuda(x, packed, s0), want, frac)
+                    del dropped, s0
+                del got, want
+            del x
+        M = len(INT4_PROMPTS)
+        x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+        w_deq = i4.dequantize_ref(packed, scales).to(bf)
+        bms, bby = bound(2.0 * M * K * N, K * N / 2 + (K / 128) * N * 4 + 2.0 * M * (K + N))
+        by_shape.append(dict(
+            shape=label, M=M, K=K, N=N, bound_ms=bms, bound_by=bby,
+            ms=time_ms(lambda: i4.int4_matmul_cuda(x, packed, scales), iters=56),
+            plain_ms=time_ms(lambda: i4.int4_matmul_plain(x, packed, scales), iters=10),
+            library_ms=time_ms(lambda: x @ w_deq, iters=56)))
+        log(f"kernel {name} {label} ok: {json.dumps(by_shape[-1])}")
+        del x, w_deq
+    # its path: _linear's w_p branch, plain and smoothed, decode and prefill rows
+    zero_counters()
+    linear_checks, n_calls = {}, 0
+    for label, K, N in (("q_proj", D, Nq), ("down_proj", Fd, D)):
+        packed, scales = weights[label]
+        w_r = torch.rand((K,), generator=gen, device=dev) + 0.5
+        trees = {"2-D w_p": {"w_p": packed, "w_s": scales},
+                 "[K, 1, N/2] w_p, w_r": {"w_p": packed[:, None], "w_s": scales, "w_r": w_r}}
+        for M in (len(INT4_PROMPTS), M_pre):
+            x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+            for tname, tree in trees.items():
+                got = llama._linear(x, tree, None, bf)
+                n_calls += 1
+                xq = x * w_r.to(bf) if "w_r" in tree else x
+                err, ratio = check_close(f"_linear {label} {tname} M={M}", got,
+                                         i4.int4_matmul_plain(xq, packed, scales), frac)
+                linear_checks[f"{label} {tname} M={M}"] = dict(max_abs_err=err, tol_ratio=ratio)
+            del x
+    torch.cuda.synchronize()
+    launches = read_counters()
+    if launches[name] != n_calls:
+        raise AssertionError(f"int4_2d path: {name} launched {launches[name]} times, "
+                             f"want {n_calls}")
+    first = by_shape[0]
+    row = dict(
+        name=name, route="cuda", source="audio_llama_tpu_torch/csrc/int4_matmul.cu",
+        replaces="audio_llama_tpu/ops/int4_matmul.py:256",
+        max_abs_err=max(r["max_abs_err"] for r in results.values()), tol=tol_entry(frac),
+        tol_ratio=max(r["tol_ratio"] for r in results.values()), checks=results,
+        planted_fault_ratios=faults, linear_checks=linear_checks, ms=first["ms"],
+        plain_ms=first["plain_ms"], library_ms=first["library_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"], launches=None,
+        shapes="the row's times are q_proj at M 4; by_shape has down_proj",
+        notes="library_ms: x @ the dequantized bf16 weight (cuBLAS)", by_shape=by_shape)
+    log(f"kernel {name} ok: planted faults rejected: {faults}")
+    del weights
+    torch.cuda.empty_cache()
+    return [row], launches
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the continuous-batching pool and its HTTP server at full width
+# ---------------------------------------------------------------------------
+
+SERVE_ROWS, SERVE_CHUNK = 4, 8
+SERVE_BUCKETS = (32, 64)
+SERVE_AUDIO_PROMPTS = (24, 20, 16, 12)  # the text of the four audio requests
+SERVE_SUFFIXES = (12, 9, 6, 3)  # the four text suffixes of the registered prefix
+SERVE_INSTRUCTION = 20  # the prefix's instruction tokens (after its audio block)
+SERVE_PIECE = 512  # prefill_chunk_tokens of the chunked-prefill check
+# int4 KV under chunked prefill: its later pieces attend int4 K/V (rows
+# quantized per slot to 15 levels) where generate's one-shot prefill attends
+# the exact rows; on an H100 the two land 4.1-4.8e-2 apart (PERF.md)
+STAGED_INT4_TOL = 1e-1
+
+
+class SamplerTrace:
+    """Records the logits every `sample_token_per_row` call receives (the
+    pool's prefill calls get [1, V], its decode steps [rows, V]); restores
+    the sampler on exit."""
+
+    def __enter__(self):
+        from audio_llama_tpu_torch.ops import sampling
+
+        self._mod, self._orig, self.logits = sampling, sampling.sample_token_per_row, []
+
+        def traced_sampler(logits, *a, **k):
+            self.logits.append(logits.float().clone())
+            return self._orig(logits, *a, **k)
+
+        sampling.sample_token_per_row = traced_sampler
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.sample_token_per_row = self._orig
+
+
+def pool_logits(eng, ids, audio):
+    """The pool's prefill logits (the last prefill piece's under chunked
+    prefill) and its first decode step's (row 0) for one request, replayed
+    alone on a reset engine."""
+    eng.reset()
+    with SamplerTrace() as tr:
+        eng.submit(ids, audio_features=audio, max_new_tokens=2)
+        eng.run(max_chunks=8)
+    pre = [lg for lg in tr.logits if lg.shape[0] == 1]
+    step = [lg for lg in tr.logits if lg.shape[0] == eng.rows]
+    if not (pre and step):
+        raise AssertionError("serve: the replayed request was not admitted and decoded")
+    return pre[-1][0], step[0][0]
+
+
+def http(port, path, body=None, timeout=300.0):
+    """-> (status, parsed JSON, or the NDJSON events of a stream)."""
+    import urllib.error
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}"
+    req = (urllib.request.Request(url, data=json.dumps(body).encode(),
+                                  headers={"Content-Type": "application/json"}, method="POST")
+           if body is not None else url)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, data = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        status, data = e.code, e.read().decode()
+    if body is not None and body.get("stream") and status == 200:
+        return status, [json.loads(line) for line in data.splitlines() if line]
+    return status, json.loads(data)
+
+
+def serve_path(dev, tmp) -> dict:
+    """Phase 20: the serving configuration (int4 weights with LoRA merged,
+    int4 KV cache) at full width behind the HTTP server: a ServingEngine of
+    SERVE_ROWS rows, chunks of SERVE_CHUNK steps, on 127.0.0.1 port 0; one
+    /v1/prefix registration (a 30 s WAV and an instruction), then 8
+    concurrent /v1/generate requests of N_NEW tokens: four with their own
+    seeded 30 s WAVs (one streams), four text suffixes of the prefix (two
+    with temperature 0.7, top_p 0.9). Every request answered with its token
+    count; launches exact by the counters for the decode chunks and the
+    prefills; /healthz and /v1/stats consistent; each audio request's
+    prefill logits and first decode step's (replayed on the pool) within
+    rel-L2 HOST_TOL of `generate` at B = 1 (megakernel off), greedy tokens
+    agreeing with it reported; stop() fails a request in flight (503); the
+    same engine with prefill_chunk_tokens = 512 on two audio requests within
+    the same bar."""
+    import threading
+
+    from audio_llama_tpu_torch.data import audio_io
+    from audio_llama_tpu_torch.inference import cli
+    from audio_llama_tpu_torch.inference.generate import generate, prefill
+    from audio_llama_tpu_torch.inference.server import AudioLLMServer, EngineRunner
+    from audio_llama_tpu_torch.inference.serving import ServingEngine
+
+    cfg = full_config()
+    L, W = cfg.llama.num_layers, cfg.whisper.num_layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    t0 = time.perf_counter()
+    frozen, trainable = int4_model(gen, cfg)
+    rng = np.random.default_rng(20)
+    S, sr = cfg.mel.max_samples, cfg.mel.sample_rate
+    paths = []
+    for i in range(len(SERVE_AUDIO_PROMPTS) + 1):
+        p = f"{tmp}/serve_{i}.wav"
+        audio_io.write_wav(p, (rng.normal(size=S) * 0.1).astype(np.float32), sr)
+        paths.append(p)
+    V = cfg.llama.vocab_size
+    ids = lambda n: rng.integers(0, V, (n,)).tolist()  # noqa: E731
+    audio_ids = [ids(n) for n in SERVE_AUDIO_PROMPTS]
+    instr, suffixes = ids(SERVE_INSTRUCTION), [ids(n) for n in SERVE_SUFFIXES]
+    blk = cfg.audio_seq_len + 2
+    max_len = _rounded_len(blk + SERVE_BUCKETS[0] + SERVE_BUCKETS[0] + N_NEW)
+    eng = ServingEngine(
+        frozen, trainable, cfg, rows=SERVE_ROWS, max_len=max_len, prefill_buckets=SERVE_BUCKETS,
+        chunk_steps=SERVE_CHUNK, kv_quant=4, compute_dtype=torch.bfloat16, greedy=True,
+        temperature=0.7, top_p=0.9, eos_id=EOS, pad_id=0, audio_start_id=AUDIO_START,
+        audio_end_id=AUDIO_END, seed=0, device=dev)
+    waves = [cli.process_audio(p, cfg.mel) for p in paths]  # [1, S] host, as the server reads
+    eng.submit(audio_ids[0], audio_features=waves[0][0], max_new_tokens=2)  # warm-up
+    eng.run(max_chunks=8)
+    eng.reset()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    runner = EngineRunner(eng, poll_interval=0.005)
+    srv = AudioLLMServer(runner, cfg, tokenizer=None, port=0, request_timeout=300.0).start()
+    results = {}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        chunks0, rid0 = eng.decode_chunks, eng._next_rid
+        t_run = time.perf_counter()
+        code, out = http(srv.port, "/v1/prefix", {"prompt_ids": instr,
+                                                  "audio_path": paths[-1]})
+        if code != 200:
+            raise AssertionError(f"serve: /v1/prefix answered {code}: {out}")
+        pid = out["prefix_id"]
+        bodies = [dict(prompt_ids=a, audio_path=p, max_new_tokens=N_NEW, stream=i == 0)
+                  for i, (a, p) in enumerate(zip(audio_ids, paths))]
+        bodies += [dict(prompt_ids=sfx, prefix_id=pid, max_new_tokens=N_NEW,
+                        **({"greedy": False, "temperature": 0.7, "top_p": 0.9} if i >= 2
+                           else {})) for i, sfx in enumerate(suffixes)]
+
+        def send(i):
+            t = time.perf_counter()
+            results[i] = (*http(srv.port, "/v1/generate", bodies[i]), time.perf_counter() - t)
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        wall_s = time.perf_counter() - t_run
+        launches = read_counters()
+        chunks = eng.decode_chunks - chunks0
+        chunk_ms = eng.chunk_ms[-chunks:]
+        ttft = [v for r, v in sorted(eng.ttft_ms.items()) if r >= rid0]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        _, health = http(srv.port, "/healthz")
+        _, stats = http(srv.port, "/v1/stats")
+        # stop() with a request in flight: it must fail with 503. The engine
+        # thread holds after each chunk until stop() is under way, so the
+        # request is still decoding when it comes
+        inflight = {}
+
+        def held_step(_step=eng.step_chunk):
+            _step()
+            for _ in range(6000):
+                if runner._stop:
+                    break
+                time.sleep(0.005)
+
+        eng.step_chunk = held_step
+        th = threading.Thread(target=lambda: inflight.setdefault(
+            "r", http(srv.port, "/v1/generate", dict(prompt_ids=suffixes[0], prefix_id=pid,
+                                                      max_new_tokens=2 * N_NEW))))
+        th.start()
+        for _ in range(6000):
+            if runner.health()["live"]:
+                break
+            time.sleep(0.005)
+    finally:
+        srv.stop()
+        eng.__dict__.pop("step_chunk", None)
+    th.join(300)
+    code, out = inflight.get("r", (None, None))
+    if code != 503 or "shutting down" not in out.get("error", ""):
+        raise AssertionError(f"serve: stop() with a request in flight answered {code}: {out}")
+
+    tokens = {}
+    for i, body in enumerate(bodies):
+        code, out, secs = results.get(i, (None, None, None))
+        if code != 200:
+            raise AssertionError(f"serve: request {i} answered {code}: {out}")
+        if body.get("stream"):
+            toks = [t for e in out[:-1] for t in e["tokens"]]
+            if not out[-1].get("done") or out[-1]["n_tokens"] != len(toks):
+                raise AssertionError(f"serve: stream {i} ended with {out[-1]}")
+        else:
+            toks = out["tokens"]
+        n = len(toks)
+        if not (n == N_NEW or (0 < n < N_NEW and toks[-1] == EOS)) or \
+                not all(0 <= t < V + 2 for t in toks):
+            raise AssertionError(f"serve: request {i} gave {n} tokens {toks}")
+        tokens[i] = toks
+    n_long, n_short = len(audio_ids) + 1, len(suffixes)
+    steps = SERVE_CHUNK * chunks
+    want = {"decode_attention_quantized4_mono": L * steps,
+            "mlp_int4_stacked": L * steps + L * n_short,
+            "int4_matmul_stacked": 2 * L * steps + 4 * L * n_long + 2 * L * n_short,
+            "causal_attention": L * n_long, "enc_attention": W * n_long,
+            "mel_power": n_long, "layer_norm": 2 * W * n_long, "decode_megakernel": 0,
+            "decode_attention_mono": 0}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"serve: {name} launched {launches[name]} times over {chunks} "
+                                 f"chunks, want {n}")
+    n_tok = sum(len(t) for t in tokens.values())
+    if not (health["ok"] and health["live"] == 0 and health["queued"] == 0
+            and stats["completed"] == stats["requests"] == len(bodies)
+            and stats["tokens"] == n_tok and stats["prefixes"] == 1
+            and stats["prefix_admits"] == n_short
+            and stats["decode_chunks"] == chunks0 + chunks):
+        raise AssertionError(f"serve: /healthz {health} and /v1/stats {stats} disagree with "
+                             f"the run ({len(bodies)} requests, {n_tok} tokens, {chunks} chunks)")
+
+    # each audio request's logits on the pool against generate at B = 1
+    kw = dict(eos_id=EOS, pad_id=0, audio_start_id=AUDIO_START, audio_end_id=AUDIO_END,
+              compute_dtype=torch.bfloat16, device=dev, kv_quant=4, greedy=True)
+    per_request = []
+    for i, (a, wave) in enumerate(zip(audio_ids, waves)):
+        tid = torch.tensor([a], device=dev)
+        tmask = torch.ones_like(tid, dtype=torch.int32)
+        twav = torch.from_numpy(wave).to(dev)
+        ref_pre = prefill(frozen, trainable, cfg, tid, tmask, twav, dev, max_new_tokens=N_NEW,
+                          compute_dtype=torch.bfloat16, kv_quant=4, audio_start_id=AUDIO_START,
+                          audio_end_id=AUDIO_END).next_logits[0].float()
+        ref_step = first_step_logits(frozen, trainable, cfg, tid, tmask, twav, 4)[0]
+        pool_pre, pool_step = pool_logits(eng, np.asarray(a, np.int32), wave[0])
+        rel_pre, rel_step = rel_l2(pool_pre, ref_pre), rel_l2(pool_step, ref_step)
+        if not (rel_pre <= HOST_TOL and rel_step <= HOST_TOL):
+            raise AssertionError(f"serve: audio request {i} logits rel-L2 prefill {rel_pre}, "
+                                 f"first step {rel_step} vs generate (bar {HOST_TOL})")
+        ref_toks = generate(frozen, trainable, cfg, tid, tmask, twav, None,
+                            max_new_tokens=N_NEW, megakernel=False, **kw).tokens[0].tolist()
+        agree = sum(x == y for x, y in zip(tokens[i], ref_toks))
+        per_request.append(dict(
+            request=i, prefill_rel_l2=rel_pre, first_step_rel_l2=rel_step,
+            greedy_tokens_equal_generate=f"{agree}/{len(tokens[i])}",
+            http_seconds=results[i][2]))
+    stats_out = dict(
+        label="serving pool, int4w+kv4 (LoRA merged), HTTP", rows=SERVE_ROWS,
+        chunk_steps=SERVE_CHUNK, max_len=max_len, buckets=list(SERVE_BUCKETS),
+        requests=len(bodies), new_tokens=N_NEW, wall_s=wall_s,
+        requests_per_s=len(bodies) / wall_s, tokens_per_s=n_tok / wall_s,
+        decode_chunks=chunks, ms_per_chunk=float(np.median(chunk_ms)),
+        ms_per_chunk_each=chunk_ms, ttft_ms_each=ttft, peak_mem_gb=peak_gb, setup_s=setup_s,
+        launches=launches, per_request=per_request, tol_rel_l2=HOST_TOL, health=health,
+        stats=stats, card=gpu_line())
+    log(json.dumps({"serve_path": stats_out}))
+    # chunked prefill (pieces of SERVE_PIECE), two audio requests against
+    # generate: on this engine (int4 KV) the later pieces attend the int4
+    # K/V of the earlier ones where generate's one-shot prefill attends the
+    # exact rows (the JAX pool's semantics too), so it is reported and held
+    # to STAGED_INT4_TOL; the piece machinery is held to HOST_TOL on a bf16-KV
+    # engine of the same weights, where the pieces read back what one shot
+    # attends
+    eng.prefill_chunk_tokens = SERVE_PIECE
+    eng16 = ServingEngine(
+        frozen, trainable, cfg, rows=SERVE_ROWS, max_len=max_len, prefill_buckets=SERVE_BUCKETS,
+        chunk_steps=SERVE_CHUNK, kv_quant=False, compute_dtype=torch.bfloat16, greedy=True,
+        eos_id=EOS, pad_id=0, audio_start_id=AUDIO_START, audio_end_id=AUDIO_END,
+        prefill_chunk_tokens=SERVE_PIECE, device=dev)
+    staged = []
+    for kv, engine, bar in ((4, eng, STAGED_INT4_TOL), (False, eng16, HOST_TOL)):
+        for i in range(2):
+            tid = torch.tensor([audio_ids[i]], device=dev)
+            tmask = torch.ones_like(tid, dtype=torch.int32)
+            twav = torch.from_numpy(waves[i]).to(dev)
+            pool_pre, pool_step = pool_logits(engine, np.asarray(audio_ids[i], np.int32),
+                                              waves[i][0])
+            ref_pre = prefill(frozen, trainable, cfg, tid, tmask, twav, dev,
+                              max_new_tokens=N_NEW, compute_dtype=torch.bfloat16, kv_quant=kv,
+                              audio_start_id=AUDIO_START,
+                              audio_end_id=AUDIO_END).next_logits[0].float()
+            ref_step = first_step_logits(frozen, trainable, cfg, tid, tmask, twav, kv)[0]
+            staged.append(dict(kv_cache="int4" if kv else "bf16", request=i,
+                               prefill_rel_l2=rel_l2(pool_pre, ref_pre),
+                               first_step_rel_l2=rel_l2(pool_step, ref_step), bar=bar))
+    eng.prefill_chunk_tokens = None
+    del eng16
+    log(json.dumps({"serve_staged_prefill": dict(prefill_chunk_tokens=SERVE_PIECE,
+                                                 requests=staged)}))
+    for st in staged:
+        if not (st["prefill_rel_l2"] <= st["bar"] and st["first_step_rel_l2"] <= st["bar"]):
+            raise AssertionError(f"serve, prefill_chunk_tokens={SERVE_PIECE}: {st}")
+    del eng, frozen, trainable
+    torch.cuda.empty_cache()
+    return launches
+
+
+def host_check_pool(dev) -> None:
+    """The pool at 2 + 2 layers, card (bf16, kernels) against host (f32, plain
+    versions) on the same int4 tree built on the host: two audio requests and
+    one text request, 8 greedy tokens each, rows 2, chunks of 4; every
+    request's prefill logits within rel-L2 HOST_TOL, tokens compared."""
+    import copy
+
+    from audio_llama_tpu_torch.device import make_generator
+    from audio_llama_tpu_torch.inference import cli
+    from audio_llama_tpu_torch.inference.serving import ServingEngine
+    from audio_llama_tpu_torch.models import allm, llama
+
+    cfg = cut_config()
+    t0 = time.perf_counter()
+    gen = make_generator(21, "cpu")
+    frozen = allm.init_frozen(cfg, gen, torch.bfloat16)
+    frozen["llama"] = llama.resize_embeddings(frozen["llama"], cfg.llama.vocab_size + 2,
+                                              cfg.llama)
+    trainable = allm.init_trainable(cfg, gen, torch.bfloat16)
+    rng = np.random.default_rng(21)
+    for br in trainable["lora"]["layers"].values():
+        br["a"].data.copy_(torch.from_numpy(rng.normal(size=br["a"].shape) * 0.02))
+    frozen, trainable = cli.quantize_decoder(cfg, frozen, trainable, bits=4)
+    reqs = [(rng.integers(0, cfg.llama.vocab_size, (n,)).astype(np.int32),
+             None if n == 8 else (rng.normal(size=cfg.mel.max_samples) * 0.1).astype(np.float32))
+            for n in (16, 12, 8)]
+
+    def run(fz, tr, cd, d):
+        eng = ServingEngine(fz, tr, cfg, rows=2, max_len=_rounded_len(cfg.audio_seq_len + 80),
+                            prefill_buckets=(16, 32), chunk_steps=4, kv_quant=4,
+                            compute_dtype=cd, greedy=True, eos_id=-1, audio_start_id=AUDIO_START,
+                            audio_end_id=AUDIO_END, device=d)
+        with SamplerTrace() as tr_:
+            rids = [eng.submit(i, audio_features=a, max_new_tokens=8) for i, a in reqs]
+            out = eng.run(max_chunks=20)
+        firsts = [lg[0].cpu() for lg in tr_.logits if lg.shape[0] == 1]  # the prefills'
+        return [out[r] for r in rids], firsts
+
+    host_toks, host_first = run(frozen.float(), trainable.float(), torch.float32,
+                                torch.device("cpu"))
+    card_toks, card_first = run(copy.deepcopy(frozen).to(dev), copy.deepcopy(trainable).to(dev),
+                                torch.bfloat16, dev)
+    prefills = [compare_logits(f"pool card vs host, request {i}", c, h)
+                for i, (c, h) in enumerate(zip(card_first, host_first))]
+    stats = {"path": "serving pool int4w+kv4", "layers": "2 whisper + 2 llama, full width",
+             "prefill": prefills, "tokens_equal": [c == h for c, h in zip(card_toks, host_toks)],
+             "tol_rel_l2": HOST_TOL, "seconds": time.perf_counter() - t0}
+    log(json.dumps({"host_check_pool": stats}))
+
+
 # bf16 activations through 2 + 2 layers against an f32 host path: each bf16
 # rounding is <= 2^-9 relative, a few dozen of them compound to ~1e-2
 HOST_TOL = 2e-2
@@ -4505,7 +5129,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows += ksplit_kernel_checks(dev, gen)
     torch.cuda.empty_cache()
+    single_rows, single_launches = single_decode_checks(dev, gen)
+    rows += single_rows
+    torch.cuda.empty_cache()
+    int4_2d_rows, int4_2d_launches = int4_2d_checks(dev, gen)
+    rows += int4_2d_rows
+    torch.cuda.empty_cache()
     paths = enc8_path(dev)
+    paths["single_decode"], paths["int4_2d"] = single_launches, int4_2d_launches
     paths["causal_variants"] = causal_variant_path(dev, gen)
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
@@ -4523,6 +5154,9 @@ def main(argv=None) -> int:
     paths["int8"], ab = int8_path(dev, profile=args.profile)
     paths.update(ab)
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["serve"] = serve_path(dev, tmp)
+    torch.cuda.empty_cache()
     host_check(dev)
     L = cut_config().llama.num_layers
     host_check_quant(dev, "int4w+kv4, B=1 (megakernel)", seed=4,
@@ -4532,6 +5166,7 @@ def main(argv=None) -> int:
     host_check_quant(dev, "int8w+kv8, B=1", bits=8, kv_quant=True, seed=6,
                      want={"decode_attention_quantized_mono": L})
     host_check_enc8(dev)
+    host_check_pool(dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         paths["train"] = train_path(dev, tmp, profile=args.profile)

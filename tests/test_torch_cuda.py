@@ -1250,3 +1250,146 @@ def test_int4_ksplit_geometry_fallback_is_the_whole_k_kernel(dev, M):
         got = i4.int4_matmul_stacked(x, packed, scales, 0, block_k=bk)
         assert (i4.launches, i4.launches_ksplit) == (before[0] + 1, before[1])
         assert torch.equal(got, whole)
+
+
+# ---- the last three Pallas kernels: single-buffered decode attention on a
+# bf16/f32 and an int8 cache, and the unstacked W4A16
+
+
+def _single_case(dev, quant, B, S, dtype=torch.bfloat16, L=3, Hkv=8, Hq=24, hd=128, seed=0):
+    from audio_llama_tpu_torch.models.llama import quantize_kv_rows
+
+    q = _randn(dev, B, Hq, hd, dtype=dtype, seed=seed)
+    if not quant:
+        return dict(q=q, rows=[_randn(dev, B, Hkv, hd, dtype=dtype, seed=seed + i + 1)
+                               for i in range(2)],
+                    caches=[_randn(dev, L, B, Hkv, S, hd, dtype=dtype, seed=seed + i + 3)
+                            for i in range(2)], scales=[])
+    (ck, ks), (cv, vs) = (quantize_kv_rows(_randn(dev, L, B, Hkv, S, hd, dtype=torch.float32,
+                                                  seed=seed + i + 3)) for i in range(2))
+    (kn, ksn), (vn, vsn) = (quantize_kv_rows(_randn(dev, B, Hkv, hd, dtype=torch.float32,
+                                                    seed=seed + i + 1)) for i in range(2))
+    return dict(q=q, rows=[kn, vn], caches=[ck, cv], scales=[ks[1], vs[1], ksn, vsn])
+
+
+def _single_call(case, off, valid, cuda, layer=1, rows=None):
+    from audio_llama_tpu_torch.ops import decode_attention as da
+
+    caches = [c.clone() for c in case["caches"]]
+    scales = [s.clone() for s in case["scales"]]
+    rows = rows or case["rows"]
+    hd = case["q"].shape[-1]
+    if scales:
+        fn = da.decode_attention_quantized_cuda if cuda else da.decode_attention_quantized_plain
+        out = fn(case["q"], *rows, *caches, *scales, layer, off, valid, hd ** -0.5)[0]
+    else:
+        fn = da.decode_attention_cuda if cuda else da.decode_attention_plain
+        out = fn(case["q"], *rows, *caches, layer, off, valid, hd ** -0.5)[0]
+    return out, caches, scales
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,off", [(1, 3040, 3016), (4, 1568, 1567), (4, 96, 96),
+                                     (2, 64, 0)])
+def test_single_decode_kernel(dev, quant, dtype, B, S, off):
+    from audio_llama_tpu_torch.ops import decode_attention as da
+
+    case = _single_case(dev, quant, B, S, dtype)
+    valid = (torch.arange(S, device=dev)[None, :] <= off).to(torch.int32).repeat(B, 1)
+    valid[-1, 3:9] = 0
+    before = (da.launches, da.launches_q8)
+    got, gc, gs = _single_call(case, off, valid, cuda=True)
+    want, wc, ws = _single_call(case, off, valid, cuda=False)
+    torch.cuda.synchronize()
+    assert (da.launches - before[0], da.launches_q8 - before[1]) == ((0, 1) if quant else (1, 0))
+    kernel = "decode_attention_quantized" if quant else "decode_attention"
+    _close(got, want, dtype, kernel)
+    for g, w, c in zip(gc, wc, case["caches"]):
+        assert torch.equal(g, w)
+        changed = (g != c).any(dim=-1)
+        if off < S:
+            changed[1, :, :, off] = False
+        assert not changed.any()
+    for g, s in zip(gs, case["scales"]):
+        assert torch.equal(g, s)  # the scale arrays are the caller's
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_single_decode_check_rejects_planted_faults(dev, quant):
+    """p not normalized (the division dropped) and a stale fresh row both
+    fall outside the bar the kernel meets."""
+    from chip_smoke import must_reject
+
+    B, S, off = 4, 1568, 40
+    case = _single_case(dev, quant, B, S)
+    valid = (torch.arange(S, device=dev)[None, :] <= off).to(torch.int32).repeat(B, 1)
+    kernel = "decode_attention_quantized" if quant else "decode_attention"
+    frac = ATOL_ROW_RMS_FRAC[kernel]
+    want = _single_call(case, off, valid, cuda=False)[0]
+    assert tol_ratio(_single_call(case, off, valid, cuda=True)[0], want, frac) <= 1
+    stale = [c[1, :, :, off].clone() for c in case["caches"]]
+    st_case = case
+    if quant:  # the stale row with its own stale scales
+        st_case = dict(case, scales=case["scales"][:2] + [case["scales"][0][:, :, off].clone(),
+                                                          case["scales"][1][:, :, off].clone()])
+    must_reject(kernel, "stale row", _single_call(st_case, off, valid, True, rows=stale)[0],
+                want, frac)
+    # unnormalized p: the plain version's output times the softmax denominator
+    from audio_llama_tpu_torch.ops import decode_attention as da
+
+    hd = case["q"].shape[-1]
+    qf = case["q"].float().reshape(B, 8, 3, hd)
+    k = case["caches"][0][1].clone()
+    k[:, :, off] = case["rows"][0].to(k.dtype)
+    logits = torch.einsum("bhgd,bhsd->bhgs", qf, k.float()) * hd ** -0.5
+    if quant:
+        ks = case["scales"][0].clone()
+        ks[:, :, off] = case["scales"][2]
+        logits = torch.einsum("bhgd,bhsd->bhgs", qf, k.float()) * (ks * hd ** -0.5)[:, :, None]
+    logits = torch.where((valid != 0)[:, None, None, :], logits, da.DEAD)
+    den = torch.exp(logits - logits.amax(-1, keepdim=True)).sum(-1)  # [B, 8, 3]
+    unnorm = want.float().reshape(B, 8, 3, hd) * den[..., None]
+    must_reject(kernel, "p not normalized", unnorm.reshape(want.shape).to(want.dtype), want,
+                frac)
+
+
+def test_single_decode_refuses_a_timeline_past_shared_memory(dev):
+    case = _single_case(dev, False, 1, 20000)
+    valid = torch.ones((1, 20000), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        _single_call(case, 5, valid, cuda=True)
+
+
+@pytest.mark.parametrize("fmt", ["pair", "obin"])
+@pytest.mark.parametrize("M,K,N", [(4, 3072, 3072), (4, 8192, 3072), (300, 3072, 3072),
+                                   (1, 256, 512)])
+def test_int4_matmul_2d_kernel(dev, fmt, M, K, N):
+    g = torch.Generator(device=dev).manual_seed(M + K)
+    packed = torch.randint(-128, 128, (K, N // 2), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+    scales = torch.rand((K // 128, N), generator=g, device=dev) * 0.02 + 0.002
+    x = _randn(dev, M, K)
+    before = (i4.launches_2d, i4.launches)
+    got = i4.int4_matmul(x, packed, scales, fmt=fmt)
+    torch.cuda.synchronize()
+    assert (i4.launches_2d - before[0], i4.launches - before[1]) == (1, 0)
+    assert tuple(got.shape) == (M, N) and got.dtype == torch.bfloat16
+    _close(got, i4.int4_matmul_plain(x, packed, scales, fmt=fmt), torch.bfloat16, "int4_matmul")
+
+
+def test_linear_w_p_branch_runs_the_2d_kernel(dev):
+    from audio_llama_tpu_torch.models import llama
+
+    K, N = 3072, 1024
+    w = _randn(dev, K, N, dtype=torch.float32) * 0.05
+    packed, scales = i4.quantize_pack(w)
+    w_r = torch.rand(K, device=dev) + 0.5
+    x = _randn(dev, 2, 3, K)
+    for tree in ({"w_p": packed, "w_s": scales}, {"w_p": packed[:, None], "w_s": scales,
+                                                  "w_r": w_r}):
+        before = i4.launches_2d
+        got = llama._linear(x, tree, None, torch.bfloat16)
+        assert i4.launches_2d == before + 1
+        xq = x * tree["w_r"].to(x.dtype) if "w_r" in tree else x
+        _close(got, i4.int4_matmul_plain(xq, packed, scales), torch.bfloat16, "int4_matmul")

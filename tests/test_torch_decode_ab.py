@@ -20,7 +20,9 @@
   within 1e-4 (test_torch_models.py's bar), every slot but the appended one
   bit-equal; the appended rows within 1e-4 (f32), and their int8/int4 bytes
   and scales equal (each package quantizes its own f32 projection).
-  'decode_packed' on an int4 cache raises ValueError in both packages.
+  'decode_packed' on an int4 cache raises ValueError in both packages,
+  with per-row `cache_offsets` too; per-row offsets under 'decode_kernel'
+  take JAX's XLA cached path (logits within 1e-4 of JAX's).
 - The slice: greedy `generate` of the port and JAX (interpret mode), f32,
   2 layers, 4 new tokens, identical tokens for decode_kernel (full-precision,
   int8 and, on the int4 tree at tests/test_torch_megakernel.py's geometry,
@@ -302,10 +304,25 @@ def test_decode_packed_refuses_an_int4_cache(tiny):
     with pytest.raises(ValueError, match="attn_impl must be one of"):
         llama.llama_forward(tiny[2]["llama"], CFG.llama, input_ids=tok, kv_cache=tc,
                             compute_dtype=torch.float32, attn_impl="xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
+    offs = np.array([20, 13], np.int32)  # per-row offsets: refused too, as in JAX
+    with pytest.raises(ValueError, match="no int4-KV variant"):
+        j_llama.llama_forward(tiny[0]["llama"], JCFG.llama, input_ids=jnp.ones((2, 1), jnp.int32),
+                              kv_cache=jc, cache_offsets=jnp.asarray(offs),
+                              compute_dtype=jnp.float32, attn_impl="decode_packed")
+    with pytest.raises(ValueError, match="no int4-KV variant"):
         llama.llama_forward(tiny[2]["llama"], CFG.llama, input_ids=tok, kv_cache=tc,
-                            cache_offsets=torch.tensor([20, 20], dtype=torch.int32),
-                            compute_dtype=torch.float32, attn_impl="decode_kernel")
+                            cache_offsets=torch.from_numpy(offs), compute_dtype=torch.float32,
+                            attn_impl="decode_packed")
+    # per-row offsets under decode_kernel take JAX's XLA cached path (the db
+    # kernels take one scalar offset): logits within 1e-4 of JAX's
+    want, _ = j_llama.llama_forward(tiny[0]["llama"], JCFG.llama,
+                                    input_ids=jnp.ones((2, 1), jnp.int32), kv_cache=jc,
+                                    cache_offsets=jnp.asarray(offs), compute_dtype=jnp.float32,
+                                    attn_impl="decode_kernel")
+    got, _ = llama.llama_forward(tiny[2]["llama"], CFG.llama, input_ids=tok, kv_cache=tc,
+                                 cache_offsets=torch.from_numpy(offs),
+                                 compute_dtype=torch.float32, attn_impl="decode_kernel")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------
