@@ -101,9 +101,10 @@ def to_tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> t
 
 
 # Quantization scales keep the dtype JAX gave them under `from_jax(dtype=...)`:
-# the W8A8 encoder's weight and smoother scales (models/whisper_int8.py) are
-# f32 however its float leaves are stored.
-SCALE_LEAVES = ("w_s", "a_s")
+# the W8A8 encoder's weight and smoother scales (models/whisper_int8.py) and a
+# smoothed int4 slab's row equalizer (models/llama_int4.py) are f32 however
+# the tree's float leaves are stored.
+SCALE_LEAVES = ("w_s", "a_s", "w_r")
 
 
 def from_jax(

@@ -7,12 +7,15 @@
 // and group numerics as int4_matmul.cu.
 //
 // Bound on the H100: the weight bytes, 3 * K * F / 2 per layer (40.1 MB at
-// 3B dims, 12.0 us at 3.35 TB/s). Design: block c owns F-chunk c (`chunk`
-// columns; the wrapper takes one 128-column scale group, so 64 blocks run at
-// F = 8192, where the TPU kernel walks 512-column chunks in order on one
-// core). Its 256 threads stream the chunk's gate|up columns (8 bytes a
-// thread, chunk / 8 threads a row, the rest as row slices), add the slices
-// in a fixed order, form a = g * sigmoid(g) * u in f32 and
+// 3B dims, 12.0 us at 3.35 TB/s; a smoothed tree's down equalizer adds F * 4
+// bytes, 32 KB). Design: block c owns F-chunk c (`chunk` columns; the wrapper
+// takes one 128-column scale group, so 64 blocks run at F = 8192, where the
+// TPU kernel walks 512-column chunks in order on one core). Its 256 threads
+// stream the chunk's gate|up columns (8 bytes a thread, chunk / 8 threads a
+// row, the rest as row slices), add the slices in a fixed order, form
+// a = g * sigmoid(g) * u in f32, multiply it by the layer's down equalizer
+// dn_r[j] where one is given (the TPU kernel's has_dnr mode, for smoothed
+// trees: the down product's effective weight is diag(dn_r) @ dequant) and
 // round it to bf16 (the TPU kernel's cast to x's dtype), then stream the
 // chunk's down rows and write the chunk's f32 contribution to every output
 // column into a workspace. The down sum crosses blocks: the last block to
@@ -36,8 +39,9 @@ constexpr int kVB = 8;  // packed bytes per thread and row
 __global__ void __launch_bounds__(kThreads)
 mlp4_kernel(const __nv_bfloat16* __restrict__ x, int M, int K, const int8_t* __restrict__ gup,
             const float* __restrict__ gus, const int8_t* __restrict__ dn,
-            const float* __restrict__ dns, int F, int dh, int chunk, int fmt,
-            __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int* __restrict__ counter) {
+            const float* __restrict__ dns, const float* __restrict__ dnr, int F, int dh,
+            int chunk, int fmt, __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+            int* __restrict__ counter) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int flag;
   const int tid = threadIdx.x;
@@ -80,7 +84,8 @@ mlp4_kernel(const __nv_bfloat16* __restrict__ x, int M, int K, const int8_t* __r
         g += red[(sl * kMC + m) * cw + j];
         u += red[(sl * kMC + m) * cw + chunk + j];
       }
-      const float a = g * (1.f / (1.f + expf(-g))) * u;
+      float a = g * (1.f / (1.f + expf(-g))) * u;
+      if (dnr != nullptr) a *= dnr[c * chunk + j];  // in f32, before the rounding
       as[idx] = __bfloat162float(__float2bfloat16(a));
     }
     __syncthreads();
@@ -126,14 +131,16 @@ mlp4_kernel(const __nv_bfloat16* __restrict__ x, int M, int K, const int8_t* __r
 }  // namespace
 
 // x [M, K] bf16; gup: the layer's [K, F] int8; gus: [K/128, 2F] f32; dn:
-// the layer's [F, dh] int8; dns: [F/128, 2*dh] f32; out [M, 2*dh] bf16;
-// ws f32 [F/chunk, M, 2*dh]; counter: one int, zero at entry (left zero).
+// the layer's [F, dh] int8; dns: [F/128, 2*dh] f32; dnr: the layer's [F]
+// f32 down equalizer of a smoothed tree, or nullptr (the mode without one);
+// out [M, 2*dh] bf16; ws f32 [F/chunk, M, 2*dh]; counter: one int, zero at
+// entry (left zero).
 // Requires M <= 64, K % 128 == 0, chunk % 128 == 0, F % chunk == 0,
 // 256 % (chunk / 8) == 0, dh % 8 == 0, 8-byte aligned slabs (checked by the
 // wrapper).
 AL_EXPORT int al_mlp_int4(const void* x, int M, int K, const void* gup, const void* gus,
-                          const void* dn, const void* dns, int F, int dh, int chunk, int fmt,
-                          void* out, void* ws, void* counter, void* stream) {
+                          const void* dn, const void* dns, const void* dnr, int F, int dh,
+                          int chunk, int fmt, void* out, void* ws, void* counter, void* stream) {
   if (M == 0) return cudaSuccess;
   if (K % kGroup || chunk % kGroup || F % chunk || kThreads % (chunk / kVB) || dh % kVB)
     return cudaErrorInvalidValue;
@@ -145,7 +152,7 @@ AL_EXPORT int al_mlp_int4(const void* x, int M, int K, const void* gup, const vo
   mlp4_kernel<<<F / chunk, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), M, K, static_cast<const int8_t*>(gup),
       static_cast<const float*>(gus), static_cast<const int8_t*>(dn),
-      static_cast<const float*>(dns), F, dh, chunk, fmt, static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(ws), static_cast<int*>(counter));
+      static_cast<const float*>(dns), static_cast<const float*>(dnr), F, dh, chunk, fmt,
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), static_cast<int*>(counter));
   return cudaGetLastError();
 }

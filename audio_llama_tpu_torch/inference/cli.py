@@ -28,7 +28,7 @@ trained projector + LoRA.
 
 Not ported yet, and refused with NotImplementedError: `--llama_path` /
 `--whisper_path` (wait for models/hf_loader.py and checkpoints on disk) and
-`--draft_llama_path` (queue 1 item 2, serving: speculative decoding).
+`--draft_llama_path` (queue 1 item 1, serving: speculative decoding).
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ def load_audio_llm(checkpoint_path: Optional[str], llama_path: Optional[str] = N
     if not (toy_model or seeded_run or small):
         raise NotImplementedError(
             "--llama_path / --whisper_path: models/hf_loader.py is not ported yet and needs "
-            "the checkpoints on disk (ROADMAP queue 1 item 6); use --toy_model or a "
+            "the checkpoints on disk (ROADMAP queue 1 item 4); use --toy_model or a "
             "checkpoint of a --toy_model / --synthetic_flagship run")
     del whisper_path
     tk = load_tokenizer(tokenizer or "byte")
@@ -136,7 +136,7 @@ def generate_response(cfg, frozen, trainable, tokenizer, prompt: str,
 
     if draft is not None:
         raise NotImplementedError(
-            "speculative decoding is not ported yet (ROADMAP queue 1 item 2, serving)")
+            "speculative decoding is not ported yet (ROADMAP queue 1 item 1, serving)")
     del gamma
     dev = resolve_device(device)
     if audio_path and cfg.splice_mode == "inplace" and cfg.audio_start_token not in prompt:
@@ -207,7 +207,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     if args.draft_llama_path:
         raise NotImplementedError("--draft_llama_path: speculative decoding is not ported "
-                                  "yet (ROADMAP queue 1 item 2, serving)")
+                                  "yet (ROADMAP queue 1 item 1, serving)")
     device = "cpu" if args.platform == "cpu" else None
     cfg, frozen, trainable, tk = load_audio_llm(
         args.checkpoint_path, llama_path=args.llama_path, whisper_path=args.whisper_path,

@@ -37,7 +37,7 @@ Endpoints (JSON in and out):
 Without `--platform cpu` the server runs on the card and raises when there
 is none. Not ported, and refused as the port's inference CLI refuses them:
 `--llama_path` / `--whisper_path` (models/hf_loader.py, ROADMAP queue 1
-item 6), `--draft_llama_path` and `--dp` / `--tp` > 1 (speculative serving
+item 4), `--draft_llama_path` and `--dp` / `--tp` > 1 (speculative serving
 and the dp/tp pool, ROADMAP queue 1).
 """
 

@@ -85,13 +85,23 @@ column planes, o, and for more than 64 rows gate|up then down; on the
 unfused tree each of the seven projections (a tp-packed slab's block axis,
 a singleton inside the shard, squeezed first). Up to 64 rows with no LoRA
 on the MLP, the fused int4 MLP kernel (`ops/mlp_int4.py`) runs the whole
-MLP. A single-token step of one request (B * T == 1) on a fused int4 tree
-with an int4 KV cache and no LoRA runs the whole layer stack as one launch
-of the decode megakernel (`ops/decode_megakernel.py`) where its gate
-`ok_for` passes; `megakernel=False` takes the per-layer kernels instead (the
-JAX package's MEGA_DECODE=0). On an int8 tree the projections are
-`(x @ w_q) * w_s` in the compute dtype, as the JAX package leaves them to
-XLA.
+MLP. A smoothed tree's slabs carry per-input-row equalizers w_r [L, K]
+(`models/llama_int4.py`, smooth=True): each frozen product's input is
+multiplied by w_r[layer] first (a LoRA branch keeps the raw input), and the
+fused MLP kernel takes the down slab's as `dn_r`, as the JAX package's
+`_int4_smooth_in` and `mlp_int4_stacked(dn_r=...)`. A single-token step of
+one request (B * T == 1) on a fused int4 tree with an int4 KV cache and no
+LoRA runs the whole layer stack as one launch of the decode megakernel
+(`ops/decode_megakernel.py`) where its gate `ok_for` passes;
+`megakernel=False` takes the per-layer kernels instead (the JAX package's
+MEGA_DECODE=0); the gate refuses a smoothed tree. On an int8 tree the
+projections are `(x @ w_q) * w_s` in the compute dtype, as the JAX package
+leaves them to XLA.
+
+`collect_quant_stats` (a subset of QUANT_STAT_ROLES) also returns each
+layer's masked input Gram sum_t x_t x_t^T in f32 for the q|k|v, o, gate|up
+and down inputs, stacked [L, K, K]: the calibration statistics of GPTQ
+(`models/llama_gptq.py`), on full-precision trees only.
 """
 
 from __future__ import annotations
@@ -109,7 +119,8 @@ from ..ops import mlp_int4 as mlp4
 from ..ops import decode_attention_db as db
 from ..ops import decode_attention_packed as packed
 from ..ops import decode_megakernel as mk
-from ..ops.attention import NEG_INF, combine_bias, merge_partial_stats, mha, padding_bias
+from ..ops.attention import (NEG_INF, causal_bias, combine_bias, merge_partial_stats, mha,
+                             padding_bias)
 from ..ops.causal_attention import causal_mha
 from ..ops.decode_attention_mono import (decode_attention_mono, decode_attention_quantized4_mono,
                                          decode_attention_quantized_mono)
@@ -118,9 +129,13 @@ from ..ops.rope import apply_rope, rope_for_config, rope_tables
 from ..parallel import collectives
 from ..parallel.ring_kernel import ring_causal_mha_kernel
 
-ATTN_IMPLS = ("auto", "decode_kernel", "decode_packed")  # the decode steps' kernels
+DECODE_IMPLS = ("auto", "decode_kernel", "decode_packed")  # the decode steps' kernels
+# and 'xla', the plain attention of a call without a cache (the JAX
+# package's attn_impl='xla', which its GPTQ calibration pins)
+ATTN_IMPLS = DECODE_IMPLS + ("xla",)
 LINEAR_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 ROW_PARALLEL = ("o_proj", "down_proj")  # tensor parallelism shards their input dim
+QUANT_STAT_ROLES = ("qkv", "o", "gateup", "down")  # the linears' inputs GPTQ calibrates on
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.float32) -> ParamTree:
@@ -431,6 +446,13 @@ def _vslice(lo: torch.Tensor, hi: torch.Tensor, start: int, size: int) -> torch.
     return torch.cat([lo[..., start:], hi[..., :start + size - half]], dim=-1)
 
 
+def _int4_group(w) -> int:
+    """The contraction rows per scale group of an int4 slab {'w_p', 'w_s'},
+    read from its shapes as the JAX package reads it (128 by default; the
+    card's kernels take 128 only and raise on another)."""
+    return w["w_p"].shape[1] // w["w_s"].shape[-2]
+
+
 def _squeeze_int4_blocks(w) -> dict:
     """An unfused int4 slab {'w_p', 'w_s'}, its pack-after-shard w_p [L, K,
     tp, N/(2 tp)] squeezed to the canonical [L, K, N/2] where the block axis
@@ -444,7 +466,10 @@ def _squeeze_int4_blocks(w) -> dict:
                 f"int4 tree packed for tp={p.shape[2]} used without tensor-parallel sharding "
                 "(make_tp_generate); quantize with tp=1 for dp/single-device serving")
         p = p.reshape(p.shape[0], p.shape[1], p.shape[3])
-    return {"w_p": p, "w_s": w["w_s"]}
+    out = {"w_p": p, "w_s": w["w_s"]}
+    if "w_r" in w:
+        out["w_r"] = w["w_r"]
+    return out
 
 
 def _write_scales(ks_all, vs_all, k_s, v_s, layer, offset):
@@ -480,6 +505,7 @@ def llama_forward(
     tp_axis=None,
     sp_axis=None,
     seq_axis=None,
+    collect_quant_stats: tuple = (),
 ):
     """Decoder forward. Without a cache returns (logits [B, T, V], None);
     with one, (logits, cache). `return_hidden` appends the final-norm hidden
@@ -489,12 +515,21 @@ def llama_forward(
     `attn_impl` (T == 1 steps only, not under `sp_axis`): 'auto' (the mono
     kernels and the megakernel), 'decode_kernel' or 'decode_packed' (see
     the module docstring; with per-row `cache_offsets` their steps take the
-    cached arm, as JAX's fall back to XLA). `remat=True` (no cache) recomputes each layer in
-    the backward (`torch.utils.checkpoint`), as the JAX package's
-    `jax.checkpoint`.
-    `tp_axis` / `sp_axis` / `seq_axis`: see the module docstring."""
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+    cached arm, as JAX's fall back to XLA); 'xla' (no cache) attends with
+    the plain `ops.attention.mha`, any dtype, on any device. `remat=True`
+    (no cache) recomputes each layer in the backward
+    (`torch.utils.checkpoint`), as the JAX package's `jax.checkpoint`.
+    `tp_axis` / `sp_axis` / `seq_axis`: see the module docstring.
+    `collect_quant_stats`: roles whose per-layer input Grams {role: [L, K,
+    K] f32} come back as one more output, after the hidden states where
+    `return_hidden` asks for them."""
+    impls = ATTN_IMPLS if kv_cache is None and seq_axis is None else DECODE_IMPLS
+    if attn_impl not in impls:
+        raise ValueError(f"attn_impl must be one of {impls} (with a cache or seq_axis, "
+                         f"{DECODE_IMPLS}), got {attn_impl!r}")
+    if set(collect_quant_stats) - set(QUANT_STAT_ROLES):
+        raise ValueError(f"collect_quant_stats takes roles of {QUANT_STAT_ROLES}, "
+                         f"got {collect_quant_stats!r}")
     cd = compute_dtype
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids, cd)
@@ -601,6 +636,10 @@ def llama_forward(
     attn_mask = attention_mask
     if fresh and attn_mask is not None:
         attn_mask = attn_mask[:, :T]
+    xla_bias = None
+    if attn_impl == "xla":
+        xla_bias = combine_bias(causal_bias(T, T, device=dev),
+                                None if attn_mask is None else padding_bias(attn_mask))
 
     lp = params["layers"]
     int4 = "qkv_proj" in lp  # the fused int4 tree
@@ -608,6 +647,10 @@ def llama_forward(
     if not int4 and isinstance(lp["q_proj"], ParamTree) and "w_p" in lp["q_proj"]:
         int4_slabs = {n: _squeeze_int4_blocks(lp[n]) for n in LINEAR_NAMES}
     fmt = "obin" if "int4_obin" in params else "pair"
+    if collect_quant_stats and (int4 or int4_slabs):
+        raise ValueError("collect_quant_stats calibrates FULL-PRECISION trees "
+                         "(quantize after capturing)")
+    grams = {role: [] for role in collect_quant_stats}
     # each stacked LoRA leaf split into its layers once: under autograd the
     # backward then stacks a leaf's layer gradients in one op, where indexing
     # the stack per layer would add a zero-padded [L, ...] gradient per layer
@@ -626,7 +669,8 @@ def llama_forward(
     mlp_chunk = None
     if int4:
         mlp_chunk = mlp4.kernel_chunk(lp["gateup_proj"]["w_p"].shape[-1],
-                                      lp["down_proj"]["w_p"].shape[-1])
+                                      lp["down_proj"]["w_p"].shape[-1],
+                                      _int4_group(lp["gateup_proj"]))
 
     use_mega = (megakernel and decode and int4 and kv_bits == 4 and B == 1 and lora is None
                 and cache_offsets is None and tp_axis is None and sp_axis is None
@@ -763,23 +807,39 @@ def llama_forward(
             return y if br is None else y + _lora_delta(x_in, br, cd, tp_axis,
                                                         name in ROW_PARALLEL)
 
+        def smooth_in(x_in, w):
+            """A smoothed slab's input times its equalizer w_r[li] (JAX's
+            `_int4_smooth_in`): the effective weight is diag(w_r[li]) @
+            dequant. x_in unchanged without one."""
+            return x_in * w["w_r"][li].to(x_in.dtype) if "w_r" in w else x_in
+
         def int4_linear(x_in, name, lora_name=None):
             w = int4_slabs.get(name) or lp[name]
-            g = w["w_p"].shape[-2] // w["w_s"].shape[-2]
-            y = i4.int4_matmul_stacked(x_in, w["w_p"], w["w_s"], li, group=g, fmt=fmt)
+            y = i4.int4_matmul_stacked(smooth_in(x_in, w), w["w_p"], w["w_s"], li,
+                                       group=_int4_group(w), fmt=fmt)
             return lora_add(y, lora_name, x_in) if lora_name else y
+
+        def gram(role, v):
+            """The role's masked input Gram sum_t v_t v_t^T [K, K] in f32."""
+            if role in grams:
+                vf = v.detach().to(torch.float32)
+                if attention_mask is not None:
+                    vf = vf * attention_mask[:, :T, None].to(torch.float32)
+                v2 = vf.reshape(-1, vf.shape[-1])
+                grams[role].append(v2.T @ v2)
 
         def linear(x_in, name, x_main=None):
             return _linear(x_in, _layer_weight(lp[name], li), lb(name), cd, x_main, tp_axis,
                            name in ROW_PARALLEL)
 
         h = rms_norm(x, lp["input_ln"][li].to(cd), eps)
+        gram("qkv", h)
         hf = collectives.copy_to(h, tp_axis)  # f: the column-parallel products' input
         if int4:
             nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
             w = lp["qkv_proj"]
-            lo, hi = i4.int4_matmul_stacked(h, w["w_p"], w["w_s"], li, return_planes=True,
-                                            fmt=fmt)
+            lo, hi = i4.int4_matmul_stacked(smooth_in(h, w), w["w_p"], w["w_s"], li,
+                                            group=_int4_group(w), return_planes=True, fmt=fmt)
             q = lora_add(_vslice(lo, hi, 0, nq), "q_proj", h)
             k = lora_add(_vslice(lo, hi, nq, nkv), "k_proj", h)
             v = lora_add(_vslice(lo, hi, nq + nkv, nkv), "v_proj", h)
@@ -829,9 +889,12 @@ def llama_forward(
             if seq_axis is not None:
                 attn = ring_causal_mha_kernel(q, k, v, axis=seq_axis, mask=attn_mask,
                                               scale=scale)
+            elif attn_impl == "xla":
+                attn = mha(q, k, v, bias=xla_bias, scale=scale)
             else:
                 attn = causal_mha(q, k, v, mask=attn_mask, scale=scale)
         attn = attn.reshape(B, T, -1)
+        gram("o", attn)
         if int4 or int4_slabs:
             attn = int4_linear(attn, "o_proj", "o_proj")
         else:
@@ -839,16 +902,18 @@ def llama_forward(
         x = x + collectives.reduce_from(attn, tp_axis)  # g: the row-parallel sum over tp
 
         h = rms_norm(x, lp["post_attn_ln"][li].to(cd), eps)
+        gram("gateup", h)
         hf = collectives.copy_to(h, tp_axis)
         mlp_lora = any(lb(n) is not None for n in ("gate_proj", "up_proj", "down_proj"))
         if int4 and B * T <= mlp4.MAX_M and not mlp_lora and mlp_chunk is not None:
             gu, dn = lp["gateup_proj"], lp["down_proj"]
-            d = mlp4.mlp_int4_stacked(h, gu["w_p"], gu["w_s"], dn["w_p"], dn["w_s"], li,
-                                      chunk=mlp_chunk, fmt=fmt)
+            d = mlp4.mlp_int4_stacked(smooth_in(h, gu), gu["w_p"], gu["w_s"], dn["w_p"],
+                                      dn["w_s"], li, group=_int4_group(gu), chunk=mlp_chunk,
+                                      fmt=fmt, dn_r=dn["w_r"] if "w_r" in dn else None)
         elif int4:  # the planes are exactly gate and up
             gu = lp["gateup_proj"]
-            g, u = i4.int4_matmul_stacked(h, gu["w_p"], gu["w_s"], li, return_planes=True,
-                                          fmt=fmt)
+            g, u = i4.int4_matmul_stacked(smooth_in(h, gu), gu["w_p"], gu["w_s"], li,
+                                          group=_int4_group(gu), return_planes=True, fmt=fmt)
             g, u = lora_add(g, "gate_proj", h), lora_add(u, "up_proj", h)
             d = int4_linear(F.silu(g) * u, "down_proj", "down_proj")
         elif int4_slabs:
@@ -856,7 +921,9 @@ def llama_forward(
             d = int4_linear(F.silu(g) * u, "down_proj", "down_proj")
         else:
             g, u = linear(h, "gate_proj", hf), linear(h, "up_proj", hf)
-            d = linear(F.silu(g) * u, "down_proj")
+            a = F.silu(g) * u
+            gram("down", a)
+            d = linear(a, "down_proj")
         x = x + collectives.reduce_from(d, tp_axis)  # g: the row-parallel sum over tp
         return x
 
@@ -879,9 +946,10 @@ def llama_forward(
         new_cache = KVCache(k=ck, v=cv, length=new_len.to(torch.int32),
                             k_scale=ks_all, v_scale=vs_all,
                             host_length=None if host_offset is None else host_offset + T)
-    if return_hidden:
-        return logits, new_cache, x
-    return logits, new_cache
+    out = (logits, new_cache) + ((x,) if return_hidden else ())
+    if collect_quant_stats:
+        out += ({role: torch.stack(g) for role, g in grams.items()},)
+    return out
 
 
 def token_nll_sum(logits: torch.Tensor, targets: torch.Tensor):

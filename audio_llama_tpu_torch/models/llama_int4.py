@@ -24,7 +24,12 @@ shard the contraction dim, which the packing never pairs across; their
 group scales must stay shard-aligned, (K/tp) % group == 0. The bytes equal
 the JAX package's for the same weights.
 
-Not ported yet (ROADMAP queue 1 item 3): `smooth=True` (per-row equalizers).
+`smooth=True` adds a per-input-row equalizer to every slab, "w_r": f32 [L,
+K] (`_equalize_rows`): the slab quantizes w / w_r[:, :, None] and its
+effective weight is diag(w_r[layer]) @ dequant, so `llama_forward`
+multiplies each frozen product's input by w_r[layer] (the fused MLP kernel
+takes the down slab's as `dn_r`). Under tp > 1 the row is equalized over all
+N before the column blocks are cut.
 """
 
 from __future__ import annotations
@@ -44,26 +49,47 @@ _COL_NAMES = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
 LINEAR_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 
 
+def _equalize_rows(m: torch.Tensor, eps: float = 1e-6):
+    """[K, N] -> (m / r[:, None], r [K] f32): per-input-row magnitude
+    equalization. r is the row's absmax over the geometric mean of the
+    absmaxes (each floored at eps), itself floored at eps, so a hot input row
+    no longer sets its whole group's scale and the activations, multiplied by
+    r, stay near their scale."""
+    mf = m.to(torch.float32)
+    mag = mf.abs().amax(dim=-1)  # [K]
+    r = mag / torch.exp(torch.mean(torch.log(torch.clamp(mag, min=eps))))
+    r = torch.clamp(r, min=eps)
+    return (mf / r[:, None]).to(m.dtype), r
+
+
 def _quantize_stacked_int4(w: torch.Tensor, group: int = i4.GROUP, clip: bool = False,
-                           fmt=None, tp: int = 1) -> dict:
+                           fmt=None, tp: int = 1, smooth: bool = False) -> dict:
     """[L, K, N] -> {'w_p' int8 [L, K, N/2], 'w_s' f32 [L, K/group, N]},
     one layer at a time (the f32 transients of the clip search stay small).
-    tp > 1: the pack-after-shard layout, w_p [L, K, tp, N/(2 tp)]."""
+    tp > 1: the pack-after-shard layout, w_p [L, K, tp, N/(2 tp)]. smooth:
+    each layer's rows equalized first, 'w_r' f32 [L, K] beside."""
     cands = CLIP_CANDS if clip else None
     L, K, N = w.shape
-    if tp == 1:
-        packed, scales = zip(*(i4.quantize_pack(w[li], group, cands, fmt) for li in range(L)))
-        return {"w_p": torch.stack(packed), "w_s": torch.stack(scales)}
-    if N % (2 * tp):
+    if tp > 1 and N % (2 * tp):
         raise ValueError(f"int4 pack-after-shard needs (2*tp) | N; got N={N} tp={tp}")
     n = N // tp
-    packed, scales = [], []
+    packed, scales, rows = [], [], []
     for li in range(L):
-        blocks = [i4.quantize_pack(w[li][:, s * n:(s + 1) * n], group, cands, fmt)
+        m = w[li]
+        if smooth:  # over the full row: every tp block shares the input rows
+            m, r = _equalize_rows(m)
+            rows.append(r)
+        blocks = [i4.quantize_pack(m[:, s * n:(s + 1) * n], group, cands, fmt)
                   for s in range(tp)]
-        packed.append(torch.stack([p for p, _ in blocks], dim=1))  # [K, tp, n/2]
+        if tp == 1:
+            packed.append(blocks[0][0])
+        else:
+            packed.append(torch.stack([p for p, _ in blocks], dim=1))  # [K, tp, n/2]
         scales.append(torch.cat([sc for _, sc in blocks], dim=1))  # [K/g, N]
-    return {"w_p": torch.stack(packed), "w_s": torch.stack(scales)}
+    out = {"w_p": torch.stack(packed), "w_s": torch.stack(scales)}
+    if smooth:
+        out["w_r"] = torch.stack(rows)
+    return out
 
 
 def quantize_llama_int4(params: ParamTree, include_embed: bool = True, group: int = i4.GROUP,
@@ -73,7 +99,8 @@ def quantize_llama_int4(params: ParamTree, include_embed: bool = True, group: in
     by default at tp = 1 (`fuse=None`), unfused with `fuse=False`, packed
     after the shard for `tp > 1` (unfused). clip (None = auto: on for plain
     trees, off for QuaRot-rotated ones) runs the clipped-RTN scale search;
-    fmt is 'pair' (default) or 'obin'."""
+    smooth adds the per-input-row equalizers 'w_r' (module docstring); fmt
+    is 'pair' (default) or 'obin'."""
     lp = params["layers"]
     first = lp["qkv_proj"] if "qkv_proj" in lp else lp["q_proj"]
     if isinstance(first, ParamTree):
@@ -83,14 +110,12 @@ def quantize_llama_int4(params: ParamTree, include_embed: bool = True, group: in
         fuse = tp == 1
     if fuse and tp > 1:
         raise ValueError("fused int4 trees are tp=1 only (dp/single-chip)")
-    if smooth:
-        raise NotImplementedError("smooth int4 trees are not ported yet (ROADMAP queue 1 item 3)")
     if clip is None:
         clip = "rot" not in params
     fmt = i4._fmt(fmt)
 
     def q4(w, tp=1):
-        return _quantize_stacked_int4(w, group, clip=clip, fmt=fmt, tp=tp)
+        return _quantize_stacked_int4(w, group, clip=clip, fmt=fmt, tp=tp, smooth=smooth)
 
     out = {k: v for k, v in params.to_dict().items() if k != "layers"}
     if fmt == "obin":
@@ -135,10 +160,14 @@ def dequantize_llama_int4(params: ParamTree) -> ParamTree:
         g = K // sc.shape[-2]
         if p.dim() == 4:  # pack-after-shard blocks [L, K, tp, N/(2 tp)]
             tp, n = p.shape[2], 2 * p.shape[3]
-            return torch.stack([torch.cat(
+            d = torch.stack([torch.cat(
                 [i4.dequantize_ref(p[li, :, s], sc[li, :, s * n:(s + 1) * n], g, fmt)
                  for s in range(tp)], dim=-1) for li in range(p.shape[0])])
-        return torch.stack([i4.dequantize_ref(pl, s, g, fmt) for pl, s in zip(p, sc)])
+        else:
+            d = torch.stack([i4.dequantize_ref(pl, s, g, fmt) for pl, s in zip(p, sc)])
+        if "w_r" in w:  # the effective weight diag(w_r) @ dequant
+            d = d * w["w_r"][:, :, None]
+        return d
 
     out = {k: v for k, v in params.to_dict().items() if k not in ("int4_obin", "layers")}
     fused = ("qkv_proj", "gateup_proj", "o_proj", "down_proj")

@@ -54,7 +54,7 @@ SIGNATURES = {
     "al_mel_power": [_P, _I, _L, _I, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P],
     "al_int4_matmul": [_P, _I, _I, _P, _I, _P, _I, _P, _L, _L, _P, _P, _I, _I, _I, _I, _P],
     "al_int4_matmul_2d": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
-    "al_mlp_int4": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "al_mlp_int4": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "al_decode_attention_q4": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P, _P],
     "al_decode_attention_q8": [_I] + [_P] * 11 + [_I] * 7 + [_F, _P, _P],
     "al_decode_megakernel": [_P] * 24 + [_I] * 8 + [_F, _F, _I, _I, _P],

@@ -7,12 +7,15 @@ Counterpart of `audio_llama_tpu/ops/mlp_int4.py`; the kernel
   gate|up scales [L, K/G, 2F]
   down    packed [L, F, D/2]  (low nibble column j, high nibble j + D/2)
   down    scales [L, F/G, D]
+  dn_r            [L, F] f32  (optional: a smoothed tree's down equalizer)
 Decode only (M <= 64 rows). The CUDA kernel is `csrc/mlp_int4.cu` (its
 source note gives the bound and the design). `mlp_int4_stacked_plain` is the
 same arithmetic in PyTorch: per F-chunk the gate and up group dots scaled
-into f32, a = g * sigmoid(g) * u in f32 cast to x's dtype, the chunk's down
-rows into an f32 sum over chunks, cast at the end. `mlp_int4_stacked_ref` is
-the JAX package's oracle (the two-call planes path).
+into f32, a = g * sigmoid(g) * u in f32, times the chunk's slice of
+dn_r[layer] in f32 where dn_r is given (the TPU kernel's has_dnr mode), cast
+to x's dtype, the chunk's down rows into an f32 sum over chunks, cast at the
+end. `mlp_int4_stacked_ref` is the JAX package's oracle (the two-call planes
+path).
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 from . import _cuda
 from .int4_matmul import FMT_CODE, GROUP, _fmt, _unpack_planes, int4_matmul_stacked_ref
 
-launches = 0  # kernel launches through `mlp_int4_stacked`
+launches = 0  # kernel launches through `mlp_int4_stacked` without dn_r
+launches_dnr = 0  # kernel launches with a down equalizer dn_r (smoothed trees)
 
 MAX_M = 64
 CHUNK = 512  # F columns per chunk (the TPU kernel's grid step)
@@ -65,23 +69,25 @@ def kernel_chunk(F: int, dh: int, group: int = GROUP):
 
 def mlp_int4_stacked_ref(x, gup_packed, gup_scales, dn_packed, dn_scales, layer,
                          group: int = GROUP, compute_dtype=torch.bfloat16,
-                         fmt: Optional[str] = None):
+                         fmt: Optional[str] = None, dn_r: Optional[torch.Tensor] = None):
     g, u = int4_matmul_stacked_ref(x, gup_packed, gup_scales, layer, group, compute_dtype,
                                    return_planes=True, fmt=fmt)
     a = torch.nn.functional.silu(g.to(torch.float32)) * u.to(torch.float32)
+    if dn_r is not None:
+        a = a * dn_r[layer].to(torch.float32)
     return int4_matmul_stacked_ref(a.to(compute_dtype), dn_packed, dn_scales, layer, group,
                                    compute_dtype, fmt=fmt)
 
 
-def _group_scaled(x2, packed, scales, rows, groups_from, fmt):
+def _group_scaled(x2, packed, scales, rows, groups_from, fmt, group):
     """f32 sum over the groups of `rows` of (x2[:, group] @ q[group]) * s[g]
     for both planes -> (lo, hi) [M, Nh]."""
     lo, hi = _unpack_planes(packed[rows], fmt)
     Nh = lo.shape[1]
     acc_lo = torch.zeros((x2.shape[0], Nh), dtype=torch.float32, device=x2.device)
     acc_hi = torch.zeros_like(acc_lo)
-    for i in range(lo.shape[0] // GROUP):
-        r = slice(i * GROUP, (i + 1) * GROUP)
+    for i in range(lo.shape[0] // group):
+        r = slice(i * group, (i + 1) * group)
         xg = x2[:, r]
         s = scales[groups_from + i]
         acc_lo = acc_lo + (xg @ lo[r].to(torch.float32)) * s[:Nh]
@@ -91,22 +97,26 @@ def _group_scaled(x2, packed, scales, rows, groups_from, fmt):
 
 def mlp_int4_stacked_plain(x, gup_packed, gup_scales, dn_packed, dn_scales, layer,
                            group: int = GROUP, chunk: Optional[int] = None,
-                           fmt: Optional[str] = None):
+                           fmt: Optional[str] = None, dn_r: Optional[torch.Tensor] = None):
     *lead, K = x.shape
     F = gup_packed.shape[2]
     chunk = chunk or pick_chunk(F, group)
     x2 = x.reshape(-1, K).to(torch.float32)
     gp, gs = gup_packed[layer], gup_scales[layer].to(torch.float32)
     dp, ds = dn_packed[layer], dn_scales[layer].to(torch.float32)
+    r = None if dn_r is None else dn_r[layer].to(torch.float32)
     out = None
     for c in range(F // chunk):
         cols = slice(c * chunk, (c + 1) * chunk)
         # the chunk's gate and up columns: packed columns `cols`, scales of
         # gate column j at j and of up column j at F + j
         s_c = torch.cat([gs[:, cols], gs[:, F + c * chunk:F + (c + 1) * chunk]], dim=1)
-        g, u = _group_scaled(x2, gp[:, cols], s_c, slice(0, K), 0, fmt)
-        a = (g * torch.sigmoid(g) * u).to(x.dtype).to(torch.float32)
-        d_lo, d_hi = _group_scaled(a, dp, ds, cols, c * chunk // GROUP, fmt)
+        g, u = _group_scaled(x2, gp[:, cols], s_c, slice(0, K), 0, fmt, group)
+        a = g * torch.sigmoid(g) * u
+        if r is not None:
+            a = a * r[cols]
+        a = a.to(x.dtype).to(torch.float32)
+        d_lo, d_hi = _group_scaled(a, dp, ds, cols, c * chunk // group, fmt, group)
         part = torch.cat([d_lo, d_hi], dim=1)
         out = part if out is None else out + part
     return out.to(x.dtype).reshape(*lead, -1)
@@ -114,11 +124,12 @@ def mlp_int4_stacked_plain(x, gup_packed, gup_scales, dn_packed, dn_scales, laye
 
 def mlp_int4_stacked_cuda(x, gup_packed, gup_scales, dn_packed, dn_scales, layer,
                           group: int = GROUP, chunk: Optional[int] = None,
-                          fmt: Optional[str] = None):
+                          fmt: Optional[str] = None, dn_r: Optional[torch.Tensor] = None):
     """Launch the kernel (same arguments as the plain version)."""
-    global launches
+    global launches, launches_dnr
     name = "mlp_int4_stacked"
-    _cuda.require_cuda(name, x, gup_packed, gup_scales, dn_packed, dn_scales)
+    _cuda.require_cuda(name, x, gup_packed, gup_scales, dn_packed, dn_scales,
+                       *(() if dn_r is None else (dn_r,)))
     code = FMT_CODE[_fmt(fmt)]
     *lead, K = x.shape
     L, Kp, F = gup_packed.shape
@@ -132,6 +143,12 @@ def mlp_int4_stacked_cuda(x, gup_packed, gup_scales, dn_packed, dn_scales, layer
     _cuda.require_shape(name, gup_scales, (L, K // GROUP, 2 * F))
     _cuda.require_shape(name, dn_packed, (L, F, dh))
     _cuda.require_shape(name, dn_scales, (L, F // GROUP, 2 * dh))
+    if dn_r is not None:
+        if dn_r.dtype != torch.float32:
+            raise TypeError(f"{name}: dn_r must be float32, got {dn_r.dtype}")
+        _cuda.require_shape(name, dn_r, (L, F))
+        if not dn_r.is_contiguous():
+            raise ValueError(f"{name}: dn_r must be contiguous")
     if group != GROUP or Kp != K or K % GROUP or chunk is None or chunk % GROUP or F % chunk \
             or 256 % (chunk // 8) or dh % 8:
         raise ValueError(f"{name}: unsupported geometry K={K} F={F} D/2={dh} chunk={chunk}")
@@ -152,21 +169,25 @@ def mlp_int4_stacked_cuda(x, gup_packed, gup_scales, dn_packed, dn_scales, layer
     cnt = _cuda.counters(x.device, 1)
     err = _cuda.library().al_mlp_int4(
         x2.data_ptr(), M, K, gup_packed[li].data_ptr(), gup_scales[li].data_ptr(),
-        dn_packed[li].data_ptr(), dn_scales[li].data_ptr(), F, dh, chunk, code,
+        dn_packed[li].data_ptr(), dn_scales[li].data_ptr(),
+        None if dn_r is None else dn_r[li].data_ptr(), F, dh, chunk, code,
         out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), _cuda.stream_handle(x),
     )
     _cuda.check(err, name)
-    launches += 1
+    if dn_r is None:
+        launches += 1
+    else:
+        launches_dnr += 1
     return out.reshape(*lead, 2 * dh)
 
 
 def mlp_int4_stacked(x, gup_packed, gup_scales, dn_packed, dn_scales, layer,
                      group: int = GROUP, chunk: Optional[int] = None,
-                     fmt: Optional[str] = None):
-    """silu(x @ Wgate) * (x @ Wup) @ Wdown -> [..., D] in x's dtype. The
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+                     fmt: Optional[str] = None, dn_r: Optional[torch.Tensor] = None):
+    """silu(x @ Wgate) * (x @ Wup) [* dn_r[layer]] @ Wdown -> [..., D] in
+    x's dtype. The kernel on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return mlp_int4_stacked_plain(x, gup_packed, gup_scales, dn_packed, dn_scales, layer,
-                                      group, chunk, fmt)
+                                      group, chunk, fmt, dn_r)
     return mlp_int4_stacked_cuda(x, gup_packed, gup_scales, dn_packed, dn_scales, layer,
-                                 group, chunk, fmt)
+                                 group, chunk, fmt, dn_r)

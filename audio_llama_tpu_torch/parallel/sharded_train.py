@@ -25,7 +25,7 @@ leaves in place). The `*_impl` flags take 'auto' only (the kernels on the
 card, their plain versions on the host): any other value raises
 ValueError, as the trainer CLI's. Refused with NotImplementedError: fsdp >
 1 and sp together with tp (JAX gathers the heads for the ring,
-ops/partitioning.py:179-180), ROADMAP queue 1 item 1.
+ops/partitioning.py:179-180), ROADMAP queue 1 item 2.
 
 The replicated trainables stay bit-equal on every rank: each sum is one
 all-reduce whose result every rank of the group receives, and the update is
@@ -46,7 +46,7 @@ from ..training import train_step as base_steps
 from . import sharding
 from .collectives import psum
 
-QUEUE = "ROADMAP queue 1 item 1 (fsdp and sp x tp training)"
+QUEUE = "ROADMAP queue 1 item 2 (fsdp and sp x tp training)"
 
 
 def check_impls(prefix: str = "", **impls: str) -> None:

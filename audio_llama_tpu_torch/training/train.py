@@ -32,7 +32,7 @@ CLI rebuilds the same tree from the checkpoint's flags. Refused with
 NotImplementedError: `--llama_path` / `--whisper_path` checkpoints (they
 wait for `models/hf_loader.py`), `--toy_outliers` with
 `--synthetic_flagship` (JAX's trainer injects into the toy model only and
-ignores the flag there), `--mesh_fsdp` > 1 (ROADMAP queue 1 item 1), and an
+ignores the flag there), `--mesh_fsdp` > 1 (ROADMAP queue 1 item 2), and an
 `--attn_impl` /
 `--enc_attn_impl` / `--mel_impl` other than `auto` (the kernels on the
 card, the plain versions on the host). JAX's CLI has no sequence-parallel

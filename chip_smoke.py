@@ -146,7 +146,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      within rel-L2 2e-2 of `generate` at B = 1 (and under chunked prefill of
      512), stop() failing a request in flight; requests/s, tokens/s, time to
      first token, ms per chunk, peak memory; then the pool card vs host at
-     2 + 2 layers.
+     2 + 2 layers, with the top-2 logit margin at the first step where a
+     request's card and host tokens part.
+ 21. smoothed int4 trees and GPTQ: (a) the fused int4 MLP's dn_r mode (a
+     smoothed tree's down equalizer) at the int4 path's decode shape
+     against its plain version, on planted faults (dn_r ignored, the next
+     layer's dn_r); (b) `smooth_path`: the full-width model with LoRA
+     merged and outlier channels injected, quantized on the card four ways
+     (RTN, clipped RTN, smoothed, GPTQ calibrated on the four requests'
+     audio splice), the first-step KL of each against the unquantized tree
+     (reported), GPTQ's proxy loss over layer 0 at most RTN's, `generate`
+     at B = 4 and B = 1 on the smoothed, clipped and GPTQ trees with exact
+     launches (the smoothed tree: the dn_r mode every decode step, never the
+     megakernel); (c) card vs host at 2 + 2 layers on a smoothed and a GPTQ
+     tree of merged seeded weights.
 With `--profile`, phases 3, 4, 6 (megakernel off), 7 and 10 add a
 torch.profiler breakdown (encode + prefill + first token, and per decode
 token; one train step) by device kernel group, with the device's busy share
@@ -570,6 +583,7 @@ COUNTERS = {
     "mel_power": ("mel_power", "launches"),
     "int4_matmul_stacked": ("int4_matmul", "launches"),
     "mlp_int4_stacked": ("mlp_int4", "launches"),
+    "mlp_int4_stacked[dn_r]": ("mlp_int4", "launches_dnr"),
     "decode_attention_quantized4_mono": ("decode_attention_mono", "launches_q4"),
     "decode_attention_quantized_mono": ("decode_attention_mono", "launches_q8"),
     "decode_megakernel": ("decode_megakernel", "launches"),
@@ -796,7 +810,49 @@ def int4_kernel_checks(dev, gen):
     ))
     log(f"kernel mlp_int4_stacked ok: max_abs_err={err:.3e} tol_ratio={ratio:.3f} "
         f"planted faults rejected: {faults}")
-    del gup, gus, dn, dns, wg, wd, dropped
+
+    # 7r. the same kernel in its dn_r mode (smoothed trees): each layer's down
+    #     equalizer from `_equalize_rows` of a seeded down slab with hot rows
+    from audio_llama_tpu_torch.models.llama_int4 import _equalize_rows
+
+    dn_r = torch.empty((L, Fd), device=dev)
+    for layer in range(L):
+        w = randn(Fd, D) * 0.02
+        w[torch.randint(0, Fd, (8,), generator=gen, device=dev)] *= 8.0
+        dn_r[layer] = _equalize_rows(w)[1]
+    del w
+    want = mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, li, chunk=chunk, dn_r=dn_r)
+    err, ratio = check_close("mlp_int4_stacked[dn_r]", mlp4.mlp_int4_stacked_cuda(
+        x, gup, gus, dn, dns, li, chunk=chunk, dn_r=dn_r), want, frac)
+    faults = {
+        "dn_r ignored": must_reject(
+            "mlp_int4_stacked[dn_r]", "dn_r ignored",
+            mlp4.mlp_int4_stacked_cuda(x, gup, gus, dn, dns, li, chunk=chunk), want, frac),
+        "dn_r of the next layer": must_reject(
+            "mlp_int4_stacked[dn_r]", "dn_r of the next layer",
+            mlp4.mlp_int4_stacked_cuda(x, gup, gus, dn, dns, li, chunk=chunk,
+                                       dn_r=torch.roll(dn_r, -1, dims=0).contiguous()),
+            want, frac)}
+    r_bf = dn_r[li].to(bf)
+    bms, bby = bound(flops, nbytes + 4.0 * Fd)
+    rows.append(dict(
+        name="mlp_int4_stacked[dn_r]", route="cuda",
+        source="audio_llama_tpu_torch/csrc/mlp_int4.cu",
+        replaces="audio_llama_tpu/ops/mlp_int4.py:43", mode="has_dnr=True (call :190)",
+        max_abs_err=err, tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
+        ms=time_ms(lambda: mlp4.mlp_int4_stacked_cuda(x, gup, gus, dn, dns, next(turn) % L,
+                                                      chunk=chunk, dn_r=dn_r), iters=56),
+        plain_ms=time_ms(lambda: mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, li,
+                                                             chunk=chunk, dn_r=dn_r), iters=5),
+        library_ms=time_ms(lambda: (F.silu(x @ wg[:, :Fd]) * (x @ wg[:, Fd:]) * r_bf) @ wd,
+                           iters=56),
+        launches=None, bound_ms=bms, bound_by=bby,
+        shapes=f"x[{B},{D}] bf16, gate|up [{L},{D},{Fd}], down [{L},{Fd},{dh}] int8, "
+               f"dn_r [{L},{Fd}] f32, chunk {chunk}",
+    ))
+    log(f"kernel mlp_int4_stacked[dn_r] ok: max_abs_err={err:.3e} tol_ratio={ratio:.3f} "
+        f"planted faults rejected: {faults}")
+    del gup, gus, dn, dns, wg, wd, dropped, dn_r, r_bf
 
     # 8. int4-KV decode attention: the last decode step of the int4 path
     Hkv, Hq, hd = lc.num_kv_heads, lc.num_heads, lc.head_dim
@@ -1226,7 +1282,7 @@ KERNEL_PATH = {
     "causal_attention_twopass": "causal_variants", "causal_attention_dma": "causal_variants",
     "causal_attention_dma2": "causal_variants", "int4_matmul_stacked_ksplit": "int4_ksplit",
     "decode_attention": "single_decode", "decode_attention_quantized": "single_decode",
-    "int4_matmul": "int4_2d",
+    "int4_matmul": "int4_2d", "mlp_int4_stacked[dn_r]": "smooth",
 }
 # a row whose kernel serves several counters (its cache formats, its modes) sums them
 ROW_COUNTERS = {"decode_attention_packed": ("decode_attention_packed",
@@ -1719,6 +1775,227 @@ def int8_path(dev, profile: bool = False):
     return launches, ab
 
 
+# ---------------------------------------------------------------------------
+# phase 21: smoothed int4 trees and GPTQ on an outlier tree at full width
+# ---------------------------------------------------------------------------
+
+def merged_llama(cfg, frozen, trainable):
+    """LoRA merged into the frozen Llama -> (llama tree, trainable without
+    LoRA), as the CLI's quantizers start."""
+    from audio_llama_tpu_torch.bridge import ParamTree
+    from audio_llama_tpu_torch.models import lora as lora_mod
+
+    merged = lora_mod.merge_into_llama(frozen["llama"],
+                                       lora_mod.with_scaling(trainable["lora"], cfg.lora))
+    return merged, ParamTree({k: v for k, v in trainable.items() if k != "lora"})
+
+
+def gptq_llama(cfg, frozen, trainable, ids, mask, wav):
+    """frozen["llama"] (full precision) quantized by GPTQ, calibrated as the
+    JAX package's outlier gate does: the requests' audio splice (built at
+    bf16, which the encoder's kernels take), the decoder's masked input Grams
+    at f32 with the plain attention (`collect_llama_stats`), then
+    `quantize_llama_int4_gptq(clip_cands=CLIP_CANDS)` -> (int4 tree, Grams,
+    seconds of each step)."""
+    import copy
+
+    from audio_llama_tpu_torch.inference.generate import build_prefix
+    from audio_llama_tpu_torch.models import llama_gptq
+    from audio_llama_tpu_torch.models.llama_int4 import CLIP_CANDS
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        embeds, m = build_prefix(frozen, trainable, cfg, ids, mask, wav, AUDIO_START, AUDIO_END,
+                                 torch.bfloat16)
+        f32 = copy.deepcopy(frozen["llama"]).float()
+        stats = llama_gptq.collect_llama_stats(f32, cfg.llama, attention_mask=m,
+                                               inputs_embeds=embeds.float())
+        del f32, embeds
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tree = llama_gptq.quantize_llama_int4_gptq(frozen["llama"], stats, clip_cands=CLIP_CANDS)
+        torch.cuda.synchronize()
+    return tree, stats, {"gram_s": t1 - t0, "quantize_s": time.perf_counter() - t1}
+
+
+def with_llama(frozen, tree):
+    from audio_llama_tpu_torch.bridge import ParamTree
+
+    out = ParamTree(dict(frozen.items()))
+    out["llama"] = tree
+    return out
+
+
+def first_step_kl(ref, quant, trainable, cfg, request, dev) -> dict:
+    """KL(ref || quant) of the first generated token's distribution (the
+    prefill's next-token logits), mean and max over the batch rows."""
+    from audio_llama_tpu_torch.inference.generate import prefill
+
+    def logp(fz):
+        with torch.no_grad():
+            pre = prefill(fz, trainable, cfg, request["ids"], request["mask"], request["wav"],
+                          dev, max_new_tokens=1, compute_dtype=torch.bfloat16, kv_quant=False,
+                          audio_start_id=AUDIO_START, audio_end_id=AUDIO_END)
+        return torch.log_softmax(pre.next_logits.float(), dim=-1)
+
+    lp, lq = logp(ref), logp(quant)
+    kl = (lp.exp() * (lp - lq)).sum(dim=-1)
+    if not torch.isfinite(kl).all():
+        raise AssertionError(f"first-step KL not finite: {kl.tolist()}")
+    return {"kl_mean": kl.mean().item(), "kl_max": kl.max().item(),
+            "argmax_agree": (lp.argmax(-1) == lq.argmax(-1)).float().mean().item()}
+
+
+def timed_generate(label, frozen, trainable, cfg, request, want, dev, megakernel=True) -> dict:
+    """`generate` of N_NEW greedy tokens with an int4 KV cache: encode_ms,
+    prefill_ms, decode_ms_per_token, peak memory, the counted kernels'
+    launches over the run (exactly `want`) and per decode step."""
+    from audio_llama_tpu_torch.inference.generate import generate
+    from audio_llama_tpu_torch.models import allm
+
+    ids, mask, wav = request["ids"], request["mask"], request["wav"]
+
+    def run(n):
+        return generate(frozen, trainable, cfg, ids, mask, wav, None, max_new_tokens=n,
+                        greedy=True, eos_id=EOS, pad_id=0, audio_start_id=AUDIO_START,
+                        audio_end_id=AUDIO_END, compute_dtype=torch.bfloat16, device=dev,
+                        kv_quant=4, megakernel=megakernel)
+
+    run(2)
+    enc_ms = min(synced_ms(lambda: allm.process_audio_features(frozen, cfg, wav))
+                 for _ in range(2))
+    first_ms = min(synced_ms(lambda: run(1)) for _ in range(2))
+    zero_counters()
+    run(1)
+    first = read_counters()
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    result = {}
+    total_ms = synced_ms(lambda: result.setdefault("out", run(N_NEW)))
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = result["out"].tokens
+    check_tokens(label, toks, (ids.shape[0], N_NEW), cfg.llama.vocab_size + 2)
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times, want {n}")
+    per_step = {k: (v - first[k]) / (N_NEW - 1) for k, v in launches.items() if v - first[k]}
+    return {"label": label, "batch": ids.shape[0], "new_tokens": N_NEW, "encode_ms": enc_ms,
+            "prefill_ms": first_ms - enc_ms,
+            "decode_ms_per_token": (total_ms - first_ms) / (N_NEW - 1),
+            "generate_ms": total_ms, "peak_mem_gb": peak_gb,
+            "kernel_launches_per_decode_step": per_step,
+            "launches": {k: v for k, v in launches.items() if v},
+            "greedy_tokens": toks.tolist()}, launches
+
+
+def smooth_path(dev) -> dict:
+    """Smoothed int4 trees and GPTQ at full width (`AudioLLMConfig()`):
+    seeded bf16 weights, LoRA merged, the port's outlier channels injected,
+    then quantized four ways on the card: RTN (clip off), clipped RTN (the
+    default), smoothed (smooth=True, clip=True) and GPTQ (calibrated on the
+    four requests' audio splice, Grams at f32, CLIP_CANDS). The first-step
+    KL of each against the unquantized outlier tree (reported, not gated);
+    GPTQ's proxy loss over layer 0's four slabs at most RTN's (gated).
+    `generate` at B = 4 (four 30 s waveforms, the int4 path's prompts, int4
+    KV) and at B = 1 (the first request) on the smoothed, the clipped and
+    the GPTQ tree, launches exact: the smoothed tree's decode steps run the
+    fused MLP in its dn_r mode and never the megakernel, whose gate refuses
+    w_r; the GPTQ tree's B = 1 steps run the megakernel."""
+    from audio_llama_tpu_torch.models import allm, llama, llama_gptq, llama_int4
+    from audio_llama_tpu_torch.ops import int4_matmul as i4
+
+    cfg = full_config()
+    L, W = cfg.llama.num_layers, cfg.whisper.num_layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    t0 = time.perf_counter()
+    frozen = allm.init_frozen(cfg, gen, torch.bfloat16)
+    frozen["llama"] = llama.resize_embeddings(frozen["llama"], cfg.llama.vocab_size + 2,
+                                              cfg.llama)
+    trainable = allm.init_trainable(cfg, gen, torch.float32)
+    for br in trainable["lora"]["layers"].values():  # 'ref' init has a = 0
+        br["a"].data.copy_(torch.randn(br["a"].shape, generator=gen, device=dev) * 0.02)
+    from audio_llama_tpu_torch.models import outliers
+
+    merged, trainable = merged_llama(cfg, frozen, trainable)
+    lo = outliers.inject_llama_outliers(merged, gen)  # the regime smoothing and GPTQ are for
+    del merged
+    ref = with_llama(frozen, lo)
+    del frozen
+    B = len(INT4_PROMPTS)
+    wav = torch.randn((B, cfg.mel.max_samples), generator=gen, device=dev) * 0.1
+    ids = torch.randint(0, cfg.llama.vocab_size, (B, max(INT4_PROMPTS)), generator=gen,
+                        device=dev)
+    mask = torch.zeros_like(ids)
+    for b, n in enumerate(INT4_PROMPTS):
+        mask[b, :n] = 1
+    request = dict(ids=ids * mask, mask=mask, wav=wav)
+    one = {k: v[:1] for k, v in request.items()}
+    torch.cuda.synchronize()
+    log(f"smooth: outlier tree built in {time.perf_counter() - t0:.1f} s")
+
+    trees, quant_s, kl = {}, {}, {}
+    for name, kw in (("rtn", dict(clip=False)), ("clip", dict()),
+                     ("smooth", dict(smooth=True, clip=True))):
+        t1 = time.perf_counter()
+        trees[name] = with_llama(ref, llama_int4.quantize_llama_int4(lo, **kw))
+        torch.cuda.synchronize()
+        quant_s[name] = time.perf_counter() - t1
+        kl[name] = first_step_kl(ref, trees[name], trainable, cfg, request, dev)
+    del trees["rtn"]
+    gq, stats, gptq_s = gptq_llama(cfg, ref, trainable, request["ids"], mask, wav)
+    trees["gptq"] = with_llama(ref, gq)
+    kl["gptq"] = first_step_kl(ref, trees["gptq"], trainable, cfg, request, dev)
+    log(json.dumps({"smooth_quantize": {"seconds": {**quant_s, **gptq_s}, "first_step_kl": kl}}))
+
+    # GPTQ's objective on layer 0's four slabs, against (clipped) RTN's
+    lp = lo["layers"]
+    full = {"qkv_proj": torch.cat([lp["q_proj"][0], lp["k_proj"][0], lp["v_proj"][0]], dim=-1),
+            "gateup_proj": torch.cat([lp["gate_proj"][0], lp["up_proj"][0]], dim=-1),
+            "o_proj": lp["o_proj"][0], "down_proj": lp["down_proj"][0]}
+    roles = {"qkv_proj": "qkv", "gateup_proj": "gateup", "o_proj": "o", "down_proj": "down"}
+    proxy = {"gptq": 0.0, "rtn": 0.0, "clip": 0.0}
+    for name, w in full.items():
+        H = stats[roles[name]][0]
+        g = gq["layers"][name]
+        proxy["gptq"] += llama_gptq.gptq_proxy_loss(w, g["w_p"][0], g["w_s"][0], H).item()
+        proxy["rtn"] += llama_gptq.gptq_proxy_loss(w, *i4.quantize_pack(w), H).item()
+        proxy["clip"] += llama_gptq.gptq_proxy_loss(
+            w, *i4.quantize_pack(w, clip_cands=llama_int4.CLIP_CANDS), H).item()
+    del stats, full
+    torch.cuda.empty_cache()
+    if not proxy["gptq"] <= proxy["rtn"]:
+        raise AssertionError(f"smooth: GPTQ's proxy loss over layer 0 exceeds RTN's: {proxy}")
+
+    n_dec = L * (N_NEW - 1)
+    front = {"mel_power": 1, "layer_norm": 2 * W, "enc_attention": W, "causal_attention": L}
+    per_layer = dict(front, **{"int4_matmul_stacked": 4 * L + 2 * n_dec,
+                               "decode_attention_quantized4_mono": n_dec,
+                               "decode_megakernel": 0})
+    smooth_want = dict(per_layer, **{"mlp_int4_stacked[dn_r]": n_dec, "mlp_int4_stacked": 0})
+    plain_want = dict(per_layer, **{"mlp_int4_stacked[dn_r]": 0, "mlp_int4_stacked": n_dec})
+    mega_want = dict(front, **{"int4_matmul_stacked": 4 * L, "decode_megakernel": N_NEW - 1,
+                               "mlp_int4_stacked": 0, "mlp_int4_stacked[dn_r]": 0,
+                               "decode_attention_quantized4_mono": 0})
+    runs, counted = {}, {}
+    for name, b4, b1 in (("smooth", smooth_want, smooth_want), ("clip", plain_want, mega_want),
+                         ("gptq", plain_want, mega_want)):
+        runs[f"{name}_b4"], counted[name] = timed_generate(
+            f"smooth_path {name}, B=4", trees[name], trainable, cfg, request, b4, dev)
+        runs[f"{name}_b1"], _ = timed_generate(f"smooth_path {name}, B=1", trees[name],
+                                               trainable, cfg, one, b1, dev)
+    stats = {
+        "config": "Llama-3.2-3B (28 layers, vocab 128256+2, LoRA r64 merged, outlier channels "
+                  "injected: models/outliers.py) + Whisper-large-v3-turbo encoder (32 layers), "
+                  "fused int4 trees (pair), bf16 compute, int4 KV cache, seeded random weights",
+        "quantize_s": {**quant_s, **gptq_s}, "first_step_kl": kl,
+        "gptq_proxy_loss_layer0": proxy, "runs": runs,
+    }
+    log(json.dumps({"smooth_path": stats}))
+    return counted["smooth"]
+
+
 KERNEL_GROUPS = (  # substring of the device kernel's name -> group, first match wins
     ("mel_power_kernel", "mel_power kernel"),
     ("w4_decode_kernel", "int4_matmul kernel"), ("w4_prefill_kernel", "int4_matmul kernel"),
@@ -1768,14 +2045,24 @@ def cut_config():
         whisper=dataclasses.replace(full.whisper, num_layers=2))
 
 
-def compare_logits(label, card, host) -> dict:
+# bf16 activations through 2 + 2 layers against an f32 host path: each bf16
+# rounding is <= 2^-9 relative, a few dozen of them compound to ~1e-2
+HOST_TOL = 2e-2
+
+
+def compare_logits(label, card, host, tol=HOST_TOL, argmax=True) -> dict:
+    """rel-L2 of the card's logits from the host's; with a bar `tol`, raise
+    unless they are finite, within it and (with `argmax`) agree on the
+    argmax."""
     rel = ((card - host).norm() / host.norm()).item()
     stats = {"rel_l2": rel, "max_abs": (card - host).abs().max().item(),
              "host_logit_absmax": host.abs().max().item(),
              "argmax_agree": int(card.argmax()) == int(host.argmax())}
-    if not (torch.isfinite(card).all() and rel <= HOST_TOL and stats["argmax_agree"]):
-        raise AssertionError(f"{label}: card vs host logits {stats} (bar rel_l2 {HOST_TOL}, "
-                             "argmax equal)")
+    if not torch.isfinite(card).all():
+        raise AssertionError(f"{label}: card logits not finite")
+    if tol is not None and not (rel <= tol and (stats["argmax_agree"] or not argmax)):
+        raise AssertionError(f"{label}: card vs host logits {stats} (bar rel_l2 {tol}"
+                             + (", argmax equal)" if argmax else ")"))
     return stats
 
 
@@ -1820,21 +2107,13 @@ def host_check(dev):
     log(json.dumps({"host_check": stats}))
 
 
-def host_check_quant(dev, label, bits=4, rotate=False, kv_quant=4, seed=4, want=None):
-    """A quantized path at 2 + 2 layers: waveform in, LoRA merged, the
-    decoder rotated (with `rotate`) and quantized once on the host, the same
-    tree on both sides; the last position's prefill logits, then one decode
-    step's on the quantized KV cache (the host's next token fed to both).
-    `want`: {kernel: launches} of the card's decode step."""
-    import copy
-
+def quant_request(cfg, seed):
+    """The 2 + 2 layer host checks' model and request, drawn on the host:
+    seeded bf16 weights with a non-zero LoRA delta, one 30 s waveform and a
+    PROMPT-token prompt -> (frozen, trainable, ids, mask, wav)."""
     from audio_llama_tpu_torch.device import make_generator
-    from audio_llama_tpu_torch.inference import cli
-    from audio_llama_tpu_torch.inference.generate import build_prefix
     from audio_llama_tpu_torch.models import allm, llama
 
-    cfg = cut_config()
-    t0 = time.perf_counter()
     gen = make_generator(seed, "cpu")
     frozen = allm.init_frozen(cfg, gen, torch.bfloat16)
     frozen["llama"] = llama.resize_embeddings(frozen["llama"], cfg.llama.vocab_size + 2,
@@ -1843,45 +2122,169 @@ def host_check_quant(dev, label, bits=4, rotate=False, kv_quant=4, seed=4, want=
     rng = np.random.default_rng(seed)
     for br in trainable["lora"]["layers"].values():  # a non-zero LoRA delta
         br["a"].data.copy_(torch.from_numpy(rng.normal(size=br["a"].shape) * 0.02))
-    frozen, trainable = cli.quantize_decoder(cfg, frozen, trainable, bits=bits, rotate=rotate)
     wav = torch.from_numpy((rng.normal(size=(1, cfg.mel.max_samples)) * 0.1).astype(np.float32))
     ids = torch.from_numpy(rng.integers(0, cfg.llama.vocab_size, (1, PROMPT)))
     mask = torch.ones_like(ids, dtype=torch.int32)
+    return frozen, trainable, ids, mask, wav
 
-    def logits(fz, tr, cd, d, token=None):
-        embeds, m = build_prefix(fz, tr, cfg, ids.to(d), mask.to(d), wav.to(d), AUDIO_START,
-                                 AUDIO_END, cd)
-        P = embeds.shape[1]
-        full_mask = torch.cat([m, torch.ones((1, 1), dtype=m.dtype, device=d)], dim=1)
-        cache = llama.KVCache.zeros(cfg.llama, 1, P + 1, dtype=cd, device=d, quantized=kv_quant)
-        _, cache, hidden = llama.llama_forward(
-            fz["llama"], cfg.llama, inputs_embeds=embeds, attention_mask=full_mask,
-            kv_cache=cache, compute_dtype=cd, assume_fresh_cache=True, return_hidden=True,
-            unembed_logits=False)
-        first = llama.unembed(fz["llama"], cfg.llama, hidden[:, -1:], cd)[0, 0].float().cpu()
-        tok = first.argmax() if token is None else token
-        zero_counters()
-        step, _ = llama.llama_forward(
-            fz["llama"], cfg.llama, input_ids=tok.reshape(1, 1).to(d), attention_mask=full_mask,
-            positions=torch.full((1, 1), P, device=d), kv_cache=cache, compute_dtype=cd)
-        return first, step[0, 0].float().cpu(), tok
 
-    host_first, host_step, tok = logits(frozen.float(), trainable.float(), torch.float32,
-                                        torch.device("cpu"))
-    card_first, card_step, _ = logits(copy.deepcopy(frozen).to(dev),
-                                      copy.deepcopy(trainable).to(dev), torch.bfloat16, dev,
-                                      token=tok)
+def quant_logits(cfg, request, fz, tr, cd, d, kv_quant, token=None):
+    """The last position's prefill logits, then one decode step's on the
+    quantized KV cache (`token` fed, else the prefill's argmax), with the
+    counters zeroed before the step -> (first, step, token), on the host."""
+    from audio_llama_tpu_torch.inference.generate import build_prefix
+    from audio_llama_tpu_torch.models import llama
+
+    ids, mask, wav = request
+    embeds, m = build_prefix(fz, tr, cfg, ids.to(d), mask.to(d), wav.to(d), AUDIO_START,
+                             AUDIO_END, cd)
+    P = embeds.shape[1]
+    full_mask = torch.cat([m, torch.ones((1, 1), dtype=m.dtype, device=d)], dim=1)
+    cache = llama.KVCache.zeros(cfg.llama, 1, P + 1, dtype=cd, device=d, quantized=kv_quant)
+    _, cache, hidden = llama.llama_forward(
+        fz["llama"], cfg.llama, inputs_embeds=embeds, attention_mask=full_mask,
+        kv_cache=cache, compute_dtype=cd, assume_fresh_cache=True, return_hidden=True,
+        unembed_logits=False)
+    first = llama.unembed(fz["llama"], cfg.llama, hidden[:, -1:], cd)[0, 0].float().cpu()
+    tok = first.argmax() if token is None else token
+    zero_counters()
+    step, _ = llama.llama_forward(
+        fz["llama"], cfg.llama, input_ids=tok.reshape(1, 1).to(d), attention_mask=full_mask,
+        positions=torch.full((1, 1), P, device=d), kv_cache=cache, compute_dtype=cd)
+    return first, step[0, 0].float().cpu(), tok
+
+
+def check_launches(label, want) -> dict:
     launches = read_counters()
     for name, n in (want or {}).items():
         if launches[name] != n:
             raise AssertionError(f"{label}: the card's decode step launched {name} "
                                  f"{launches[name]} times, want {n}")
+    return {k: launches[k] for k in (want or {})}
+
+
+def host_check_quant(dev, label, bits=4, rotate=False, kv_quant=4, seed=4, want=None,
+                     quantize=None):
+    """A quantized path at 2 + 2 layers: waveform in, LoRA merged, the
+    decoder rotated (with `rotate`) and quantized once on the host, the same
+    tree on both sides; the last position's prefill logits, then one decode
+    step's on the quantized KV cache (the host's next token fed to both).
+    `want`: {kernel: launches} of the card's decode step. `quantize(cfg,
+    frozen, trainable, ids, mask, wav)` -> (frozen, trainable) builds the
+    tree in place of the CLI's quantizer."""
+    import copy
+
+    from audio_llama_tpu_torch.inference import cli
+
+    cfg = cut_config()
+    t0 = time.perf_counter()
+    frozen, trainable, ids, mask, wav = quant_request(cfg, seed)
+    if quantize is None:
+        frozen, trainable = cli.quantize_decoder(cfg, frozen, trainable, bits=bits,
+                                                 rotate=rotate)
+    else:
+        frozen, trainable = quantize(cfg, frozen, trainable, ids, mask, wav)
+    request = (ids, mask, wav)
+    host_first, host_step, tok = quant_logits(cfg, request, frozen.float(), trainable.float(),
+                                              torch.float32, torch.device("cpu"), kv_quant)
+    card_first, card_step, _ = quant_logits(cfg, request, copy.deepcopy(frozen).to(dev),
+                                            copy.deepcopy(trainable).to(dev), torch.bfloat16,
+                                            dev, kv_quant, token=tok)
     stats = {"path": label, "layers": "2 whisper + 2 llama, full width",
              "prefill": compare_logits(f"{label}, prefill", card_first, host_first),
              "decode_step": compare_logits(f"{label}, decode step", card_step, host_step),
-             "decode_step_launches": {k: launches[k] for k in (want or {})},
+             "decode_step_launches": check_launches(label, want),
              "tol_rel_l2": HOST_TOL, "seconds": time.perf_counter() - t0}
     log(json.dumps({"host_check_quant": stats}))
+
+
+# A smoothed outlier tree's bf16 forward loses more to activation rounding
+# than the seeded trees': its kernels' gap from the host may be at most this
+# many times that of its witness, the same effective weights run dense at
+# bf16 with no int4 kernel (or HOST_TOL, whichever is larger). A kernel that
+# dropped w_r or dn_r lands 0.35-0.40 away (the bridge fault the port's
+# forward test pins).
+OUTLIER_WITNESS_RATIO = 1.5
+
+
+def host_check_smooth_outliers(dev, seed=10):
+    """The smoothed int4 tree (smooth=True, clip=True) of an outlier tree at
+    2 + 2 layers: the seeded merged tree with the port's outlier channels
+    (`models/outliers.py`, drawn on the host), card (bf16, kernels, the dn_r
+    mode) against host (f32, plain versions), as `host_check_quant`. Beside
+    it the witness: diag(w_r) @ dequant, the same effective weights as a
+    dense tree, run at bf16 on the card (cuBLAS, no int4 kernel) against the
+    same host logits. The kernels' gap is held to OUTLIER_WITNESS_RATIO x
+    the witness's (at least HOST_TOL), each of prefill and decode step, and
+    to the host's argmax where the witness keeps it."""
+    import copy
+
+    from audio_llama_tpu_torch.device import make_generator
+    from audio_llama_tpu_torch.models import llama_int4, outliers
+
+    cfg = cut_config()
+    L = cfg.llama.num_layers
+    t0 = time.perf_counter()
+    frozen, trainable, ids, mask, wav = quant_request(cfg, seed)
+    merged, trainable = merged_llama(cfg, frozen, trainable)
+    lo = outliers.inject_llama_outliers(merged, make_generator(seed, "cpu"))
+    tree = llama_int4.quantize_llama_int4(lo, smooth=True, clip=True)
+    del merged, lo
+    frozen = with_llama(frozen, tree)
+    request = (ids, mask, wav)
+    host_first, host_step, tok = quant_logits(cfg, request, frozen.float(), trainable.float(),
+                                              torch.float32, torch.device("cpu"), 4)
+    card_first, card_step, _ = quant_logits(cfg, request, copy.deepcopy(frozen).to(dev),
+                                            copy.deepcopy(trainable).to(dev), torch.bfloat16,
+                                            dev, 4, token=tok)
+    label = "int4w+kv4 smoothed, outlier tree, B=1"
+    launches = check_launches(label, {"mlp_int4_stacked[dn_r]": L, "mlp_int4_stacked": 0,
+                                      "decode_megakernel": 0})
+    dense = with_llama(frozen, llama_int4.dequantize_llama_int4(tree))
+    dense["llama"] = dense["llama"].to(torch.bfloat16)
+    wit_first, wit_step, _ = quant_logits(cfg, request, dense.to(dev),
+                                          copy.deepcopy(trainable).to(dev), torch.bfloat16,
+                                          dev, 4, token=tok)
+    witness = {"prefill": compare_logits("witness, prefill", wit_first, host_first, None),
+               "decode_step": compare_logits("witness, decode step", wit_step, host_step, None)}
+    bars = {k: max(HOST_TOL, OUTLIER_WITNESS_RATIO * v["rel_l2"]) for k, v in witness.items()}
+    stats = {"path": label, "layers": "2 whisper + 2 llama, full width",
+             "prefill": compare_logits(f"{label}, prefill", card_first, host_first,
+                                       bars["prefill"], witness["prefill"]["argmax_agree"]),
+             "decode_step": compare_logits(f"{label}, decode step", card_step, host_step,
+                                           bars["decode_step"],
+                                           witness["decode_step"]["argmax_agree"]),
+             "decode_step_launches": launches,
+             "witness_dense_bf16": witness, "tol_rel_l2": bars,
+             "seconds": time.perf_counter() - t0}
+    log(json.dumps({"host_check_smooth_outliers": stats}))
+
+
+# The smoothed and GPTQ trees' card-vs-host checks quantize the merged seeded
+# weights, as the other quantized host checks do; `host_check_smooth_outliers`
+# holds the smoothed tree of an outlier tree against its witness.
+
+def host_smooth_tree(cfg, frozen, trainable, ids, mask, wav):
+    """The merged tree quantized smoothed (smooth=True, clip=True) on the
+    host."""
+    from audio_llama_tpu_torch.models import llama_int4
+
+    merged, trainable = merged_llama(cfg, frozen, trainable)
+    return with_llama(frozen, llama_int4.quantize_llama_int4(merged, smooth=True, clip=True)), \
+        trainable
+
+
+def host_gptq_tree(cfg, frozen, trainable, ids, mask, wav, dev):
+    """The merged tree quantized by GPTQ, calibrated on this request's
+    splice; the Grams and the quantization run on `dev` (the same tree then
+    serves both sides)."""
+    import copy
+
+    merged, trainable = merged_llama(cfg, frozen, trainable)
+    ref = copy.deepcopy(with_llama(frozen, merged)).to(dev)
+    tree, _, _ = gptq_llama(cfg, ref, copy.deepcopy(trainable).to(dev), ids.to(dev),
+                            mask.to(dev), wav.to(dev))
+    return with_llama(frozen, tree.to("cpu")), trainable
 
 
 # ---------------------------------------------------------------------------
@@ -5061,23 +5464,51 @@ def host_check_pool(dev) -> None:
             rids = [eng.submit(i, audio_features=a, max_new_tokens=8) for i, a in reqs]
             out = eng.run(max_chunks=20)
         firsts = [lg[0].cpu() for lg in tr_.logits if lg.shape[0] == 1]  # the prefills'
-        return [out[r] for r in rids], firsts
+        return [out[r] for r in rids], firsts, eng
 
-    host_toks, host_first = run(frozen.float(), trainable.float(), torch.float32,
-                                torch.device("cpu"))
-    card_toks, card_first = run(copy.deepcopy(frozen).to(dev), copy.deepcopy(trainable).to(dev),
-                                torch.bfloat16, dev)
+    def step_logits(eng, ids, audio, step):
+        """The logits that chose token `step` of a request replayed alone
+        (row 0 of a reset engine): its prefill's for step 0, else decode
+        step `step`'s."""
+        eng.reset()
+        with SamplerTrace() as tr_:
+            eng.submit(ids, audio_features=audio, max_new_tokens=step + 1)
+            eng.run(max_chunks=20)
+        pre = [lg[0] for lg in tr_.logits if lg.shape[0] == 1]
+        steps = [lg[0] for lg in tr_.logits if lg.shape[0] == eng.rows]
+        return (pre[-1:] + steps)[step].cpu()
+
+    def margin(lg):
+        top = lg.topk(2).values
+        return (top[0] - top[1]).item()
+
+    host_toks, host_first, host_eng = run(frozen.float(), trainable.float(), torch.float32,
+                                          torch.device("cpu"))
+    card_toks, card_first, card_eng = run(copy.deepcopy(frozen).to(dev),
+                                          copy.deepcopy(trainable).to(dev), torch.bfloat16, dev)
     prefills = [compare_logits(f"pool card vs host, request {i}", c, h)
                 for i, (c, h) in enumerate(zip(card_first, host_first))]
+    # where the greedy tokens part: the top-2 logit margin of each side at the
+    # first step that differs, beside the card-host logit gap there; a margin
+    # inside that gap is a near-tie that bf16 rounding decides
+    splits = []
+    for i, (c, h) in enumerate(zip(card_toks, host_toks)):
+        k = next((j for j, (a, b) in enumerate(zip(c, h)) if a != b), None)
+        if k is not None:
+            lc = step_logits(card_eng, reqs[i][0], reqs[i][1], k)
+            lh = step_logits(host_eng, reqs[i][0], reqs[i][1], k)
+            gap = (lc - lh).abs().max().item()
+            splits.append({"request": i, "step": k, "card_token": c[k],
+                           "host_token": h[k], "host_top2_margin": margin(lh),
+                           "card_top2_margin": margin(lc), "card_host_max_abs": gap,
+                           "replay_tokens": [int(lc.argmax()), int(lh.argmax())],
+                           "near_tie": margin(lh) <= gap})
     stats = {"path": "serving pool int4w+kv4", "layers": "2 whisper + 2 llama, full width",
              "prefill": prefills, "tokens_equal": [c == h for c, h in zip(card_toks, host_toks)],
-             "tol_rel_l2": HOST_TOL, "seconds": time.perf_counter() - t0}
+             "first_split": splits, "tol_rel_l2": HOST_TOL, "seconds": time.perf_counter() - t0}
     log(json.dumps({"host_check_pool": stats}))
 
 
-# bf16 activations through 2 + 2 layers against an f32 host path: each bf16
-# rounding is <= 2^-9 relative, a few dozen of them compound to ~1e-2
-HOST_TOL = 2e-2
 # gradients: the q and k LoRA leaves reach the loss through attention's
 # dS = P (dP - D), a difference of two sums of bf16 products that nearly
 # cancel, which doubles their relative error (2.2e-2 on an H100 80GB HBM3 at
@@ -5154,6 +5585,8 @@ def main(argv=None) -> int:
     paths["int8"], ab = int8_path(dev, profile=args.profile)
     paths.update(ab)
     torch.cuda.empty_cache()
+    paths["smooth"] = smooth_path(dev)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         paths["serve"] = serve_path(dev, tmp)
     torch.cuda.empty_cache()
@@ -5165,6 +5598,15 @@ def main(argv=None) -> int:
                      want={"decode_megakernel": 1, "mlp_int4_stacked": 0})
     host_check_quant(dev, "int8w+kv8, B=1", bits=8, kv_quant=True, seed=6,
                      want={"decode_attention_quantized_mono": L})
+    host_check_quant(dev, "int4w+kv4 smoothed, B=1", seed=8,
+                     want={"mlp_int4_stacked[dn_r]": L, "mlp_int4_stacked": 0,
+                           "decode_megakernel": 0},
+                     quantize=host_smooth_tree)
+    host_check_quant(dev, "int4w+kv4 GPTQ, B=1 (megakernel)", seed=9,
+                     want={"decode_megakernel": 1, "mlp_int4_stacked": 0,
+                           "mlp_int4_stacked[dn_r]": 0},
+                     quantize=lambda *a: host_gptq_tree(*a, dev=dev))
+    host_check_smooth_outliers(dev)
     host_check_enc8(dev)
     host_check_pool(dev)
     torch.cuda.empty_cache()

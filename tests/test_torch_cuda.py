@@ -280,6 +280,68 @@ def test_mlp_int4_kernel(dev, M, K, F, D):
                   "mlp_int4_stacked") > 1
 
 
+def _dnr(dev, L, F, D, seed=5):
+    """[L, F] f32 down equalizers as a smoothed tree carries them: each
+    layer's `_equalize_rows` of a seeded [F, D] slab with a few hot rows."""
+    from audio_llama_tpu_torch.models.llama_int4 import _equalize_rows
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for _ in range(L):
+        w = torch.randn((F, D), generator=g, device=dev) * 0.02
+        w[torch.randint(0, F, (8,), generator=g, device=dev)] *= 8.0
+        rows.append(_equalize_rows(w)[1])
+    return torch.stack(rows).contiguous()
+
+
+@pytest.mark.parametrize("M,K,F,D", [(4, 3072, 8192, 3072), (1, 256, 1024, 256),
+                                     (9, 512, 1536, 512)])
+def test_mlp_int4_dnr_kernel(dev, M, K, F, D):
+    """The has_dnr mode (smoothed trees) against its plain version; the
+    equalizer ignored or taken from the wrong layer lands outside the bar."""
+    L = 2
+    gup, gus = _bytes(dev, L, K, F), _scales(dev, L, K // 128, 2 * F, seed=1)
+    dn, dns = _bytes(dev, L, F, D // 2, seed=2), _scales(dev, L, F // 128, D, seed=3)
+    x = _randn(dev, M, K, seed=4)
+    dn_r = _dnr(dev, L, F, D)
+    chunk = mlp4.kernel_chunk(F, D // 2)
+    want = mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, 1, chunk=chunk, dn_r=dn_r)
+    before, before_plain = mlp4.launches_dnr, mlp4.launches
+    got = mlp4.mlp_int4_stacked(x, gup, gus, dn, dns, 1, chunk=chunk, dn_r=dn_r)
+    again = mlp4.mlp_int4_stacked(x, gup, gus, dn, dns, 1, chunk=chunk, dn_r=dn_r)
+    torch.cuda.synchronize()
+    assert (mlp4.launches_dnr, mlp4.launches) == (before + 2, before_plain)
+    assert torch.equal(got, again)
+    assert _ratio(got, want, "mlp_int4_stacked") <= 1
+    assert _ratio(mlp4.mlp_int4_stacked(x, gup, gus, dn, dns, 1, chunk=chunk), want,
+                  "mlp_int4_stacked") > 1  # dn_r ignored
+    assert _ratio(mlp4.mlp_int4_stacked(x, gup, gus, dn, dns, 1, chunk=chunk,
+                                        dn_r=dn_r.flip(0).contiguous()), want,
+                  "mlp_int4_stacked") > 1  # the other layer's dn_r
+
+
+def test_mlp_int4_dnr_refusals(dev):
+    L, K, F, D = 2, 256, 1024, 256
+    gup, gus = _bytes(dev, L, K, F), _scales(dev, L, K // 128, 2 * F, seed=1)
+    dn, dns = _bytes(dev, L, F, D // 2, seed=2), _scales(dev, L, F // 128, D, seed=3)
+    x = _randn(dev, 4, K, seed=4)
+    dn_r = _dnr(dev, L, F, D)
+
+    def run(r):
+        return mlp4.mlp_int4_stacked(x, gup, gus, dn, dns, 1, dn_r=r)
+
+    with pytest.raises(TypeError, match="float32"):
+        run(dn_r.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="shape"):
+        run(dn_r[:, :F // 2].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        run(dn_r[1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        run(torch.empty((F, L), device=dev).t())
+    with pytest.raises(ValueError, match="tensors on"):
+        run(dn_r.cpu())
+
+
 def _q4_case(dev, dtype, per_row, S=1568):
     L, B, Hkv, hd, Hq = 3, 2, 8, 128, 24
     ckv = _bytes(dev, L, B, Hkv, S, hd)

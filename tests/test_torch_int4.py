@@ -195,8 +195,12 @@ def test_quantize_llama_int4_leaf_for_leaf(trees, fmt):
                                _np(deq_j["layers"]["q_proj"]), atol=0.05)
     with pytest.raises(ValueError, match="already-quantized"):
         llama_int4.quantize_llama_int4(tq)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        llama_int4.quantize_llama_int4(tparams, smooth=True)
+    # smooth=True gives every slab its per-input-row equalizer w_r [L, K]
+    # (tests/test_torch_int4_smooth.py holds it against JAX)
+    ts = llama_int4.quantize_llama_int4(tparams, smooth=True, fmt=fmt)
+    for name, w in ts["layers"].items():
+        if name in ("qkv_proj", "gateup_proj", "o_proj", "down_proj"):
+            assert tuple(w["w_r"].shape) == tuple(w["w_p"].shape[:2]), name
 
 
 def test_merge_into_llama(trees):

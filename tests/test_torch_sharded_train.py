@@ -239,9 +239,9 @@ def test_refusals():
     fsdp = t_mesh.Mesh([("dp", 1), ("fsdp", 2), ("tp", 1), ("sp", 1)], rank=0)
     sp_tp = t_mesh.Mesh([("dp", 1), ("fsdp", 1), ("tp", 2), ("sp", 2)], rank=0)
     for mesh in (fsdp, sp_tp):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
             sharded_train.make_sharded_train_step(CFG, None, mesh, None, SID, EID)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
             sharded_train.make_sharded_eval_step(CFG, mesh, None, SID, EID)
 
 

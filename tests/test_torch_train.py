@@ -406,7 +406,7 @@ def test_group_by_modality_keeps_audio():
 @pytest.mark.parametrize("flags,error,match", [
     (["--attn_impl", "xla"], ValueError, "'auto' only"),
     (["--mel_impl", "pallas_interpret"], ValueError, "'auto' only"),
-    (["--mesh_fsdp", "2"], NotImplementedError, "ROADMAP queue 1 item 1"),
+    (["--mesh_fsdp", "2"], NotImplementedError, "ROADMAP queue 1 item 2"),
     (["--num_processes", "2"], ValueError, "needs --distributed"),
     (["--toy_outliers", "4", "--synthetic_flagship"], NotImplementedError, "outliers"),
 ])
