@@ -52,7 +52,7 @@
 
 namespace {
 
-using al::kGroup;
+constexpr int kGroup = 128;  // scale group (ops/decode_megakernel.py::ok_for refuses others)
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;

@@ -3,16 +3,25 @@
 // Pack format (audio_llama_tpu_torch/ops/int4_matmul.py): a weight w [K, N]
 // is stored as packed [K, N/2] int8, byte j of a row holding output column j
 // in its low nibble and column j + N/2 in its high nibble, with f32 scales
-// [K/128, N], one per 128-row group and output column. Low nibble: `pair`
-// stores the signed value, `obin` the value + 8. High nibble: signed in both,
-// read as (sign-extended byte) >> 4.
+// [K/group, N], one per group of `group` contraction rows and output column.
+// Low nibble: `pair` stores the signed value, `obin` the value + 8. High
+// nibble: signed in both, read as (sign-extended byte) >> 4.
+//
+// The group is a run-time argument of these kernels (the JAX package's
+// kernels take it too): a multiple of 16 that divides 128 or is a multiple of
+// 128 (`group_ok`), so 32, 64, 128 and 256. The decode megakernel keeps 128
+// (its gate refuses other groups, as JAX's does).
 #pragma once
 
 #include "common.cuh"
 
 namespace al {
 
-constexpr int kGroup = 128;  // contraction rows per scale group
+constexpr int kTile = 128;  // contraction rows a tile: a multiple of every group <= 128
+
+__host__ __device__ __forceinline__ bool group_ok(int group) {
+  return group > 0 && group % 16 == 0 && (kTile % group == 0 || group % kTile == 0);
+}
 constexpr int kFmtPair = 0;
 constexpr int kFmtObin = 1;
 
@@ -42,7 +51,7 @@ struct Bytes<8> {
 };
 
 // One thread's share of a group-scaled int4 product over packed rows
-// [kb, ke) (group aligned): the thread owns VB packed columns starting at
+// [kb, ke) (kb and ke multiples of `group`): the thread owns VB packed columns starting at
 // `col` and the rows kb + slice, kb + slice + nslices, ... of every group.
 // Per group it sums x[m, k] * q[k, col + i] in f32 (products of a bf16 value
 // and a small integer are exact), multiplies that partial by the group's f32
@@ -53,15 +62,16 @@ template <int MC, int VB>
 __device__ __forceinline__ void w4_accumulate(float (&acc)[MC][2 * VB], const float* xs, int ldx,
                                               int xk0, const int8_t* p, long long ldp, int col,
                                               int kb, int ke, int slice, int nslices,
-                                              const float* s, long long lds, int nh, int fmt) {
-  for (int g0 = kb; g0 < ke; g0 += kGroup) {
+                                              const float* s, long long lds, int nh, int fmt,
+                                              int group) {
+  for (int g0 = kb; g0 < ke; g0 += group) {
     float part[MC][2 * VB];
 #pragma unroll
     for (int m = 0; m < MC; ++m)
 #pragma unroll
       for (int i = 0; i < 2 * VB; ++i) part[m][i] = 0.f;
 #pragma unroll 4
-    for (int k = g0 + slice; k < g0 + kGroup; k += nslices) {
+    for (int k = g0 + slice; k < g0 + group; k += nslices) {
       Bytes<VB> b;
       b.load(p + (long long)k * ldp + col);
       float lo[VB], hi[VB];
@@ -81,7 +91,7 @@ __device__ __forceinline__ void w4_accumulate(float (&acc)[MC][2 * VB], const fl
         }
       }
     }
-    const float* sg = s + (long long)(g0 / kGroup) * lds;
+    const float* sg = s + (long long)(g0 / group) * lds;
 #pragma unroll
     for (int i = 0; i < VB; ++i) {
       const float slo = __ldg(sg + col + i), shi = __ldg(sg + nh + col + i);

@@ -2,15 +2,18 @@
 //
 // Replaces audio_llama_tpu/ops/mlp_int4.py::_kernel (mlp_int4_stacked) for
 // M <= 64 rows: x [M, K] bf16; the layer's gate|up slab [K, F] int8 (low
-// nibble gate column j, high nibble up column j) with scales [K/128, 2F];
-// the layer's down slab [F, D/2] int8 with scales [F/128, D]; pack formats
-// and group numerics as int4_matmul.cu.
+// nibble gate column j, high nibble up column j) with scales [K/G, 2F];
+// the layer's down slab [F, D/2] int8 with scales [F/G, D]; pack formats
+// and group numerics as int4_matmul.cu, the scale group G a run-time
+// argument (32, 64, 128 or 256; int4_common.cuh).
 //
 // Bound on the H100: the weight bytes, 3 * K * F / 2 per layer (40.1 MB at
 // 3B dims, 12.0 us at 3.35 TB/s; a smoothed tree's down equalizer adds F * 4
-// bytes, 32 KB). Design: block c owns F-chunk c (`chunk` columns; the wrapper
-// takes one 128-column scale group, so 64 blocks run at F = 8192, where the
-// TPU kernel walks 512-column chunks in order on one core). Its 256 threads
+// bytes, 32 KB; group 32 adds 3 scale bytes for every 4 of group 128, 47.2 MB
+// in all). Design: block c owns F-chunk c (`chunk` columns; the wrapper takes
+// 128, which holds 128 / G down groups (scale rows c * chunk / G + i), or G
+// above 128; so 64 blocks run at F = 8192, where the TPU kernel walks
+// 512-column chunks in order on one core). Its 256 threads
 // stream the chunk's gate|up columns (8 bytes a thread, chunk / 8 threads a
 // row, the rest as row slices), add the slices in a fixed order, form
 // a = g * sigmoid(g) * u in f32, multiply it by the layer's down equalizer
@@ -29,8 +32,6 @@
 
 namespace {
 
-using al::kGroup;
-
 constexpr int kThreads = 256;
 constexpr int kMC = 4;  // rows per pass
 constexpr int kVB = 8;  // packed bytes per thread and row
@@ -40,8 +41,8 @@ __global__ void __launch_bounds__(kThreads)
 mlp4_kernel(const __nv_bfloat16* __restrict__ x, int M, int K, const int8_t* __restrict__ gup,
             const float* __restrict__ gus, const int8_t* __restrict__ dn,
             const float* __restrict__ dns, const float* __restrict__ dnr, int F, int dh,
-            int chunk, int fmt, __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
-            int* __restrict__ counter) {
+            int chunk, int fmt, int group, __nv_bfloat16* __restrict__ out,
+            float* __restrict__ ws, int* __restrict__ counter) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int flag;
   const int tid = threadIdx.x;
@@ -68,7 +69,7 @@ mlp4_kernel(const __nv_bfloat16* __restrict__ x, int M, int K, const int8_t* __r
       for (int i = 0; i < 2 * kVB; ++i) acc[m][i] = 0.f;
     const int colc = (tid % tpr) * kVB;  // within the chunk
     al::w4_accumulate<kMC, kVB>(acc, xs, K, 0, gup, F, c * chunk + colc, 0, K, slice, nsl, gus,
-                                2LL * F, F, fmt);
+                                2LL * F, F, fmt, group);
 #pragma unroll
     for (int m = 0; m < kMC; ++m)
 #pragma unroll
@@ -97,7 +98,7 @@ mlp4_kernel(const __nv_bfloat16* __restrict__ x, int M, int K, const int8_t* __r
 #pragma unroll
         for (int i = 0; i < 2 * kVB; ++i) acc2[m][i] = 0.f;
       al::w4_accumulate<kMC, kVB>(acc2, as, chunk, c * chunk, dn, dh, col, c * chunk,
-                                  (c + 1) * chunk, 0, 1, dns, D, dh, fmt);
+                                  (c + 1) * chunk, 0, 1, dns, D, dh, fmt, group);
       for (int m = 0; m < mc; ++m) {
         float* row = ws + ((long long)c * M + m0 + m) * D;
 #pragma unroll
@@ -130,19 +131,21 @@ mlp4_kernel(const __nv_bfloat16* __restrict__ x, int M, int K, const int8_t* __r
 
 }  // namespace
 
-// x [M, K] bf16; gup: the layer's [K, F] int8; gus: [K/128, 2F] f32; dn:
-// the layer's [F, dh] int8; dns: [F/128, 2*dh] f32; dnr: the layer's [F]
+// x [M, K] bf16; gup: the layer's [K, F] int8; gus: [K/group, 2F] f32; dn:
+// the layer's [F, dh] int8; dns: [F/group, 2*dh] f32; dnr: the layer's [F]
 // f32 down equalizer of a smoothed tree, or nullptr (the mode without one);
 // out [M, 2*dh] bf16; ws f32 [F/chunk, M, 2*dh]; counter: one int, zero at
 // entry (left zero).
-// Requires M <= 64, K % 128 == 0, chunk % 128 == 0, F % chunk == 0,
-// 256 % (chunk / 8) == 0, dh % 8 == 0, 8-byte aligned slabs (checked by the
-// wrapper).
+// Requires M <= 64, al::group_ok(group), K % group == 0, chunk % group == 0,
+// F % chunk == 0, 256 % (chunk / 8) == 0, dh % 8 == 0, 8-byte aligned slabs
+// (checked by the wrapper).
 AL_EXPORT int al_mlp_int4(const void* x, int M, int K, const void* gup, const void* gus,
                           const void* dn, const void* dns, const void* dnr, int F, int dh,
-                          int chunk, int fmt, void* out, void* ws, void* counter, void* stream) {
+                          int chunk, int fmt, int group, void* out, void* ws, void* counter,
+                          void* stream) {
   if (M == 0) return cudaSuccess;
-  if (K % kGroup || chunk % kGroup || F % chunk || kThreads % (chunk / kVB) || dh % kVB)
+  if (!al::group_ok(group) || K % group || chunk % group || F % chunk ||
+      kThreads % (chunk / kVB) || dh % kVB)
     return cudaErrorInvalidValue;
   const int nsl = kThreads / (chunk / kVB);
   const size_t smem =
@@ -152,7 +155,7 @@ AL_EXPORT int al_mlp_int4(const void* x, int M, int K, const void* gup, const vo
   mlp4_kernel<<<F / chunk, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), M, K, static_cast<const int8_t*>(gup),
       static_cast<const float*>(gus), static_cast<const int8_t*>(dn),
-      static_cast<const float*>(dns), static_cast<const float*>(dnr), F, dh, chunk, fmt,
+      static_cast<const float*>(dns), static_cast<const float*>(dnr), F, dh, chunk, fmt, group,
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), static_cast<int*>(counter));
   return cudaGetLastError();
 }

@@ -449,7 +449,9 @@ def _vslice(lo: torch.Tensor, hi: torch.Tensor, start: int, size: int) -> torch.
 def _int4_group(w) -> int:
     """The contraction rows per scale group of an int4 slab {'w_p', 'w_s'},
     read from its shapes as the JAX package reads it (128 by default; the
-    card's kernels take 128 only and raise on another)."""
+    smoothed and GPTQ trees of JAX's users take 32). The card's kernels take
+    every group `ops.int4_matmul.check_group` allows (32, 64, 128, 256) and
+    raise ValueError on another; the decode megakernel takes 128 only."""
     return w["w_p"].shape[1] // w["w_s"].shape[-2]
 
 

@@ -6,14 +6,14 @@ quantizes the contraction rows of a slab one after another and feeds each
 row's rounding error into the rows not yet quantized, weighted by the
 calibration Gram H = sum_t x_t x_t^T of the slab's inputs (the GPTQ / OBQ
 recipe: the upper Cholesky factor of the damped H^-1, a row loop inside each
-128-row scale group and one product for the rows past it). It writes the
+scale group and one product for the rows past it). It writes the
 fused int4 tree of `quantize_llama_int4(fuse=True)` unchanged (q|k|v and
 gate|up as one slab each, o and down, int8 embed and lm_head, the
 `int4_obin` marker), so every consumer takes it as it is.
 
 The Grams come from `llama_forward(collect_quant_stats=...)`
 (`collect_llama_stats`): [L, K, K] f32 per role; at 3B dims the down role's
-is [28, 8192, 8192], 7.5 GB. The kernels index scales by contiguous 128-row
+is [28, 8192, 8192], 7.5 GB. The kernels index scales by contiguous row
 groups, so GPTQ's act-order permutation is not used, as in the JAX package.
 
 `gptq_pack` takes one slab [K, N] or a stack [..., K, N] with its Grams

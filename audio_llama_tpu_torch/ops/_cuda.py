@@ -52,9 +52,9 @@ SIGNATURES = {
     "al_causal_attention_dma": [_P] * 8 + [_I] * 5 + _STRIDES + [_I, _P],
     "al_decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P, _P],
     "al_mel_power": [_P, _I, _L, _I, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P],
-    "al_int4_matmul": [_P, _I, _I, _P, _I, _P, _I, _P, _L, _L, _P, _P, _I, _I, _I, _I, _P],
-    "al_int4_matmul_2d": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
-    "al_mlp_int4": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "al_int4_matmul": [_P, _I, _I, _P, _I, _P, _I, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _P],
+    "al_int4_matmul_2d": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "al_mlp_int4": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "al_decode_attention_q4": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P, _P],
     "al_decode_attention_q8": [_I] + [_P] * 11 + [_I] * 7 + [_F, _P, _P],
     "al_decode_megakernel": [_P] * 24 + [_I] * 8 + [_F, _F, _I, _I, _P],

@@ -1,9 +1,10 @@
 """W4A16: group-wise int4 weight-only matmul on stacked layer slabs.
 
 Counterpart of `audio_llama_tpu/ops/int4_matmul.py`. A weight w [K, N] (in,
-out) is quantized per (128-row group, output column), q in [-7, 7], scale =
-absmax / 7 (optionally clipped, `quantize_pack`), and byte-packed pairing
-output column j with column j + N/2:
+out) is quantized per (group of `group` rows, output column; 128 by
+default), q in [-7, 7], scale = absmax / 7 (optionally clipped,
+`quantize_pack`), and byte-packed pairing output column j with column
+j + N/2:
 
     packed[k, j] = lo | (hi << 4),  lo = q[k, j], hi = q[k, j + N/2]
 
@@ -16,9 +17,13 @@ The kernel `int4_matmul_stacked` replaces `_kernel_stacked`: x [..., K] @
 dequant(packed_all[layer]) with the layer picked by a pointer offset into
 the [L, K, N/2] slab. The CUDA kernel is `csrc/int4_matmul.cu` (its source
 note gives the bounds and the two launch shapes, M <= 64 and M > 64).
-`int4_matmul_stacked_plain` is the same arithmetic in PyTorch: per 128-row
+`int4_matmul_stacked_plain` is the same arithmetic in PyTorch: per scale
 group the f32 dot of x with the integer nibbles, times the group's f32
-scale, summed over groups, cast to x's dtype. `int4_matmul_ref` and
+scale, summed over groups, cast to x's dtype. The group is an argument of
+the kernels, as of JAX's: on the card every group that `check_group` takes
+(a multiple of 16 dividing 128 or a multiple of 128, so 32, 64, 128, 256;
+the smoothed and GPTQ trees of the JAX package's users are quantized at
+32). `int4_matmul_ref` and
 `int4_matmul_stacked_ref` are the JAX package's oracles (dequantize, then
 matmul in the compute dtype).
 
@@ -234,15 +239,35 @@ def int4_matmul_stacked_ksplit_plain(x, packed_all, scales_all, layer, block_k: 
     return torch.cat([lo_out, hi_out], dim=-1)
 
 
+def group_ok(group: int) -> bool:
+    """Whether the card's int4 kernels take scale groups of `group` rows: a
+    multiple of 16 (one m16n8k16 k-step) that divides their 128-row tile or
+    is a multiple of it."""
+    return group > 0 and group % 16 == 0 and (128 % group == 0 or group % 128 == 0)
+
+
+def check_group(name: str, K: int, group: int) -> None:
+    """Raise ValueError unless the card's int4 kernels take `group` at
+    contraction K (`group_ok`, group | K, 128 | K)."""
+    if not group_ok(group) or K % group or K % 128:
+        raise ValueError(
+            f"{name}: the scale group must be a multiple of 16 that divides 128 or is a "
+            f"multiple of 128 (32, 64, 128, 256, ...) and divide K, and K a multiple of 128; "
+            f"got group={group} K={K}")
+
+
 def decode_split(M: int, K: int, Nh: int, group: int = GROUP):
-    """(rows per block, groups per block, blocks along K) of the kernel's
-    M <= 64 shape: enough blocks to stream the slab on every SM."""
+    """(rows per block, K rows per block, blocks along K) of the kernel's
+    M <= 64 shape: enough blocks to stream the slab on every SM. A block's K
+    rows are a multiple of 128 and of the group, so a group below 128 gives
+    the blocks and shared memory of group 128 (at most 1024 rows a block)."""
     mc = next(c for c in (1, 2, 4, 8) if c >= min(M, 8))
-    n_groups = K // group
+    unit = max(128, group)
+    n_units = -(-K // unit)
     blocks = (Nh // 128) * -(-M // mc)
-    ksplit = min(n_groups, max(1, -(-_TARGET_BLOCKS // blocks)))
-    gps = min(8, -(-n_groups // ksplit))
-    return mc, gps, -(-n_groups // gps)
+    ksplit = min(n_units, max(1, -(-_TARGET_BLOCKS // blocks)))
+    upb = min(max(1, 1024 // unit), -(-n_units // ksplit))
+    return mc, upb * unit, -(-n_units // upb)
 
 
 def int4_matmul_stacked_cuda(x, packed_all, scales_all, layer, group: int = GROUP,
@@ -261,10 +286,11 @@ def int4_matmul_stacked_cuda(x, packed_all, scales_all, layer, group: int = GROU
         raise TypeError(f"{name}: x must be bfloat16, got {x.dtype}")
     if packed_all.dtype != torch.int8 or scales_all.dtype != torch.float32:
         raise TypeError(f"{name}: expected int8 packed and f32 scales")
-    if group != GROUP or Kp != K or K % GROUP or Nh % 128:
-        raise ValueError(f"{name}: needs group 128, K % 128 == 0 and N/2 % 128 == 0; "
-                         f"got K={K} N/2={Nh} group={group}")
-    _cuda.require_shape(name, scales_all, (L, K // GROUP, N))
+    check_group(name, K, group)
+    if Kp != K or Nh % 128:
+        raise ValueError(f"{name}: needs x's K equal to the slab's and N/2 % 128 == 0; "
+                         f"got K={K} slab K={Kp} N/2={Nh}")
+    _cuda.require_shape(name, scales_all, (L, K // group, N))
     if not 0 <= int(layer) < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
     if not (packed_all.is_contiguous() and scales_all.is_contiguous()):
@@ -281,17 +307,17 @@ def int4_matmul_stacked_cuda(x, packed_all, scales_all, layer, group: int = GROU
     else:
         out = torch.empty((M, N), dtype=x.dtype, device=x.device)
         ldo, hi_off = N, Nh
-    bk = ksplit_block(K, block_k) if block_k else 0
-    gpb = bk // GROUP if M > DECODE_MAX_M else 0
+    bk = ksplit_block(K, block_k, group) if block_k else 0
+    gpb = bk // group if M > DECODE_MAX_M else 0
     if M > DECODE_MAX_M:
-        mc, gps, ksplit = 0, 0, 1
+        mc, kr, ksplit = 0, 0, 1
     elif bk:  # the decode shape's blocks along K are the K blocks
-        mc, gps, ksplit = decode_split(M, K, Nh)[0], bk // GROUP, K // bk
+        mc, kr, ksplit = decode_split(M, K, Nh, group)[0], bk, K // bk
         if 4 * (mc * bk + 8 * mc * 256) > _SMEM_MAX:
             raise ValueError(f"{name}: block_k={bk} leaves the decode shape's x rows and "
                              f"partials ({mc} rows) past {_SMEM_MAX} bytes of shared memory")
     else:
-        mc, gps, ksplit = decode_split(M, K, Nh)
+        mc, kr, ksplit = decode_split(M, K, Nh, group)
     mz = -(-M // mc) if mc else 0
     if ksplit > 1:
         ws = torch.empty((mz, ksplit, mc, N), dtype=torch.float32, device=x.device)
@@ -301,7 +327,7 @@ def int4_matmul_stacked_cuda(x, packed_all, scales_all, layer, group: int = GROU
         ws_ptr = cnt_ptr = None
     err = _cuda.library().al_int4_matmul(
         x2.data_ptr(), M, K, p.data_ptr(), Nh, s.data_ptr(), code, out.data_ptr(), ldo, hi_off,
-        ws_ptr, cnt_ptr, mc, gps, ksplit, gpb, _cuda.stream_handle(x),
+        ws_ptr, cnt_ptr, mc, kr, ksplit, gpb, group, _cuda.stream_handle(x),
     )
     _cuda.check(err, name)
     if bk:
@@ -332,17 +358,18 @@ def int4_matmul_cuda(x, packed, scales, group: int = GROUP, fmt: Optional[str] =
         raise TypeError(f"{name}: x must be bfloat16, got {x.dtype}")
     if packed.dtype != torch.int8 or scales.dtype != torch.float32:
         raise TypeError(f"{name}: expected int8 packed and f32 scales")
-    if group != GROUP or Kp != K or K % GROUP or Nh % 128:
-        raise ValueError(f"{name}: needs group 128, K % 128 == 0 and N/2 % 128 == 0; "
-                         f"got K={K} N/2={Nh} group={group}")
-    _cuda.require_shape(name, scales, (K // GROUP, N))
+    check_group(name, K, group)
+    if Kp != K or Nh % 128:
+        raise ValueError(f"{name}: needs x's K equal to the weight's and N/2 % 128 == 0; "
+                         f"got K={K} weight K={Kp} N/2={Nh}")
+    _cuda.require_shape(name, scales, (K // group, N))
     packed, scales = packed.contiguous(), scales.contiguous()
     x2 = x.reshape(-1, K).contiguous()
     M = x2.shape[0]
     if not (_cuda.aligned16(x2) and _cuda.aligned16(packed)):
         raise ValueError(f"{name}: x and the packed weight must be 16-byte aligned")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    mc, gps, ksplit = (0, 0, 1) if M > DECODE_MAX_M else decode_split(M, K, Nh)
+    mc, kr, ksplit = (0, 0, 1) if M > DECODE_MAX_M else decode_split(M, K, Nh, group)
     ws_ptr = cnt_ptr = None
     if ksplit > 1:
         mz = -(-M // mc)
@@ -351,7 +378,7 @@ def int4_matmul_cuda(x, packed, scales, group: int = GROUP, fmt: Optional[str] =
         cnt_ptr = _cuda.counters(x.device, mz * (Nh // 128)).data_ptr()
     err = _cuda.library().al_int4_matmul_2d(
         x2.data_ptr(), M, K, packed.data_ptr(), Nh, scales.data_ptr(), code, out.data_ptr(),
-        ws_ptr, cnt_ptr, mc, gps, ksplit, _cuda.stream_handle(x),
+        ws_ptr, cnt_ptr, mc, kr, ksplit, group, _cuda.stream_handle(x),
     )
     _cuda.check(err, name)
     launches_2d += 1

@@ -25,19 +25,21 @@ from typing import Optional
 import torch
 
 from . import _cuda
-from .int4_matmul import FMT_CODE, GROUP, _fmt, _unpack_planes, int4_matmul_stacked_ref
+from .int4_matmul import (FMT_CODE, GROUP, _fmt, _unpack_planes, check_group,
+                          int4_matmul_stacked_ref)
 
 launches = 0  # kernel launches through `mlp_int4_stacked` without dn_r
 launches_dnr = 0  # kernel launches with a down equalizer dn_r (smoothed trees)
 
 MAX_M = 64
 CHUNK = 512  # F columns per chunk (the TPU kernel's grid step)
-# The CUDA kernel's chunk: one scale group. The TPU kernel walks its chunks
-# in order on one core; here each chunk is a block, so one group per chunk
-# puts 64 blocks on the card at F = 8192 (512 would leave 116 of 132 SMs
-# idle). The activations are the same; only the f32 order of the sum over
-# chunks changes.
-KERNEL_CHUNK = GROUP
+# The CUDA kernel's chunk: 128 columns, 128 / G down scale groups of G
+# rows (G itself above 128). The TPU kernel walks its chunks in order on one
+# core; here each chunk is a block, so 128 columns a chunk put 64 blocks on
+# the card at F = 8192 (512 would leave 116 of 132 SMs idle). The
+# activations are the same; only the f32 order of the sum over chunks
+# changes.
+KERNEL_CHUNK = 128
 
 
 def pick_chunk(F: int, group: int = GROUP, target: Optional[int] = None):
@@ -61,7 +63,7 @@ def kernel_chunk(F: int, dh: int, group: int = GROUP):
     """The F-chunk the fused kernel runs at for an MLP of F columns and a
     down slab of dh packed columns, or None where the kernel cannot tile it
     (the caller then takes the two-call planes path)."""
-    c = pick_chunk(F, group, target=KERNEL_CHUNK)
+    c = pick_chunk(F, group, target=max(KERNEL_CHUNK, group))
     if c is None or 256 % (c // 8) or dh % 8:
         return None
     return c
@@ -140,17 +142,19 @@ def mlp_int4_stacked_cuda(x, gup_packed, gup_scales, dn_packed, dn_scales, layer
     if gup_packed.dtype != torch.int8 or dn_packed.dtype != torch.int8 \
             or gup_scales.dtype != torch.float32 or dn_scales.dtype != torch.float32:
         raise TypeError(f"{name}: expected int8 slabs and f32 scales")
-    _cuda.require_shape(name, gup_scales, (L, K // GROUP, 2 * F))
+    check_group(name, K, group)
+    if F % group:
+        raise ValueError(f"{name}: the scale group {group} must divide F={F}")
+    _cuda.require_shape(name, gup_scales, (L, K // group, 2 * F))
     _cuda.require_shape(name, dn_packed, (L, F, dh))
-    _cuda.require_shape(name, dn_scales, (L, F // GROUP, 2 * dh))
+    _cuda.require_shape(name, dn_scales, (L, F // group, 2 * dh))
     if dn_r is not None:
         if dn_r.dtype != torch.float32:
             raise TypeError(f"{name}: dn_r must be float32, got {dn_r.dtype}")
         _cuda.require_shape(name, dn_r, (L, F))
         if not dn_r.is_contiguous():
             raise ValueError(f"{name}: dn_r must be contiguous")
-    if group != GROUP or Kp != K or K % GROUP or chunk is None or chunk % GROUP or F % chunk \
-            or 256 % (chunk // 8) or dh % 8:
+    if Kp != K or chunk is None or chunk % group or F % chunk or 256 % (chunk // 8) or dh % 8:
         raise ValueError(f"{name}: unsupported geometry K={K} F={F} D/2={dh} chunk={chunk}")
     if not all(t.is_contiguous() for t in (gup_packed, gup_scales, dn_packed, dn_scales)):
         raise ValueError(f"{name}: the slabs must be contiguous")
@@ -170,7 +174,7 @@ def mlp_int4_stacked_cuda(x, gup_packed, gup_scales, dn_packed, dn_scales, layer
     err = _cuda.library().al_mlp_int4(
         x2.data_ptr(), M, K, gup_packed[li].data_ptr(), gup_scales[li].data_ptr(),
         dn_packed[li].data_ptr(), dn_scales[li].data_ptr(),
-        None if dn_r is None else dn_r[li].data_ptr(), F, dh, chunk, code,
+        None if dn_r is None else dn_r[li].data_ptr(), F, dh, chunk, code, group,
         out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), _cuda.stream_handle(x),
     )
     _cuda.check(err, name)

@@ -153,13 +153,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      against its plain version, on planted faults (dn_r ignored, the next
      layer's dn_r); (b) `smooth_path`: the full-width model with LoRA
      merged and outlier channels injected, quantized on the card four ways
-     (RTN, clipped RTN, smoothed, GPTQ calibrated on the four requests'
-     audio splice), the first-step KL of each against the unquantized tree
-     (reported), GPTQ's proxy loss over layer 0 at most RTN's, `generate`
-     at B = 4 and B = 1 on the smoothed, clipped and GPTQ trees with exact
-     launches (the smoothed tree: the dn_r mode every decode step, never the
-     megakernel); (c) card vs host at 2 + 2 layers on a smoothed and a GPTQ
-     tree of merged seeded weights.
+     at scale group 32 (RTN, clipped RTN, smoothed, GPTQ calibrated on the
+     four requests' audio splice), the first-step KL of each against the
+     unquantized tree (reported), GPTQ's proxy loss over layer 0 at most
+     RTN's, `generate` at B = 4 and B = 1 on the smoothed, clipped and GPTQ
+     trees with exact launches (no megakernel: its gate refuses w_r and
+     group 32; the smoothed tree: the dn_r mode every decode step), and the
+     clipped tree at B = 4 under INT4_BK = 768; (c) card vs host at 2 + 2
+     layers on a smoothed and a GPTQ tree of merged seeded weights (group
+     128, through the megakernel) and on a clipped and a GPTQ tree at group
+     32 (the per-layer kernels).
+ 22. the int4 kernels' scale group: (a) `group_kernel_checks`: rows 6, 7,
+     7r, 28 and 31 of phase 2 again at groups 32 and 64 at the same shapes
+     against their plain versions, on the planted fault group g's partial
+     scaled by group g+1's scale, timed with the bound at that group's
+     bytes (each row's `by_group`, with group 32's launches on the path that
+     runs it; `int4_2d_checks` also runs `_linear` on group-32 weights); (b)
+     `eval_path`, the quantization-accuracy path at full width on phase 21's
+     model and group-32 trees: a FLAC formant-speech corpus
+     (`data.synth_speech`), `eval.kl.batch_logit_kl` of each tree against the
+     unquantized one on a loader batch of 4, `eval.wer.evaluate_wer` on the
+     bf16 and the clipped tree (8 clips, 12 tokens): finite, shaped and
+     counted, the clip-off RTN tree's KL above zero, WER reported.
 With `--profile`, phases 3, 4, 6 (megakernel off), 7 and 10 add a
 torch.profiler breakdown (encode + prefill + first token, and per decode
 token; one train step) by device kernel group, with the device's busy share
@@ -1790,13 +1805,13 @@ def merged_llama(cfg, frozen, trainable):
     return merged, ParamTree({k: v for k, v in trainable.items() if k != "lora"})
 
 
-def gptq_llama(cfg, frozen, trainable, ids, mask, wav):
-    """frozen["llama"] (full precision) quantized by GPTQ, calibrated as the
-    JAX package's outlier gate does: the requests' audio splice (built at
-    bf16, which the encoder's kernels take), the decoder's masked input Grams
-    at f32 with the plain attention (`collect_llama_stats`), then
-    `quantize_llama_int4_gptq(clip_cands=CLIP_CANDS)` -> (int4 tree, Grams,
-    seconds of each step)."""
+def gptq_llama(cfg, frozen, trainable, ids, mask, wav, group=128):
+    """frozen["llama"] (full precision) quantized by GPTQ at the scale
+    group, calibrated as the JAX package's outlier gate does: the requests'
+    audio splice (built at bf16, which the encoder's kernels take), the
+    decoder's masked input Grams at f32 with the plain attention
+    (`collect_llama_stats`), then `quantize_llama_int4_gptq(clip_cands=
+    CLIP_CANDS)` -> (int4 tree, Grams, seconds of each step)."""
     import copy
 
     from audio_llama_tpu_torch.inference.generate import build_prefix
@@ -1813,7 +1828,8 @@ def gptq_llama(cfg, frozen, trainable, ids, mask, wav):
         del f32, embeds
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        tree = llama_gptq.quantize_llama_int4_gptq(frozen["llama"], stats, clip_cands=CLIP_CANDS)
+        tree = llama_gptq.quantize_llama_int4_gptq(frozen["llama"], stats, group=group,
+                                                   clip_cands=CLIP_CANDS)
         torch.cuda.synchronize()
     return tree, stats, {"gram_s": t1 - t0, "quantize_s": time.perf_counter() - t1}
 
@@ -1889,19 +1905,25 @@ def timed_generate(label, frozen, trainable, cfg, request, want, dev, megakernel
             "greedy_tokens": toks.tolist()}, launches
 
 
-def smooth_path(dev) -> dict:
+SMOOTH_GROUP = 32  # the scale group every JAX user of smoothed and GPTQ trees quantizes at
+
+
+def smooth_path(dev):
     """Smoothed int4 trees and GPTQ at full width (`AudioLLMConfig()`):
     seeded bf16 weights, LoRA merged, the port's outlier channels injected,
-    then quantized four ways on the card: RTN (clip off), clipped RTN (the
-    default), smoothed (smooth=True, clip=True) and GPTQ (calibrated on the
-    four requests' audio splice, Grams at f32, CLIP_CANDS). The first-step
-    KL of each against the unquantized outlier tree (reported, not gated);
-    GPTQ's proxy loss over layer 0's four slabs at most RTN's (gated).
-    `generate` at B = 4 (four 30 s waveforms, the int4 path's prompts, int4
-    KV) and at B = 1 (the first request) on the smoothed, the clipped and
-    the GPTQ tree, launches exact: the smoothed tree's decode steps run the
-    fused MLP in its dn_r mode and never the megakernel, whose gate refuses
-    w_r; the GPTQ tree's B = 1 steps run the megakernel."""
+    then quantized four ways on the card at group SMOOTH_GROUP: RTN (clip
+    off), clipped RTN (the default), smoothed (smooth=True, clip=True) and
+    GPTQ (calibrated on the four requests' audio splice, Grams at f32,
+    CLIP_CANDS). The first-step KL of each against the unquantized outlier
+    tree (reported, not gated); GPTQ's proxy loss over layer 0's four slabs
+    at most RTN's (gated). `generate` at B = 4 (four 30 s waveforms, the
+    int4 path's prompts, int4 KV) and at B = 1 (the first request) on the
+    smoothed, the clipped and the GPTQ tree, launches exact: no step runs
+    the megakernel, whose gate refuses w_r and every group but 128, so the
+    B = 1 steps run the per-layer kernels at group 32 (the smoothed tree's
+    fused MLP in its dn_r mode); then the clipped tree at B = 4 under
+    INT4_BK = 768 (the K-split launch at group 32). -> (the runs' counts by
+    path name, the trees and model for `eval_path`)."""
     from audio_llama_tpu_torch.models import allm, llama, llama_gptq, llama_int4
     from audio_llama_tpu_torch.ops import int4_matmul as i4
 
@@ -1939,12 +1961,13 @@ def smooth_path(dev) -> dict:
     for name, kw in (("rtn", dict(clip=False)), ("clip", dict()),
                      ("smooth", dict(smooth=True, clip=True))):
         t1 = time.perf_counter()
-        trees[name] = with_llama(ref, llama_int4.quantize_llama_int4(lo, **kw))
+        trees[name] = with_llama(ref, llama_int4.quantize_llama_int4(lo, group=SMOOTH_GROUP,
+                                                                     **kw))
         torch.cuda.synchronize()
         quant_s[name] = time.perf_counter() - t1
         kl[name] = first_step_kl(ref, trees[name], trainable, cfg, request, dev)
-    del trees["rtn"]
-    gq, stats, gptq_s = gptq_llama(cfg, ref, trainable, request["ids"], mask, wav)
+    gq, stats, gptq_s = gptq_llama(cfg, ref, trainable, request["ids"], mask, wav,
+                                   group=SMOOTH_GROUP)
     trees["gptq"] = with_llama(ref, gq)
     kl["gptq"] = first_step_kl(ref, trees["gptq"], trainable, cfg, request, dev)
     log(json.dumps({"smooth_quantize": {"seconds": {**quant_s, **gptq_s}, "first_step_kl": kl}}))
@@ -1959,10 +1982,11 @@ def smooth_path(dev) -> dict:
     for name, w in full.items():
         H = stats[roles[name]][0]
         g = gq["layers"][name]
-        proxy["gptq"] += llama_gptq.gptq_proxy_loss(w, g["w_p"][0], g["w_s"][0], H).item()
-        proxy["rtn"] += llama_gptq.gptq_proxy_loss(w, *i4.quantize_pack(w), H).item()
+        G = SMOOTH_GROUP
+        proxy["gptq"] += llama_gptq.gptq_proxy_loss(w, g["w_p"][0], g["w_s"][0], H, G).item()
+        proxy["rtn"] += llama_gptq.gptq_proxy_loss(w, *i4.quantize_pack(w, G), H, G).item()
         proxy["clip"] += llama_gptq.gptq_proxy_loss(
-            w, *i4.quantize_pack(w, clip_cands=llama_int4.CLIP_CANDS), H).item()
+            w, *i4.quantize_pack(w, G, clip_cands=llama_int4.CLIP_CANDS), H, G).item()
     del stats, full
     torch.cuda.empty_cache()
     if not proxy["gptq"] <= proxy["rtn"]:
@@ -1975,25 +1999,144 @@ def smooth_path(dev) -> dict:
                                "decode_megakernel": 0})
     smooth_want = dict(per_layer, **{"mlp_int4_stacked[dn_r]": n_dec, "mlp_int4_stacked": 0})
     plain_want = dict(per_layer, **{"mlp_int4_stacked[dn_r]": 0, "mlp_int4_stacked": n_dec})
-    mega_want = dict(front, **{"int4_matmul_stacked": 4 * L, "decode_megakernel": N_NEW - 1,
-                               "mlp_int4_stacked": 0, "mlp_int4_stacked[dn_r]": 0,
-                               "decode_attention_quantized4_mono": 0})
     runs, counted = {}, {}
-    for name, b4, b1 in (("smooth", smooth_want, smooth_want), ("clip", plain_want, mega_want),
-                         ("gptq", plain_want, mega_want)):
+    for name, want in (("smooth", smooth_want), ("clip", plain_want), ("gptq", plain_want)):
         runs[f"{name}_b4"], counted[name] = timed_generate(
-            f"smooth_path {name}, B=4", trees[name], trainable, cfg, request, b4, dev)
+            f"smooth_path {name}, B=4", trees[name], trainable, cfg, request, want, dev)
         runs[f"{name}_b1"], _ = timed_generate(f"smooth_path {name}, B=1", trees[name],
-                                               trainable, cfg, one, b1, dev)
+                                               trainable, cfg, one, want, dev)
+    # the K-split launch at group 32: q|k|v, o and the prefill gate|up (K 3072)
+    # split at 768, the prefill down projection (K 8192) whole
+    bk_want = dict(plain_want, **{"int4_matmul_stacked_ksplit": 3 * L + 2 * n_dec,
+                                  "int4_matmul_stacked": L})
+    saved = i4.INT4_BK
+    try:
+        i4.INT4_BK = 768
+        runs["clip_b4_bk768"], counted["bk768"] = timed_generate(
+            "smooth_path clip, B=4, INT4_BK=768", trees["clip"], trainable, cfg, request,
+            bk_want, dev)
+    finally:
+        i4.INT4_BK = saved
     stats = {
         "config": "Llama-3.2-3B (28 layers, vocab 128256+2, LoRA r64 merged, outlier channels "
                   "injected: models/outliers.py) + Whisper-large-v3-turbo encoder (32 layers), "
-                  "fused int4 trees (pair), bf16 compute, int4 KV cache, seeded random weights",
+                  f"fused int4 trees (pair) at scale group {SMOOTH_GROUP}, bf16 compute, int4 KV "
+                  "cache, seeded random weights",
         "quantize_s": {**quant_s, **gptq_s}, "first_step_kl": kl,
         "gptq_proxy_loss_layer0": proxy, "runs": runs,
     }
     log(json.dumps({"smooth_path": stats}))
-    return counted["smooth"]
+    paths = {"smooth": counted["smooth"], "smooth_clip": counted["clip"],
+             "smooth_bk768": counted["bk768"]}
+    return paths, dict(cfg=cfg, ref=ref, trees=trees, trainable=trainable, first_step_kl=kl)
+
+
+EVAL_UTTS, EVAL_B, EVAL_NEW = 8, 4, 12  # the accuracy path's corpus, KL batch, WER tokens
+
+
+def eval_path(dev, ctx, tmp) -> dict:
+    """Phase 22 (b): the quantization-accuracy path at full width on
+    smooth_path's model (LoRA merged, outlier channels injected) and its
+    group-32 trees: `data.synth_speech.build_corpus` (EVAL_UTTS formant-speech
+    clips written as FLAC), one batch of EVAL_B through `create_dataloaders`
+    (as the JAX package's outlier gate builds it), `eval.kl.batch_logit_kl`
+    of each group-32 tree (RTN, clipped, smoothed, GPTQ) against the
+    unquantized outlier tree (each test forward's 4 x 28 W4A16 launches
+    counted, beside smooth_path's first-step KL; and the tree's dense bf16
+    witness, diag(w_r) @ dequant run by cuBLAS: its KL from the reference and
+    the kernels' KL from it, reported), and `eval.wer.evaluate_wer`
+    on the bf16 tree and the clipped tree (one batch of EVAL_UTTS, EVAL_NEW
+    greedy tokens, the fused MLP every decode step at group 32, counted).
+    Gated: finite values, the shapes, the launches, the clip-off RTN tree's
+    KL above zero; the WER of random weights is reported, not gated."""
+    import os
+
+    from audio_llama_tpu_torch.data import synth_speech
+    from audio_llama_tpu_torch.data.dataset import DatasetConfig
+    from audio_llama_tpu_torch.data.loader import create_dataloaders
+    from audio_llama_tpu_torch.data.tokenizer import load_tokenizer
+    from audio_llama_tpu_torch.eval.kl import batch_logit_kl
+    from audio_llama_tpu_torch.eval.wer import evaluate_wer
+    from audio_llama_tpu_torch.models import allm, llama_int4
+
+    t0 = time.perf_counter()
+    cfg, ref, trees, trainable = ctx["cfg"], ctx["ref"], ctx["trees"], ctx["trainable"]
+    L = cfg.llama.num_layers
+    data_path, audio_dir, entries = synth_speech.build_corpus(
+        os.path.join(tmp, "synth"), n_utts=EVAL_UTTS, fmt="flac")
+    corpus_s = time.perf_counter() - t0
+    tk = load_tokenizer("byte")
+    dl, _, _ = create_dataloaders(
+        data_path, audio_dir, tk, batch_size=EVAL_B, val_split=0.125, num_workers=0,
+        dataset_config=DatasetConfig(max_audio_seconds=cfg.mel.max_audio_seconds,
+                                     text_max_length=32))
+    hb = next(iter(dl))
+    batch = allm.AudioLLMBatch(**{k: torch.as_tensor(hb[key], device=dev) for k, key in (
+        ("input_ids", "input_ids"), ("attention_mask", "attention_mask"),
+        ("audio_features", "audio"), ("labels", "labels"))})
+    if tuple(batch.audio_features.shape) != (EVAL_B, cfg.mel.max_samples):
+        raise AssertionError(f"eval_path: audio batch {tuple(batch.audio_features.shape)}")
+    a_s, a_e = tk.token_to_id(cfg.audio_start_token), tk.token_to_id(cfg.audio_end_token)
+    n_scored = int((batch.labels != allm.IGNORE_INDEX).sum())
+    kl = {}
+    for name in ("rtn", "clip", "smooth", "gptq"):
+        t1 = time.perf_counter()
+        zero_counters()
+        r = batch_logit_kl(cfg, ref, trees[name], trainable, batch, a_s, a_e,
+                           compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        if not (np.isfinite(r["kl_mean"]) and np.isfinite(r["kl_max"]) and r["kl_mean"] >= 0
+                and r["n_positions"] == n_scored > 0):
+            raise AssertionError(f"eval_path: {name} KL {r} ({n_scored} scored labels)")
+        if launches["int4_matmul_stacked"] != 4 * L:
+            raise AssertionError(f"eval_path: {name} KL ran int4_matmul_stacked "
+                                 f"{launches['int4_matmul_stacked']} times, want {4 * L}")
+        # the same effective weights as a dense bf16 tree (cuBLAS, no int4
+        # kernel): its KL from the reference is the quantization's alone, and
+        # the kernels' tree sits this close to it
+        dense = with_llama(ref, llama_int4.dequantize_llama_int4(trees[name]["llama"]))
+        dense["llama"] = dense["llama"].to(torch.bfloat16)
+        witness = {
+            "kl_vs_unquantized": batch_logit_kl(cfg, ref, dense, trainable, batch, a_s, a_e,
+                                                compute_dtype=torch.bfloat16),
+            "kl_kernels_vs_witness": batch_logit_kl(cfg, dense, trees[name], trainable, batch,
+                                                    a_s, a_e, compute_dtype=torch.bfloat16)}
+        del dense
+        torch.cuda.empty_cache()
+        if not all(np.isfinite(w["kl_mean"]) for w in witness.values()):
+            raise AssertionError(f"eval_path: {name} witness KL {witness}")
+        kl[name] = dict(r, seconds=time.perf_counter() - t1,
+                        first_step_kl_mean=ctx["first_step_kl"][name]["kl_mean"],
+                        dense_bf16_witness=witness)
+    if not kl["rtn"]["kl_mean"] > 0:
+        raise AssertionError(f"eval_path: the clip-off RTN tree's KL is {kl['rtn']}")
+    n_dec = L * (EVAL_NEW - 1)
+    wer = {}
+    for name, fz, want in (
+            ("bf16", ref, {"mlp_int4_stacked": 0, "int4_matmul_stacked": 0}),
+            ("clip", trees["clip"], {"mlp_int4_stacked": n_dec,
+                                     "int4_matmul_stacked": 4 * L + 2 * n_dec})):
+        t1 = time.perf_counter()
+        zero_counters()
+        m = evaluate_wer(cfg, fz, trainable, tk, entries, audio_dir, batch_size=EVAL_UTTS,
+                         max_new_tokens=EVAL_NEW, device=dev)
+        launches = read_counters()
+        if not (np.isfinite(m["wer"]) and m["num_utterances"] == EVAL_UTTS
+                and m["total_words"] > 0):
+            raise AssertionError(f"eval_path: {name} WER {m}")
+        for k, n in want.items():
+            if launches[k] != n:
+                raise AssertionError(f"eval_path: {name} WER run launched {k} {launches[k]} "
+                                     f"times, want {n}")
+        wer[name] = dict(m, seconds=time.perf_counter() - t1,
+                         launches={k: v for k, v in launches.items() if v})
+    stats = {"corpus": {"utterances": EVAL_UTTS, "format": "flac", "seconds": corpus_s,
+                        "kl_batch": EVAL_B, "scored_positions": n_scored},
+             "group": SMOOTH_GROUP, "logit_kl_vs_unquantized": kl, "wer": wer,
+             "seconds": time.perf_counter() - t0}
+    log(json.dumps({"eval_path": stats}))
+    return read_counters()
 
 
 KERNEL_GROUPS = (  # substring of the device kernel's name -> group, first match wins
@@ -2274,16 +2417,26 @@ def host_smooth_tree(cfg, frozen, trainable, ids, mask, wav):
         trainable
 
 
-def host_gptq_tree(cfg, frozen, trainable, ids, mask, wav, dev):
-    """The merged tree quantized by GPTQ, calibrated on this request's
-    splice; the Grams and the quantization run on `dev` (the same tree then
-    serves both sides)."""
+def host_clip_tree(cfg, frozen, trainable, ids, mask, wav, group=128):
+    """The merged tree quantized clipped RTN at the scale group on the
+    host."""
+    from audio_llama_tpu_torch.models import llama_int4
+
+    merged, trainable = merged_llama(cfg, frozen, trainable)
+    return with_llama(frozen, llama_int4.quantize_llama_int4(merged, group=group, clip=True)), \
+        trainable
+
+
+def host_gptq_tree(cfg, frozen, trainable, ids, mask, wav, dev, group=128):
+    """The merged tree quantized by GPTQ at the scale group, calibrated on
+    this request's splice; the Grams and the quantization run on `dev` (the
+    same tree then serves both sides)."""
     import copy
 
     merged, trainable = merged_llama(cfg, frozen, trainable)
     ref = copy.deepcopy(with_llama(frozen, merged)).to(dev)
     tree, _, _ = gptq_llama(cfg, ref, copy.deepcopy(trainable).to(dev), ids.to(dev),
-                            mask.to(dev), wav.to(dev))
+                            mask.to(dev), wav.to(dev), group=group)
     return with_llama(frozen, tree.to("cpu")), trainable
 
 
@@ -5109,6 +5262,29 @@ def int4_2d_checks(dev, gen):
     if launches[name] != n_calls:
         raise AssertionError(f"int4_2d path: {name} launched {launches[name]} times, "
                              f"want {n_calls}")
+    # the same path on group-32 weights (the scale group of smoothed and GPTQ
+    # trees), counted on their own
+    zero_counters()
+    n_g32 = 0
+    for label, K, N in (("q_proj", D, Nq), ("down_proj", Fd, D)):
+        packed, scales = i4.quantize_pack(
+            torch.randn((K, N), generator=gen, device=dev) * 0.02, SMOOTH_GROUP)
+        for M in (len(INT4_PROMPTS), M_pre):
+            x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+            got = llama._linear(x, {"w_p": packed, "w_s": scales}, None, bf)
+            n_g32 += 1
+            err, ratio = check_close(
+                f"_linear {label} group {SMOOTH_GROUP} M={M}", got,
+                i4.int4_matmul_plain(x, packed, scales, SMOOTH_GROUP), frac)
+            linear_checks[f"{label} 2-D w_p group {SMOOTH_GROUP} M={M}"] = dict(
+                max_abs_err=err, tol_ratio=ratio)
+            del x, got
+        del packed, scales
+    torch.cuda.synchronize()
+    launches_g32 = read_counters()
+    if launches_g32[name] != n_g32:
+        raise AssertionError(f"int4_2d path, group {SMOOTH_GROUP}: {name} launched "
+                             f"{launches_g32[name]} times, want {n_g32}")
     first = by_shape[0]
     row = dict(
         name=name, route="cuda", source="audio_llama_tpu_torch/csrc/int4_matmul.cu",
@@ -5123,7 +5299,151 @@ def int4_2d_checks(dev, gen):
     log(f"kernel {name} ok: planted faults rejected: {faults}")
     del weights
     torch.cuda.empty_cache()
-    return [row], launches
+    return [row], launches, launches_g32
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the int4 kernels' scale group; the quantization-accuracy path
+# ---------------------------------------------------------------------------
+
+GROUP_CHECKS = (32, 64)  # scale groups the kernels run at beside 128
+# the path whose count each row's group-32 entry reports: smooth_path
+# quantizes at group 32 (B = 4 clipped run; its INT4_BK=768 run), int4_2d_path
+# its group-32 tree
+GROUP_PATH = {"int4_matmul_stacked": "smooth_clip", "mlp_int4_stacked": "smooth_clip",
+              "mlp_int4_stacked[dn_r]": "smooth", "int4_matmul_stacked_ksplit": "smooth_bk768",
+              "int4_matmul": "int4_2d_g32"}
+
+
+def group_kernel_checks(dev, gen, rows) -> None:
+    """Phase 22 (a): rows 6, 7, 7r, 28 and 31 again at groups 32 and 64, at
+    their shapes (B = 4 decode and the int4 path's 6104-row prefill), each
+    against its plain version at the same group and bar; the planted fault
+    group g's partial scaled by group g+1's scale (the scales rolled by one
+    group) must land outside it. Timed beside the plain version and the
+    library call, the bound at that group's bytes (its scales are K/g x N
+    f32). The plain versions, tens of thousands of small launches a call at
+    group 32, are timed by CUDA events over one call: a CUPTI trace of them
+    takes minutes. Each row gets `by_group` {group: entry}; main() adds the
+    group-32 launches of the path that runs it."""
+    import torch.nn.functional as F
+
+    from audio_llama_tpu_torch.models.llama_int4 import _equalize_rows
+    from audio_llama_tpu_torch.ops import int4_matmul as i4
+    from audio_llama_tpu_torch.ops import mlp_int4 as mlp4
+
+    t0 = time.perf_counter()
+    cfg = full_config()
+    lc = cfg.llama
+    B = len(INT4_PROMPTS)
+    M_pre = B * (cfg.audio_seq_len + 2 + max(INT4_PROMPTS))
+    L, D, Fd, bf = lc.num_layers, lc.hidden_size, lc.intermediate_size, torch.bfloat16
+    Nqkv = (lc.num_heads + 2 * lc.num_kv_heads) * lc.head_dim
+    Nq = lc.num_heads * lc.head_dim
+    li = min(5, L - 1)
+    by_row = {name: {} for name in GROUP_PATH}
+
+    def rand_bytes(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int32
+                             ).to(torch.int8)
+
+    def rand_scales(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 0.02 + 0.002
+
+    def entry(name, label, group, run, plain, fault, library, flops, nbytes, iters, turn=None):
+        """Check run() against plain(), fault() outside; time all three."""
+        frac = ATOL_ROW_RMS_FRAC[name.replace("[dn_r]", "")]
+        want = plain()
+        err, ratio = check_close(f"{name} group {group} {label}", run(), want, frac)
+        fault_ratio = must_reject(name, f"group {group}: group g+1's scale", fault(), want,
+                                  frac)
+        bms, bby = bound(flops, nbytes)
+        e = dict(shape=label, group=group, max_abs_err=err, tol_ratio=ratio,
+                 planted_fault_ratios={"group g's partial scaled by group g+1's scale":
+                                       fault_ratio},
+                 ms=time_ms(turn or run, iters=iters),
+                 plain_ms=events_ms(plain, iters=1, warmup=0),
+                 library_ms=time_ms(library, iters=iters), bound_ms=bms, bound_by=bby)
+        log(f"kernel {name} group {group} {label} ok: {json.dumps(e)}")
+        return e
+
+    for group in GROUP_CHECKS:
+        # rows 6 and 28: decode q|k|v (pair, planes), prefill gate|up; K-split at 768
+        for label, M, K, N in (("decode q|k|v", B, D, Nqkv), ("prefill gate|up", M_pre, D, 2 * Fd)):
+            packed, scales = rand_bytes(L, K, N // 2), rand_scales(L, K // group, N)
+            rolled = torch.roll(scales, -1, dims=1).contiguous()
+            x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+            w_deq = i4.dequantize_ref(packed[li], scales[li], group).to(bf)
+            nbytes = K * N / 2 + (K / group) * N * 4 + 2.0 * M * (K + N)
+            iters = 56 if M <= 64 else 10
+            for name, bk in (("int4_matmul_stacked", 0), ("int4_matmul_stacked_ksplit", 768)):
+                turn = itertools.count()
+
+                def run(s=scales, layer=li, bk=bk):
+                    return torch.cat(i4.int4_matmul_stacked_cuda(
+                        x, packed, s, layer, group, return_planes=True, block_k=bk), dim=-1)
+
+                by_row[name][f"{group} {label}"] = entry(
+                    name, label, group, run,
+                    lambda bk=bk: i4.int4_matmul_stacked_plain(x, packed, scales, li, group,
+                                                               block_k=bk),
+                    lambda run=run: run(s=rolled), lambda: x @ w_deq, 2.0 * M * K * N, nbytes,
+                    iters, turn=lambda run=run, turn=turn: run(layer=next(turn) % L))
+            del packed, scales, rolled, x, w_deq
+            torch.cuda.empty_cache()
+        # row 31: the unstacked W4A16 at q_proj, decode and prefill rows
+        packed, scales = rand_bytes(D, Nq // 2), rand_scales(D // group, Nq)
+        rolled = torch.roll(scales, -1, dims=0).contiguous()
+        w_deq = i4.dequantize_ref(packed, scales, group).to(bf)
+        for M in (B, M_pre):
+            x = torch.randn((M, D), generator=gen, device=dev).to(bf)
+            by_row["int4_matmul"][f"{group} q_proj M={M}"] = entry(
+                "int4_matmul", f"q_proj M={M}", group,
+                lambda: i4.int4_matmul_cuda(x, packed, scales, group),
+                lambda: i4.int4_matmul_plain(x, packed, scales, group),
+                lambda: i4.int4_matmul_cuda(x, packed, rolled, group), lambda: x @ w_deq,
+                2.0 * M * D * Nq, D * Nq / 2 + (D / group) * Nq * 4 + 2.0 * M * (D + Nq),
+                56 if M <= 64 else 10)
+        del packed, scales, rolled, w_deq, x
+        # rows 7 and 7r: the fused MLP at M = B, without and with dn_r
+        dh = D // 2
+        gup, gus = rand_bytes(L, D, Fd), rand_scales(L, D // group, 2 * Fd)
+        dn, dns = rand_bytes(L, Fd, dh), rand_scales(L, Fd // group, D)
+        gus_rolled = torch.roll(gus, -1, dims=1).contiguous()
+        x = torch.randn((B, D), generator=gen, device=dev).to(bf)
+        chunk = mlp4.kernel_chunk(Fd, dh, group)
+        w = torch.randn((Fd, D), generator=gen, device=dev) * 0.02
+        w[torch.randint(0, Fd, (8,), generator=gen, device=dev)] *= 8.0
+        dn_r = _equalize_rows(w)[1].expand(L, Fd).contiguous()
+        wg = i4.dequantize_ref(gup[li], gus[li], group).to(bf)
+        wd = i4.dequantize_ref(dn[li], dns[li], group).to(bf)
+        nbytes = D * Fd + (D / group) * 2 * Fd * 4 + Fd * dh + (Fd / group) * D * 4 + 4.0 * B * D
+        flops = 2.0 * B * D * 2 * Fd + 2.0 * B * Fd * D
+        for name, r in (("mlp_int4_stacked", None), ("mlp_int4_stacked[dn_r]", dn_r)):
+            turn = itertools.count()
+            r_bf = None if r is None else r[li].to(bf)
+
+            def run(gs=gus, layer=li, r=r):
+                return mlp4.mlp_int4_stacked_cuda(x, gup, gs, dn, dns, layer, group, chunk,
+                                                  dn_r=r)
+
+            def library(r_bf=r_bf):
+                a = F.silu(x @ wg[:, :Fd]) * (x @ wg[:, Fd:])
+                return (a if r_bf is None else a * r_bf) @ wd
+
+            by_row[name][f"{group} decode"] = entry(
+                name, f"x[{B},{D}], chunk {chunk}", group, run,
+                lambda r=r: mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, li, group, chunk,
+                                                        dn_r=r),
+                lambda run=run: run(gs=gus_rolled), library,
+                flops, nbytes + (0.0 if r is None else 4.0 * Fd), 56,
+                turn=lambda run=run, turn=turn: run(layer=next(turn) % L))
+        del gup, gus, dn, dns, gus_rolled, x, w, dn_r, wg, wd
+        torch.cuda.empty_cache()
+    for row in rows:
+        if row["name"] in by_row:
+            row["by_group"] = by_row[row["name"]]
+    log(f"group_kernel_checks: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -5563,11 +5883,14 @@ def main(argv=None) -> int:
     single_rows, single_launches = single_decode_checks(dev, gen)
     rows += single_rows
     torch.cuda.empty_cache()
-    int4_2d_rows, int4_2d_launches = int4_2d_checks(dev, gen)
+    int4_2d_rows, int4_2d_launches, int4_2d_g32 = int4_2d_checks(dev, gen)
     rows += int4_2d_rows
+    torch.cuda.empty_cache()
+    group_kernel_checks(dev, gen, rows)
     torch.cuda.empty_cache()
     paths = enc8_path(dev)
     paths["single_decode"], paths["int4_2d"] = single_launches, int4_2d_launches
+    paths["int4_2d_g32"] = int4_2d_g32
     paths["causal_variants"] = causal_variant_path(dev, gen)
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
@@ -5585,7 +5908,11 @@ def main(argv=None) -> int:
     paths["int8"], ab = int8_path(dev, profile=args.profile)
     paths.update(ab)
     torch.cuda.empty_cache()
-    paths["smooth"] = smooth_path(dev)
+    smooth_paths, ctx = smooth_path(dev)
+    paths.update(smooth_paths)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["eval"] = eval_path(dev, ctx, tmp)
+    del ctx
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         paths["serve"] = serve_path(dev, tmp)
@@ -5606,6 +5933,14 @@ def main(argv=None) -> int:
                      want={"decode_megakernel": 1, "mlp_int4_stacked": 0,
                            "mlp_int4_stacked[dn_r]": 0},
                      quantize=lambda *a: host_gptq_tree(*a, dev=dev))
+    # group 32: the megakernel's gate refuses it, so the step runs the per-layer kernels
+    group_want = {"decode_megakernel": 0, "mlp_int4_stacked": L, "int4_matmul_stacked": 2 * L}
+    host_check_quant(dev, f"int4w+kv4 clipped, group {SMOOTH_GROUP}, B=1", seed=11,
+                     want=group_want,
+                     quantize=lambda *a: host_clip_tree(*a, group=SMOOTH_GROUP))
+    host_check_quant(dev, f"int4w+kv4 GPTQ, group {SMOOTH_GROUP}, B=1", seed=12,
+                     want=group_want,
+                     quantize=lambda *a: host_gptq_tree(*a, dev=dev, group=SMOOTH_GROUP))
     host_check_smooth_outliers(dev)
     host_check_enc8(dev)
     host_check_pool(dev)
@@ -5621,6 +5956,14 @@ def main(argv=None) -> int:
         row["launches"] = sum(counted[n] for n in ROW_COUNTERS.get(row["name"], (row["name"],)))
         row["timed_by"] = {k: row[k].by for k in ("ms", "plain_ms", "library_ms")
                            if isinstance(row.get(k), Ms)}
+        for entry in row.get("by_group", {}).values():  # group 32's count on its path
+            if entry["group"] == SMOOTH_GROUP:
+                entry["launches"] = paths[GROUP_PATH[row["name"]]][row["name"]]
+                if not entry["launches"]:
+                    raise AssertionError(f"{row['name']}: no launch at group {SMOOTH_GROUP} "
+                                         f"on {GROUP_PATH[row['name']]}")
+            else:
+                entry["launches"] = None  # no path quantizes at this group
     torch.cuda.empty_cache()
     host_check_train(dev)
 

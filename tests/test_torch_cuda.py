@@ -1455,3 +1455,83 @@ def test_linear_w_p_branch_runs_the_2d_kernel(dev):
         assert i4.launches_2d == before + 1
         xq = x * tree["w_r"].to(x.dtype) if "w_r" in tree else x
         _close(got, i4.int4_matmul_plain(xq, packed, scales), torch.bfloat16, "int4_matmul")
+
+
+# ---- the int4 kernels' scale group (32, 64, 128, 256 on the card)
+
+
+@pytest.mark.parametrize("group", [32, 64, 128, 256])
+@pytest.mark.parametrize("fmt", ["pair", "obin"])
+@pytest.mark.parametrize("M,K,Nh,bk", [(4, 3072, 2560, 768), (1, 8192, 1536, 0),
+                                       (200, 3072, 384, 768), (70, 1024, 256, 512)])
+def test_int4_matmul_group_kernels(dev, group, fmt, M, K, Nh, bk):
+    """The stacked W4A16 (whole K and K-split) and the unstacked one at the
+    group against their plain versions; group g read with group g+1's scale
+    fails the same check."""
+    L, N = 2, 2 * Nh
+    packed, scales = _bytes(dev, L, K, Nh), _scales(dev, L, K // group, N, seed=1)
+    x = _randn(dev, M, K, seed=2)
+    for block_k in {0, bk}:
+        want = i4.int4_matmul_stacked_plain(x, packed, scales, 1, group=group, fmt=fmt,
+                                            block_k=block_k)
+        before = (i4.launches, i4.launches_ksplit)
+        got = i4.int4_matmul_stacked(x, packed, scales, 1, group=group, fmt=fmt,
+                                     block_k=block_k)
+        torch.cuda.synchronize()
+        assert (i4.launches + i4.launches_ksplit) == sum(before) + 1
+        assert _ratio(got, want, "int4_matmul_stacked") <= 1
+        rolled = torch.roll(scales, -1, dims=1).contiguous()
+        assert _ratio(i4.int4_matmul_stacked(x, packed, rolled, 1, group=group, fmt=fmt,
+                                             block_k=block_k), want, "int4_matmul_stacked") > 1
+    want = i4.int4_matmul_plain(x, packed[0], scales[0], group=group, fmt=fmt)
+    before = i4.launches_2d
+    got = i4.int4_matmul(x, packed[0], scales[0], group=group, fmt=fmt)
+    torch.cuda.synchronize()
+    assert i4.launches_2d == before + 1
+    assert _ratio(got, want, "int4_matmul") <= 1
+    rolled = torch.roll(scales[0], -1, dims=0).contiguous()
+    assert _ratio(i4.int4_matmul(x, packed[0], rolled, group=group, fmt=fmt), want,
+                  "int4_matmul") > 1
+
+
+@pytest.mark.parametrize("group", [32, 64, 128, 256])
+@pytest.mark.parametrize("dnr", [False, True])
+@pytest.mark.parametrize("M,K,F,D", [(4, 3072, 8192, 3072), (9, 512, 1536, 512)])
+def test_mlp_int4_group_kernel(dev, group, dnr, M, K, F, D):
+    L = 2
+    gup, gus = _bytes(dev, L, K, F), _scales(dev, L, K // group, 2 * F, seed=1)
+    dn, dns = _bytes(dev, L, F, D // 2, seed=2), _scales(dev, L, F // group, D, seed=3)
+    x = _randn(dev, M, K, seed=4)
+    dn_r = _dnr(dev, L, F, D) if dnr else None
+    chunk = mlp4.kernel_chunk(F, D // 2, group)
+    assert chunk == max(128, group)
+    want = mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, 1, group=group, chunk=chunk,
+                                       dn_r=dn_r)
+    before = mlp4.launches + mlp4.launches_dnr
+    got = mlp4.mlp_int4_stacked(x, gup, gus, dn, dns, 1, group=group, chunk=chunk, dn_r=dn_r)
+    torch.cuda.synchronize()
+    assert mlp4.launches + mlp4.launches_dnr == before + 1
+    assert _ratio(got, want, "mlp_int4_stacked") <= 1
+    for rolled in ((torch.roll(gus, -1, dims=1), dns), (gus, torch.roll(dns, -1, dims=1))):
+        gs, ds = (t.contiguous() for t in rolled)
+        assert _ratio(mlp4.mlp_int4_stacked(x, gup, gs, dn, ds, 1, group=group, chunk=chunk,
+                                            dn_r=dn_r), want, "mlp_int4_stacked") > 1
+
+
+def test_int4_kernels_refuse_group_48(dev):
+    K, Nh, F, D = 3072, 256, 1536, 512
+    x = _randn(dev, 4, K)
+    packed, scales = _bytes(dev, 2, K, Nh), _scales(dev, 2, K // 48, 2 * Nh)
+    gup, gus = _bytes(dev, 2, K, F), _scales(dev, 2, K // 48, 2 * F)
+    dn, dns = _bytes(dev, 2, F, D // 2), _scales(dev, 2, F // 48, D)
+    calls = (
+        lambda: i4.int4_matmul_stacked(x, packed, scales, 0, group=48),
+        lambda: i4.int4_matmul_stacked(x, packed, scales, 0, group=48, block_k=768),
+        lambda: i4.int4_matmul(x, packed[0], scales[0], group=48),
+        lambda: mlp4.mlp_int4_stacked(x, gup, gus, dn, dns, 0, group=48, chunk=192),
+    )
+    before = (i4.launches, i4.launches_ksplit, i4.launches_2d, mlp4.launches)
+    for call in calls:
+        with pytest.raises(ValueError, match="multiple of 16 that divides 128"):
+            call()
+    assert (i4.launches, i4.launches_ksplit, i4.launches_2d, mlp4.launches) == before
