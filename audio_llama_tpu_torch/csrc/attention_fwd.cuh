@@ -25,7 +25,8 @@
 //       exp all underflows is 0); the denominator is summed from bf16(p)
 //       (the encoder's ones column) or, with l_f32, from the f32 p (the
 //       causal kernel's explicit row sum, causal_attention.py:138-139);
-//   kSoftmaxTwoPass (enc_attention_twopass.cu, causal_attention_fixed.cu):
+//   kSoftmaxTwoPass (enc_attention_twopass.cu; the causal two-pass forward
+//       has its own wgmma / TMA kernel, causal_attention_twopass.cu):
 //       a first pass over the key tiles takes the TRUE row max of S plus the
 //       bias (-1e9 past the valid keys), then the main loop forms
 //       p = exp(S + bias - m), optionally through a bf16 exp argument

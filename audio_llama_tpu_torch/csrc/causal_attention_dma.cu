@@ -1,15 +1,15 @@
 // Causal GQA attention forward, bounded shift, K/V fetched asynchronously
-// and only for the key tiles at or before the diagonal.
+// and only for the key tiles at or before the diagonal: the `dma` arm. The C
+// entry also takes the `dma2` arm, which runs its wgmma / TMA kernel
+// (causal_attention_dma2.cu).
 //
 // Replaces audio_llama_tpu/ops/causal_attention.py::_fwd_kernel_dma (:250,
-// `causal_mha(fwd_impl='dma')`) and ::_fwd_kernel_dma2 (:321,
-// fwd_impl='dma2'), both called at :436. The TPU kernels exist because a
-// BlockSpec grid fetches K/V even for the future chunks that @pl.when skips;
-// they copy K/V chunk by chunk by hand (make_async_copy), double-buffered
-// (dma) or triple-buffered with chunk j+1's QK^T issued before chunk j's
-// softmax and PV (dma2, software pipelined). Both are bounded-softmax only
-// (causal_attention.py:871-872). Shapes: qs [B, 2560, 24, 128] pre-scaled
-// bf16, k/v [B, 2560, 8, 128], a [B, T] key bias, kn [B, 8] f32.
+// called at :436; `causal_mha(fwd_impl='dma')`). The TPU kernel exists
+// because a BlockSpec grid fetches K/V even for the future chunks that
+// @pl.when skips; it copies K/V chunk by chunk by hand (make_async_copy),
+// double-buffered. It is bounded-softmax only (causal_attention.py:871-872).
+// Shapes: qs [B, 2560, 24, 128] pre-scaled bf16, k/v [B, 2560, 8, 128], a
+// [B, T] key bias, kn [B, 8] f32.
 //
 // Bound on the H100: operations, 4 * hd * Hq * B * T (T + 1) / 2 FLOP (QK^T
 // and PV over the causal half): 0.0815 ms at B 2, T 2560 at 989 TFLOP/s.
@@ -17,20 +17,19 @@
 // Design. A block owns 64 queries of one (batch, query head) and walks only
 // the nv = q0 / 64 + 1 key tiles at or before its diagonal. Each K and V tile
 // is copied global -> shared with 16-byte `cp.async.cg` copies, one commit
-// group a tile; the copy of tile j+1 (dma) or j+2 (dma2) is in flight while
-// tile j computes, and `cp.async.wait_group` plus a barrier releases a tile
-// only when its group has landed. STAGES = 2 (dma) or 3 (dma2) K/V stages
-// in shared memory. dma2 keeps two score tiles: tile j+1's S = QK^T is
-// computed before tile j's softmax and PV, so its tensor-core work sits
-// between tile j's exp and PV in each warp's stream (the TPU kernel's
-// MXU / VPU overlap). The per-tile arithmetic is the bounded mode's of
-// attention_fwd.cuh (scores_tile, row_bound, fixed_softmax_lane with the f32
-// denominator, pv_tile) in the same order, so both kernels give the bounded
-// blocks kernel's bits. Shared memory at hd 128: 144 KB (dma), 195 KB
-// (dma2): one block an SM. A first version: WMMA, no TMA, no wgmma.
+// group a tile; the copy of tile j+1 is in flight while tile j computes, and
+// `cp.async.wait_group` plus a barrier releases a tile only when its group
+// has landed: two K/V stages in shared memory. The per-tile arithmetic is the
+// bounded mode's of attention_fwd.cuh (scores_tile, row_bound,
+// fixed_softmax_lane with the f32 denominator, pv_tile) in the same order,
+// so the kernel gives the bounded blocks kernel's bits. Shared memory at hd
+// 128: 144 KB, one block an SM. A first version: WMMA, no TMA, no wgmma.
 #include "attention_fwd.cuh"
 
 namespace al {
+
+cudaError_t dma2_fwd_sm90(const AttnParams& p, int B, int hd, cudaStream_t stream);
+
 namespace dma {
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -45,14 +44,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int HD, int STAGES, int NS>
+constexpr int STAGES = 2;
+
+template <int HD>
 struct Smem {
   using A = AttnSmem<HD>;
   static constexpr size_t q_off = 0;
   static constexpr size_t k_off = A::q_bytes;
   static constexpr size_t v_off = k_off + STAGES * A::kv_bytes;
   static constexpr size_t s_off = v_off + STAGES * A::kv_bytes;
-  static constexpr size_t p_off = s_off + NS * A::s_bytes;
+  static constexpr size_t p_off = s_off + A::s_bytes;
   static constexpr size_t o_off = p_off + A::p_bytes;
   static constexpr size_t total = o_off + A::o_bytes;
 };
@@ -74,14 +75,11 @@ __device__ __forceinline__ void issue_tile(__nv_bfloat16* sK, __nv_bfloat16* sV,
   cp_async_commit();
 }
 
-template <int HD, bool PIPELINED>
+template <int HD>
 __global__ void __launch_bounds__(kThreads) attn_fwd_dma_kernel(AttnParams p) {
-  constexpr int STAGES = PIPELINED ? 3 : 2;
-  constexpr int NS = PIPELINED ? 2 : 1;
   using A = AttnSmem<HD>;
-  using Sm = Smem<HD, STAGES, NS>;
+  using Sm = Smem<HD>;
   constexpr int KV_ELEMS = kBK * A::LDQ;
-  constexpr int S_ELEMS = kBQ * A::LDS;
   constexpr int HC = kBK / 2;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + Sm::q_off);
@@ -102,10 +100,8 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_dma_kernel(AttnParams p) {
   const float* bias = p.key_bias + (long long)b * p.T;
   const int nv = min(p.T / kBK, (q0 + kBQ - 1) / kBK + 1);  // the valid tiles only
 
-  // tile 0's copy (and dma2's tile 1) goes out before the q tile is staged
+  // tile 0's copy goes out before the q tile is staged
   issue_tile<HD>(sK, sV, kb, vb, p.k_st, p.v_st, 0);
-  if (PIPELINED && nv > 1)
-    issue_tile<HD>(sK + KV_ELEMS, sV + KV_ELEMS, kb, vb, p.k_st, p.v_st, kBK);
   copy_rows_bf16(sQ, A::LDQ, qb, p.q_st, q0, kBQ, p.T, HD);
   for (int i = tid; i < kBQ * A::LDO; i += blockDim.x) sO[i] = 0.f;
 
@@ -118,52 +114,23 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_dma_kernel(AttnParams p) {
   const float* srow0 = sS + row * A::LDS + half * HC;
   __nv_bfloat16* prow = sP + row * A::LDP + half * HC;
 
-  if constexpr (!PIPELINED) {
-    for (int j = 0; j < nv; ++j) {
-      const int st = j & 1;
-      if (j + 1 < nv) {  // tile j+1 into the stage tile j-1 left
-        issue_tile<HD>(sK + (st ^ 1) * KV_ELEMS, sV + (st ^ 1) * KV_ELEMS, kb, vb, p.k_st,
-                       p.v_st, (j + 1) * kBK);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();  // tile j has landed for every thread
-      scores_tile<HD>(sQ, sK + st * KV_ELEMS, sS, warp);
-      __syncwarp();
-      l_run += fixed_softmax_lane<kSoftmaxBounded>(srow0, prow, j * kBK + half * HC, p, bias,
-                                                   true, qrow, shift);
-      __syncwarp();
-      pv_tile<HD>(sP, sV + st * KV_ELEMS, sO, warp);
-      __syncthreads();  // every warp is done with stage st before it is refilled
+  for (int j = 0; j < nv; ++j) {
+    const int st = j & 1;
+    if (j + 1 < nv) {  // tile j+1 into the stage tile j-1 left
+      issue_tile<HD>(sK + (st ^ 1) * KV_ELEMS, sV + (st ^ 1) * KV_ELEMS, kb, vb, p.k_st,
+                     p.v_st, (j + 1) * kBK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-  } else {
-    if (nv > 1) cp_async_wait<1>(); else cp_async_wait<0>();
-    __syncthreads();
-    scores_tile<HD>(sQ, sK, sS, warp);
-    for (int j = 0; j < nv; ++j) {
-      if (j + 1 < nv) {
-        if (j + 2 < nv) {  // tile j+2 into the stage tile j-1 left
-          const int st2 = (j + 2) % STAGES;
-          issue_tile<HD>(sK + st2 * KV_ELEMS, sV + st2 * KV_ELEMS, kb, vb, p.k_st, p.v_st,
-                         (j + 2) * kBK);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();  // tile j+1 has landed
-        // tile j+1's QK^T ahead of tile j's softmax and PV
-        scores_tile<HD>(sQ, sK + ((j + 1) % STAGES) * KV_ELEMS, sS + ((j + 1) & 1) * S_ELEMS,
-                        warp);
-      }
-      __syncwarp();
-      l_run += fixed_softmax_lane<kSoftmaxBounded>(srow0 + (j & 1) * S_ELEMS, prow,
-                                                   j * kBK + half * HC, p, bias, true, qrow,
-                                                   shift);
-      __syncwarp();
-      pv_tile<HD>(sP, sV + (j % STAGES) * KV_ELEMS, sO, warp);
-      __syncthreads();  // every warp is done with stage j % 3 before it is refilled
-    }
+    __syncthreads();  // tile j has landed for every thread
+    scores_tile<HD>(sQ, sK + st * KV_ELEMS, sS, warp);
+    __syncwarp();
+    l_run += fixed_softmax_lane<kSoftmaxBounded>(srow0, prow, j * kBK + half * HC, p, bias,
+                                                 true, qrow, shift);
+    __syncwarp();
+    pv_tile<HD>(sP, sV + st * KV_ELEMS, sO, warp);
+    __syncthreads();  // every warp is done with stage st before it is refilled
   }
 
   if (qrow < p.T) {
@@ -182,23 +149,22 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_dma_kernel(AttnParams p) {
   }
 }
 
-template <int HD, bool PIPELINED>
+template <int HD>
 cudaError_t launch(const AttnParams& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = Smem<HD, PIPELINED ? 3 : 2, PIPELINED ? 2 : 1>::total;
-  cudaError_t err = allow_smem(attn_fwd_dma_kernel<HD, PIPELINED>, smem);
+  constexpr size_t smem = Smem<HD>::total;
+  cudaError_t err = allow_smem(attn_fwd_dma_kernel<HD>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(p.T / kBQ, B * p.Hq);
-  attn_fwd_dma_kernel<HD, PIPELINED><<<grid, kThreads, smem, stream>>>(p);
+  attn_fwd_dma_kernel<HD><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool PIPELINED>
 cudaError_t dispatch(const AttnParams& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<16, PIPELINED>(p, B, stream);
-    case 32: return launch<32, PIPELINED>(p, B, stream);
-    case 64: return launch<64, PIPELINED>(p, B, stream);
-    case 128: return launch<128, PIPELINED>(p, B, stream);
+    case 16: return launch<16>(p, B, stream);
+    case 32: return launch<32>(p, B, stream);
+    case 64: return launch<64>(p, B, stream);
+    case 128: return launch<128>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -209,7 +175,8 @@ cudaError_t dispatch(const AttnParams& p, int B, int hd, cudaStream_t stream) {
 // q (pre-scaled) and o: [B, T, Hq, hd]-strided bf16; k, v: [B, T, Hkv, hd]-
 // strided with 16-byte aligned rows; key_bias: [B, T] f32; kn: [B*Hkv] f32;
 // l_out, m_out: [B*Hq, T] f32 (m_out receives the bound c). T % 64 == 0.
-// pipelined: 0 for dma (two stages), 1 for dma2 (three stages, QK^T ahead).
+// pipelined: 0 for dma (this file's kernel), 1 for dma2 (its wgmma / TMA
+// kernel; key_bias 16-byte aligned).
 AL_EXPORT int al_causal_attention_dma(const void* q, const void* k, const void* v, void* o,
                                       void* l_out, void* m_out, const void* key_bias,
                                       const void* kn, int B, int T, int Hq, int Hkv, int hd,
@@ -240,5 +207,5 @@ AL_EXPORT int al_causal_attention_dma(const void* q, const void* k, const void* 
   p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_st = o_st; p.o_sh = o_sh;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return pipelined ? al::dma::dispatch<true>(p, B, hd, s) : al::dma::dispatch<false>(p, B, hd, s);
+  return pipelined ? al::dma2_fwd_sm90(p, B, hd, s) : al::dma::dispatch(p, B, hd, s);
 }

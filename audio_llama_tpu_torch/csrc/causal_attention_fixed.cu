@@ -25,12 +25,17 @@
 // Bound on the H100: operations, 4 * hd * Hq * B * T (T + 1) / 2 FLOP (QK^T
 // and PV over the causal half; the two-pass mode's repeated QK^T is not part
 // of the function's work): 0.0815 ms at B 2, T 2560 at 989 TFLOP/s. Design:
-// the tile loop of attention_fwd.cuh (64 queries by 64 keys, WMMA, future
-// tiles skipped) in its kSoftmaxBounded mode with l_f32 and the bias and mask
-// of fixed_logit, or its kSoftmaxTwoPass mode with exp_bf16; no running max
-// and no rescale of O. tri = 2 ('cond', bounded only) masks only the tiles
-// that reach past the block's first query: the same bits as 'always'.
+// bounded runs the tile loop of attention_fwd.cuh (64 queries by 64 keys,
+// WMMA, future tiles skipped) in its kSoftmaxBounded mode with l_f32 and the
+// bias and mask of fixed_logit; no running max and no rescale of O. tri = 2
+// ('cond') masks only the tiles that reach past the block's first query: the
+// same bits as 'always'. twopass goes to its wgmma / TMA kernel
+// (causal_attention_twopass.cu, whose note gives its design).
 #include "attention_fwd.cuh"
+
+namespace al {
+cudaError_t twopass_fwd_sm90(const AttnParams& p, int B, int hd, cudaStream_t stream);
+}  // namespace al
 
 // q (pre-scaled) and o: [B, T, Hq, hd]-strided bf16; k, v: [B, T, Hkv, hd]-
 // strided; key_bias: [B, T] f32; kn: [B*Hkv] f32 (bounded; ignored by
@@ -71,7 +76,6 @@ AL_EXPORT int al_causal_attention_fixed(const void* q, const void* k, const void
     if (tri == 1) return al::dispatch_attn_fwd<true, al::kSoftmaxBounded>(p, B, hd, s);
     if (tri == 2) return al::dispatch_attn_fwd<true, al::kSoftmaxBounded, true>(p, B, hd, s);
   }
-  if (softmax == al::kSoftmaxTwoPass && tri == 1)
-    return al::dispatch_attn_fwd<true, al::kSoftmaxTwoPass>(p, B, hd, s);
+  if (softmax == al::kSoftmaxTwoPass && tri == 1) return al::twopass_fwd_sm90(p, B, hd, s);
   return cudaErrorInvalidValue;
 }

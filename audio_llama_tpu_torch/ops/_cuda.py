@@ -29,8 +29,8 @@ SOURCES = ("layer_norm.cu", "enc_attention.cu", "causal_attention.cu", "decode_a
            "decode_megakernel.cu", "causal_attention_bwd.cu", "decode_attention_db.cu",
            "decode_attention_packed.cu", "enc_attention_v3q.cu", "enc_attention_bounded.cu",
            "enc_attention_twopass.cu", "causal_attention_fixed.cu", "causal_attention_dma.cu",
-           "decode_attention_single.cu")
-HEADERS = ("common.cuh", "attention_fwd.cuh", "int4_common.cuh", "decode_rows.cuh")
+           "decode_attention_single.cu", "causal_attention_twopass.cu", "causal_attention_dma2.cu")
+HEADERS = ("common.cuh", "attention_fwd.cuh", "int4_common.cuh", "decode_rows.cuh", "sm90.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -65,6 +65,7 @@ SIGNATURES = {
     "al_decode_db": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F] + [_P] * 2,
     "al_decode_packed": [_I, _I] + [_P] * 10 + [_I] * 9 + [_F] + [_P] * 7,
     "al_decode_attention_single": [_I, _I] + [_P] * 11 + [_I] * 6 + [_F, _P, _P],
+    "al_sm90_kernel_info": [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -51,6 +51,10 @@ each a plain version and a kernel here:
       and only for the valid key tiles (dma2: three stages, tile j+1's QK^T
       ahead of tile j's softmax and PV); these take softmax_mode 'bounded'
       whatever is asked (causal_attention.py:871-872).
+The twopass and dma2 kernels run on Hopper's wgmma and TMA
+(`csrc/causal_attention_twopass.cu`, `csrc/causal_attention_dma2.cu` on
+`csrc/sm90.cuh`); TMA reads the key bias too, so their wrappers hand it over
+16-byte aligned (`_tma_bias`).
 Every variant returns its shift residual as `m` (for the bounded family that
 is JAX's c, the bound), and the one backward above serves them all: it takes
 any per-row shift, P = exp(s - m) / l. kn enters as an input without a
@@ -214,8 +218,9 @@ def causal_attention_dma_plain(
     """`_fwd_kernel_dma` and `_fwd_kernel_dma2` (causal_attention.py:250-414):
     the bounded arithmetic over the valid key chunks, bias and causal mask on
     every chunk. Only the kernels' structure (asynchronous K/V copies of the
-    valid tiles, two or three stages) sets them apart from the bounded mode,
-    so this is `causal_attention_bounded_plain`."""
+    valid tiles: two cp.async stages, or dma2's three-deep TMA ring) sets
+    them apart from the bounded mode, so this is
+    `causal_attention_bounded_plain`."""
     return causal_attention_bounded_plain(qs, k, v, key_bias, kn)
 
 
@@ -244,6 +249,32 @@ def _outputs(qs):
     l = torch.empty((B * Hq, T), dtype=torch.float32, device=qs.device)
     m = torch.empty((B * Hq, T), dtype=torch.float32, device=qs.device)
     return o, l, m
+
+
+def _tma_bias(key_bias: torch.Tensor) -> torch.Tensor:
+    """key_bias as the wgmma / TMA kernels read it: f32, contiguous, its base
+    on a 16-byte boundary (a view that starts inside its storage may not be:
+    then a copy)."""
+    key_bias = key_bias.to(torch.float32).contiguous()
+    return key_bias if _cuda.aligned16(key_bias) else key_bias.clone()
+
+
+# the wgmma / TMA kernels, as al_sm90_kernel_info numbers them
+SM90_KERNELS = ("causal_attention_twopass", "causal_attention_dma2")
+
+
+def sm90_kernel_info(name: str, hd: int) -> dict:
+    """Registers per thread, local (spilled) bytes, dynamic shared memory and
+    resident blocks per SM of the wgmma / TMA kernel `name` (one of
+    SM90_KERNELS) at head_dim hd, from the CUDA runtime (cudaFuncGetAttributes
+    and the occupancy calculator)."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    fn = _cuda.library().al_sm90_kernel_info
+    _cuda.check(fn(SM90_KERNELS.index(name), hd, ctypes.cast(out, ctypes.c_void_p)),
+                f"{name} info")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2], blocks_per_sm=out[3])
 
 
 def _kn_arg(name, kn, B, Hkv, device):
@@ -312,13 +343,13 @@ def causal_attention_bounded_cuda(
 def causal_attention_twopass_cuda(
     qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,
 ) -> CausalOut:
-    """Launch the two-pass kernel (`csrc/causal_attention_fixed.cu`; the
-    plain version's arguments; the exp argument rounded to bf16, as the TPU
-    kernel's for bf16 v)."""
+    """Launch the two-pass kernel (`csrc/causal_attention_twopass.cu`, through
+    `al_causal_attention_fixed`; the plain version's arguments; the exp
+    argument rounded to bf16, as the TPU kernel's for bf16 v)."""
     global launches_twopass
     name = "causal_attention_twopass"
     B, T, Hq, Hkv, hd = _fwd_checks(name, qs, k, v, key_bias)
-    key_bias = key_bias.to(torch.float32).contiguous()
+    key_bias = _tma_bias(key_bias)
     o, l, m = _outputs(qs)
     err = _cuda.library().al_causal_attention_fixed(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(),
@@ -335,17 +366,18 @@ def causal_attention_dma_cuda(
     qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,
     kn: torch.Tensor, pipelined: bool = False,
 ) -> CausalOut:
-    """Launch the asynchronous-copy kernel (`csrc/causal_attention_dma.cu`):
-    fwd_impl 'dma' (two K/V stages) or, with `pipelined`, 'dma2' (three
-    stages, tile j+1's QK^T ahead of tile j's softmax and PV). The plain
-    version's arguments; T a multiple of 64."""
+    """Launch the asynchronous-copy kernel: fwd_impl 'dma'
+    (`csrc/causal_attention_dma.cu`, two K/V stages) or, with `pipelined`,
+    'dma2' (`csrc/causal_attention_dma2.cu`: a three-deep TMA ring, tile
+    j+1's QK^T in flight during tile j's softmax). The plain version's
+    arguments; T a multiple of 64."""
     global launches_dma, launches_dma2
     name = "causal_attention_dma2" if pipelined else "causal_attention_dma"
     B, T, Hq, Hkv, hd = _fwd_checks(name, qs, k, v, key_bias)
     if T % BWD_TILE:
         raise ValueError(f"{name}: T={T} not a multiple of {BWD_TILE}")
     kn = _kn_arg(name, kn, B, Hkv, qs.device)
-    key_bias = key_bias.to(torch.float32).contiguous()
+    key_bias = _tma_bias(key_bias)
     o, l, m = _outputs(qs)
     err = _cuda.library().al_causal_attention_dma(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(),

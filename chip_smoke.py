@@ -12,8 +12,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      inputs with planted faults, which the same check must reject (the
      decode megakernel's and the int8-KV kernel's by FAULT_MARGIN; the
      megakernel layer by layer, and its one-launch stack against its layers
-     launched one by one, bit for bit); timed by device time (CUPTI) beside
-     the plain version, one library call as a yardstick where one exists
+     launched one by one, bit for bit); timed by device time (CUPTI; a trace
+     that lost records falls back to CUDA events) beside the plain version
+     (CUDA events: a plain version launches thousands of kernels, and a
+     process's CUPTI loses records once it has traced some 10^5 of them),
+     one library call as a yardstick where one exists
      (never used by the port) and the least time the card could take
      (bound); the megakernel also with its grid barriers alone;
   3. bf16 main path: `inference.generate.generate` at the full published
@@ -125,7 +128,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kernel; the first decode step's logits beside the bf16 encoder's);
      (d) card vs host at 2 Whisper layers for each algo.
  18. causal variants and the K-split W4A16 (see `causal_variant_checks`,
-     `ksplit_kernel_checks`, `causal_variant_path`, `ksplit_path`).
+     `ksplit_kernel_checks`, `causal_variant_path`, `ksplit_path`); the
+     variants' kernel checks run first of all, right after the build, so
+     CUPTI times them before it has traced enough records to lose some.
  19. the last three Pallas kernels: (a) single-buffered decode attention
      (`decode_attention` on a bf16 cache, `decode_attention_quantized` on an
      int8 one) at [28, B, 8, S, 128] caches, S 1568 and 3040, B 1 and 4,
@@ -189,6 +194,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -218,10 +224,13 @@ def gpu_line() -> str:
 PROFILE_TRIES = 3  # CUPTI has come back with no device events now and then
 
 
-def traced(fn):
+def traced(fn, calls: int = 1):
     """Run fn under torch.profiler -> (wall ms, {device kernel name: ms},
     device launches). Device durations come from CUPTI. A trace that holds
-    no device event is taken again (logged), up to PROFILE_TRIES times."""
+    no device event is taken again (logged), up to PROFILE_TRIES times. With
+    fn making `calls` calls of one function, each launching the same
+    kernels, a trace in which a kernel's records are not a multiple of
+    `calls` lost records: AssertionError."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -232,11 +241,17 @@ def traced(fn):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        by_name, n = {}, 0
+        by_name, count, n = {}, {}, 0
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 n += 1
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                count[e.name] = count.get(e.name, 0) + 1
+        short = {name: c for name, c in count.items() if c % calls}
+        if short:
+            name, c = next(iter(short.items()))
+            raise AssertionError(f"profiler: the trace lost records ({c} of {name[:60]} "
+                                 f"in {calls} calls)")
         if by_name:
             return wall_ms, by_name, n
         log(f"profiler: the trace holds no device events (attempt {attempt} of "
@@ -267,10 +282,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> Ms:
             fn()
 
     try:
-        _, by_name, _ = traced(many)
-    except AssertionError:  # CUPTI gave no device events, PROFILE_TRIES times
-        log("time_ms: no device events; this time is by CUDA events instead")
-        return Ms(events_ms(fn, iters=iters, warmup=0), "cuda events (CUPTI gave no events)")
+        _, by_name, _ = traced(many, calls=iters)
+    except AssertionError as err:  # no events PROFILE_TRIES times, or records lost
+        log(f"time_ms: {err}; this time is by CUDA events instead")
+        return Ms(events_ms(fn, iters=iters, warmup=0), "cuda events (no complete CUPTI trace)")
     return Ms(sum(by_name.values()) / iters, "cupti")
 
 
@@ -428,7 +443,7 @@ def kernel_checks(dev, gen):
         replaces="audio_llama_tpu/ops/ln_pallas.py:28", max_abs_err=err,
         tol=tol_entry(frac), tol_ratio=ratio,
         ms=time_ms(lambda: ln.layer_norm_cuda(x, s, b), iters=100),
-        plain_ms=time_ms(lambda: ln.layer_norm_plain(x, s, b)),
+        plain_ms=events_ms(lambda: ln.layer_norm_plain(x, s, b)),
         library_ms=time_ms(lambda: F.layer_norm(x, (D,), s, b, 1e-5), iters=100),
         launches=None, bound_ms=bms, bound_by=bby, shapes=f"x[{N},{D}] bf16",
     ))
@@ -461,7 +476,7 @@ def kernel_checks(dev, gen):
         replaces="audio_llama_tpu/ops/enc_attention.py:102", max_abs_err=err,
         tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
         ms=time_ms(lambda: ea.enc_attention_cuda(qs, k, v, valid)),
-        plain_ms=time_ms(lambda: ea.enc_attention_plain(qs, k, v, valid)),
+        plain_ms=events_ms(lambda: ea.enc_attention_plain(qs, k, v, valid)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=key_ok, scale=1.0)),
         launches=None, bound_ms=bms, bound_by=bby, shapes=f"q/k/v[{B},{T},{H},{hd}] bf16, valid {valid}",
@@ -514,7 +529,7 @@ def kernel_checks(dev, gen):
         replaces="audio_llama_tpu/ops/causal_attention.py:101", max_abs_err=err,
         tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
         ms=time_ms(lambda: ca.causal_attention_cuda(qs, k, v, key_bias)),
-        plain_ms=time_ms(lambda: ca.causal_attention_plain(qs, k, v, key_bias)),
+        plain_ms=events_ms(lambda: ca.causal_attention_plain(qs, k, v, key_bias)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qh, kr, vr, attn_mask=causal_ok, scale=1.0)),
         launches=None, bound_ms=bms, bound_by=bby,
@@ -578,7 +593,7 @@ def kernel_checks(dev, gen):
         tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
         ms=time_ms(lambda: dm.decode_attention_cuda(
             q, kn, vn, ck, cv, next(turn) % L, offset, valid, scale), iters=112),
-        plain_ms=time_ms(lambda: dm.decode_attention_plain(
+        plain_ms=events_ms(lambda: dm.decode_attention_plain(
             q, kn, vn, ck2, cv2, next(turn) % L, offset, valid, scale), iters=28),
         library_ms=time_ms(lambda: library(next(turn) % L), iters=112),
         launches=None, bound_ms=bms, bound_by=bby,
@@ -714,7 +729,7 @@ def int4_kernel_checks(dev, gen):
         replaces="audio_llama_tpu/ops/mel_pallas.py:84", max_abs_err=err,
         tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
         ms=time_ms(lambda: mp.mel_power_cuda(padded, mc, Fr)),
-        plain_ms=time_ms(lambda: mp.mel_power_plain(padded, mc, Fr)),
+        plain_ms=events_ms(lambda: mp.mel_power_plain(padded, mc, Fr)),
         library_ms=time_ms(library), launches=None, bound_ms=bms, bound_by=bby,
         shapes=f"waveform[{B},{mc.max_samples}] f32 -> [{B},{Fr},{n_mels}]",
     ))
@@ -766,7 +781,7 @@ def int4_kernel_checks(dev, gen):
             # decode calls rotate over the layers so each finds its slab in
             # device memory, as a decode step does
             ms=time_ms(lambda: run(layer=next(turn) % L), iters=56 if M <= 64 else 10),
-            plain_ms=time_ms(plain, iters=10 if M <= 64 else 3),
+            plain_ms=events_ms(plain, iters=10 if M <= 64 else 3),
             library_ms=time_ms(lambda: x @ w_deq, iters=56 if M <= 64 else 10),
             bound_ms=bms, bound_by=bby)
         by_shape.append(shape_row)
@@ -813,7 +828,7 @@ def int4_kernel_checks(dev, gen):
         tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
         ms=time_ms(lambda: mlp4.mlp_int4_stacked_cuda(x, gup, gus, dn, dns, next(turn) % L,
                                                       chunk=chunk), iters=56),
-        plain_ms=time_ms(lambda: mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, li,
+        plain_ms=events_ms(lambda: mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, li,
                                                              chunk=chunk), iters=5),
         library_ms=time_ms(lambda: (F.silu(x @ wg[:, :Fd]) * (x @ wg[:, Fd:])) @ wd, iters=56),
         # the same kernel at the TPU kernel's chunk (16 blocks at F = 8192)
@@ -857,7 +872,7 @@ def int4_kernel_checks(dev, gen):
         max_abs_err=err, tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
         ms=time_ms(lambda: mlp4.mlp_int4_stacked_cuda(x, gup, gus, dn, dns, next(turn) % L,
                                                       chunk=chunk, dn_r=dn_r), iters=56),
-        plain_ms=time_ms(lambda: mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, li,
+        plain_ms=events_ms(lambda: mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, li,
                                                              chunk=chunk, dn_r=dn_r), iters=5),
         library_ms=time_ms(lambda: (F.silu(x @ wg[:, :Fd]) * (x @ wg[:, Fd:]) * r_bf) @ wd,
                            iters=56),
@@ -943,7 +958,7 @@ def int4_kernel_checks(dev, gen):
         tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
         ms=time_ms(lambda: dm.decode_attention_q4_cuda(
             q, kvn, ckv, ks, vs, ksn, vsn, next(turn) % L, offsets, valid, scale), iters=112),
-        plain_ms=time_ms(lambda: dm.decode_attention_q4_plain(
+        plain_ms=events_ms(lambda: dm.decode_attention_q4_plain(
             q, kvn, ckv, ks, vs, ksn, vsn, next(turn) % L, offsets, valid, scale), iters=28),
         library_ms=time_ms(lambda: sdpa(next(turn) % L), iters=112),
         launches=None, bound_ms=bms, bound_by=bby,
@@ -1140,7 +1155,7 @@ def megakernel_checks(dev, gen):
         max_abs_err=max(e for e, _ in results.values()), tol=tol_entry(frac),
         tol_ratio=max(r for _, r in results.values()), planted_fault_ratios=faults,
         cache_byte_flip_share=cache_flips, fresh_scale_rel_err=scale_err,
-        ms=time_ms(run, iters=10), plain_ms=time_ms(lambda: mk.decode_megakernel_plain(**case),
+        ms=time_ms(run, iters=10), plain_ms=events_ms(lambda: mk.decode_megakernel_plain(**case),
                                                     iters=1, warmup=1),
         library_ms=None,  # no one PyTorch call computes a decoder step
         barriers_only_ms=time_ms(lambda: run(barriers_only=True), iters=10),
@@ -1249,7 +1264,7 @@ def q8_kernel_checks(dev, gen):
         ms=time_ms(lambda: dm.decode_attention_q8_cuda(
             q, kn, vn, ck, cv, ks, vs, ksn, vsn, next(turn) % L, offsets, valid, scale),
             iters=112),
-        plain_ms=time_ms(lambda: dm.decode_attention_q8_plain(
+        plain_ms=events_ms(lambda: dm.decode_attention_q8_plain(
             q, kn, vn, ck, cv, ks, vs, ksn, vsn, next(turn) % L, offsets, valid, scale),
             iters=28),
         library_ms=time_ms(lambda: sdpa(next(turn) % L), iters=112),
@@ -3316,7 +3331,7 @@ def db_kernel_checks(dev, gen):
         # (`ms_events` keeps that reading beside them)
         ms = time_ms(lambda: kernel(fns[0]), iters=112)
         ms_events = events_ms(lambda: kernel(fns[0]), iters=112)
-        plain_ms = time_ms(lambda: kernel(fns[1]), iters=10)
+        plain_ms = events_ms(lambda: kernel(fns[1]), iters=10)
         library_ms = time_ms(sdpa, iters=112)
         del sdpa
         row = dict(
@@ -3472,7 +3487,7 @@ def ab_kernel_checks(dev, gen):
                       + Hkv * row_bytes)
             times[bits] = dict(
                 ms=time_ms(lambda: kernel(True), iters=56),
-                plain_ms=time_ms(lambda: kernel(False), iters=8),
+                plain_ms=events_ms(lambda: kernel(False), iters=8),
                 library_ms=time_ms(sdpa_slab(case, bits, valid, scale, turn), iters=112),
                 bound=bound(4.0 * Hq * n_valid * hd, nbytes))
             del case
@@ -4315,7 +4330,7 @@ def enc_kernel_checks(dev, gen):
             suffix = "" if B == 1 else f"_b{B}"
             row.update({
                 "ms" + suffix: time_ms(lambda: enc_call(name, case)),
-                "plain_ms" + suffix: time_ms(lambda: enc_call(name, case, cuda=False), iters=5),
+                "plain_ms" + suffix: events_ms(lambda: enc_call(name, case, cuda=False), iters=5),
                 "library_ms" + suffix: time_ms(lambda: F.scaled_dot_product_attention(
                     *lib, attn_mask=key_ok, scale=lib_scale)),
                 "bound_ms" + suffix: bms, "bound_by" + suffix: bby,
@@ -4502,12 +4517,15 @@ VARIANT_ROWS = {  # kernel row -> (fwd_impl, softmax_mode, TPU kernel it replace
                                  "(softmax='bounded')",
                                  "audio_llama_tpu_torch/csrc/causal_attention_fixed.cu"),
     "causal_attention_twopass": ("blocks", "twopass", "audio_llama_tpu/ops/causal_attention.py:188",
-                                 "audio_llama_tpu_torch/csrc/causal_attention_fixed.cu"),
+                                 "audio_llama_tpu_torch/csrc/causal_attention_twopass.cu"),
     "causal_attention_dma": ("dma", "bounded", "audio_llama_tpu/ops/causal_attention.py:250",
                              "audio_llama_tpu_torch/csrc/causal_attention_dma.cu"),
     "causal_attention_dma2": ("dma2", "bounded", "audio_llama_tpu/ops/causal_attention.py:321",
-                              "audio_llama_tpu_torch/csrc/causal_attention_dma.cu"),
+                              "audio_llama_tpu_torch/csrc/causal_attention_dma2.cu"),
 }
+# the wgmma / TMA kernels -> their ptxas entry names
+SM90_KERNELS = {"causal_attention_twopass": "twopass_kernelILi128E",
+                "causal_attention_dma2": "dma2_kernelILi128E"}
 # the bounded row also runs under blocks_cond (its own counter, summed in the row)
 VARIANT_ARMS = [(v[0], v[1]) for v in VARIANT_ROWS.values()] + [("blocks_cond", "bounded")]
 VARIANT_T, VARIANT_REAL = 2560, 2014  # experiments/causal_dma_bench.py's T; train A's tokens
@@ -4543,6 +4561,16 @@ def variant_call(name, case, cuda=True, **over):
     fwd_impl, softmax = VARIANT_ROWS[name][:2] if name in VARIANT_ROWS else name
     plain, kernel = ca.variant_forward(fwd_impl, softmax)
     return (kernel if cuda else plain)(c["qs"], c["k"], c["v"], c["key_bias"], c["kn"])
+
+
+def variant_sdpa(case):
+    """Phase 18's library call on a case: SDPA (causal, GQA, no padding mask)
+    on its q, k, v laid out [B, H, T, hd] -> a function of no arguments."""
+    import torch.nn.functional as F
+
+    qh, kh, vh = (case[n].transpose(1, 2).contiguous() for n in ("qs", "k", "v"))
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=1.0,
+                                                  enable_gqa=True)
 
 
 def variant_reference(case, visible, softmax, kn=None, max_keys=None, v_next=False):
@@ -4613,20 +4641,43 @@ def variant_outlier_case(dev, gen):
                 key_bias=torch.zeros(1, T, device=dev), kn=ca.key_norm_max(k))
 
 
+def ptxas_report(entry: str) -> dict:
+    """Registers and spill bytes of the kernel whose mangled name holds
+    `entry`, from the `-Xptxas=-v` lines of this build's log."""
+    from audio_llama_tpu_torch.ops import _cuda
+
+    lines = (_cuda.BUILD_DIR / f"{_cuda._digest()}.log").read_text().splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and entry in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", lines[i + 1])
+            out["spill_store_bytes"], out["spill_load_bytes"] = int(m[1]), int(m[2])
+            out["registers"] = int(re.search(r"Used (\d+) registers", lines[i + 2])[1])
+        elif "serialized" in line and entry in line:
+            out["wgmma_serialized"] = line.split("ptxas info    : ")[-1]
+    if "registers" not in out:
+        raise AssertionError(f"ptxas: no report for {entry} in the build log")
+    return out
+
+
 def causal_variant_checks(dev, gen):
     """Phase 18 (a): the forward variants' kernels (cond online, bounded
     under blocks and blocks_cond, twopass, dma, dma2) at T 2560 (2014 real
     in the last row), Hq 24, Hkv 8, hd 128, B 2 and 8 against their plain
     versions: o on the valid rows within row 3's bar, l and c within row 3's
-    l / m bars; cond == always and bounded-cond, dma, dma2 == bounded bit
-    for bit; two launches bit-equal; planted faults (cond: the diagonal tile
+    l / m bars; cond == always and bounded-cond, dma == bounded bit for bit,
+    dma2 (wgmma, its own sum order) against bounded within row 3's bars;
+    two launches bit-equal; planted faults (cond: the diagonal tile
     left unmasked; twopass: its last valid tile left out of pass 1; bounded:
     kn over the valid keys only, and kn of KV head h % Hkv for h // G; dma:
     the diagonal tile not fetched; dma2: tile j's PV read from tile j+1's V
     stage); the outlier input; timed by CUPTI at B 2 and 8 beside the plain
-    version and SDPA (causal, GQA, no padding mask)."""
-    import torch.nn.functional as F
-
+    version and SDPA (causal, GQA, no padding mask). The wgmma / TMA kernels
+    (twopass, dma2) also report their registers and spills (the build log),
+    resident blocks per SM (the occupancy calculator) and a CUDA-events time
+    beside CUPTI's. `main` runs this phase first, on a generator of its own:
+    a process's CUPTI loses kernel records once it has traced some 10^5 of
+    them, and the later phases trace that many."""
     from audio_llama_tpu_torch.ops import causal_attention as ca
 
     rows, T = [], VARIANT_T
@@ -4636,6 +4687,7 @@ def causal_variant_checks(dev, gen):
     causal = t[None, :] <= t[:, None]
     diag = (t[None, :] // 64) == (t[:, None] // 64)
     results = {n: dict(checks={}) for n in VARIANT_ROWS}
+    events_by_b = {}
     for B in (2, 8):
         case = variant_case(dev, gen, B)
         valid = case["mask"] != 0
@@ -4659,11 +4711,22 @@ def causal_variant_checks(dev, gen):
             del want
         same = {"causal_attention_cond": always,
                 "causal_attention_bounded (blocks_cond)": got["causal_attention_bounded"],
-                "causal_attention_dma": got["causal_attention_bounded"],
-                "causal_attention_dma2": got["causal_attention_bounded"]}
+                "causal_attention_dma": got["causal_attention_bounded"]}
         for label, ref in same.items():
             if not all(torch.equal(a, b) for a, b in zip(got[label], ref)):
                 raise AssertionError(f"{label} B={B}: not bit-equal to its blocks kernel")
+        # dma2's wgmma kernel sums in another order than the bounded blocks
+        # kernel: the two within row 3's bars
+        dma2, bounded = got["causal_attention_dma2"], got["causal_attention_bounded"]
+        err, ratio = check_close(f"causal_attention_dma2 B={B} vs bounded blocks",
+                                 dma2.o[valid], bounded.o[valid],
+                                 ATOL_ROW_RMS_FRAC["causal_attention_dma2"])
+        stats = lc_ratios(dma2, bounded, case["mask"])
+        if max(stats.values()) > 1:
+            raise AssertionError(f"causal_attention_dma2 B={B}: l or c outside row 3's bars "
+                                 f"of the bounded blocks kernel {stats}")
+        results["causal_attention_dma2"][f"vs_bounded_blocks_b{B}"] = dict(
+            max_abs_err=err, tol_ratio=ratio, l_ratio=stats["l"], c_ratio=stats["c"])
         if B == 2:
             faults = {n: {} for n in VARIANT_ROWS}
 
@@ -4711,21 +4774,21 @@ def causal_variant_checks(dev, gen):
         flops = 4.0 * hd * Hq * B * T * (T + 1) / 2
         nbytes = 2.0 * B * T * hd * (2 * Hq + 2 * Hkv) + 4.0 * B * T * (1 + 2 * Hq) + 4.0 * B * Hkv
         bms, bby = bound(flops, nbytes)
-        qh, kh, vh = (case[n].transpose(1, 2).contiguous() for n in ("qs", "k", "v"))
-        sdpa = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                                              scale=1.0, enable_gqa=True))
+        sdpa = time_ms(variant_sdpa(case))
         suffix = "" if B == 2 else f"_b{B}"
+        events_by_b[B] = {name: events_ms(lambda: variant_call(name, case))
+                          for name in SM90_KERNELS}  # a cross-check of CUPTI's times
         for name in VARIANT_ROWS:
             results[name].update({
                 "ms" + suffix: time_ms(lambda: variant_call(name, case)),
-                "plain_ms" + suffix: time_ms(lambda: variant_call(name, case, cuda=False),
+                "plain_ms" + suffix: events_ms(lambda: variant_call(name, case, cuda=False),
                                              iters=3, warmup=1),
                 "library_ms" + suffix: sdpa, "bound_ms" + suffix: bms, "bound_by" + suffix: bby})
         results["causal_attention_bounded"]["ms_blocks_cond" + suffix] = time_ms(
             lambda: variant_call(("blocks_cond", "bounded"), case))
         results["causal_attention_cond"]["ms_always" + suffix] = time_ms(
             lambda: ca.causal_attention_cuda(case["qs"], case["k"], case["v"], case["key_bias"]))
-        del case, got, always, qh, kh, vh
+        del case, got, always
         torch.cuda.empty_cache()
     # the outlier input: the bounded family zeroes the rows its plain version
     # zeroes; twopass and cond stay within the bar of online
@@ -4745,6 +4808,12 @@ def causal_variant_checks(dev, gen):
                                      f"its plain version {int(zero_want.sum())}")
             results[name]["outlier_rows_zeroed"] = f"{int(zero.sum())} of {zero.numel()}"
     del case, online
+    for name, entry in SM90_KERNELS.items():
+        r = results[name]
+        r["sm90"] = dict(ptxas=ptxas_report(entry), runtime=ca.sm90_kernel_info(name, hd),
+                         ms_events=events_by_b[2][name], ms_events_b8=events_by_b[8][name])
+        log(f"{name} (wgmma / TMA, hd {hd}): {json.dumps(r['sm90'])}; ms {r['ms']:.4f} "
+            f"({r['ms'].by}), B 8 {r['ms_b8']:.4f} ({r['ms_b8'].by})")
     for name, (fwd_impl, softmax, replaces, source) in VARIANT_ROWS.items():
         r = results[name]
         worst = max((c["tol_ratio"], c["max_abs_err"]) for c in r.pop("checks").values())
@@ -4941,7 +5010,7 @@ def ksplit_kernel_checks(dev, gen):
                 x, packed, scales, next(turn) % L, block_k=bk), iters=iters)
         shape_row["ms_whole_k"] = time_ms(lambda: i4.int4_matmul_stacked_cuda(
             x, packed, scales, next(turn) % L), iters=iters)
-        shape_row["plain_ms"] = time_ms(lambda: i4.int4_matmul_stacked_ksplit_plain(
+        shape_row["plain_ms"] = events_ms(lambda: i4.int4_matmul_stacked_ksplit_plain(
             x, packed, scales, li, 768), iters=10 if M <= 64 else 3)
         shape_row["library_ms"] = time_ms(lambda: x @ w_deq, iters=iters)
         by_shape.append(shape_row)
@@ -5148,7 +5217,7 @@ def single_decode_checks(dev, gen):
             tol=tol_entry(frac), tol_ratio=max(r["tol_ratio"] for r in results.values()),
             checks=results, planted_fault_ratios=faults,
             ms=time_ms(lambda: kernel(True), iters=56),
-            plain_ms=time_ms(lambda: kernel(False), iters=8),
+            plain_ms=events_ms(lambda: kernel(False), iters=8),
             library_ms=time_ms(sdpa_slab(case, bits, valid, scale, turn), iters=112),
             library_note="SDPA over the same slab (K/V bf16, dequantized and repeated per query "
                          "head ahead of time)",
@@ -5235,7 +5304,7 @@ def int4_2d_checks(dev, gen):
         by_shape.append(dict(
             shape=label, M=M, K=K, N=N, bound_ms=bms, bound_by=bby,
             ms=time_ms(lambda: i4.int4_matmul_cuda(x, packed, scales), iters=56),
-            plain_ms=time_ms(lambda: i4.int4_matmul_plain(x, packed, scales), iters=10),
+            plain_ms=events_ms(lambda: i4.int4_matmul_plain(x, packed, scales), iters=10),
             library_ms=time_ms(lambda: x @ w_deq, iters=56)))
         log(f"kernel {name} {label} ok: {json.dumps(by_shape[-1])}")
         del x, w_deq
@@ -5859,9 +5928,12 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions and host checks
     torch.backends.cudnn.allow_tf32 = False
+    # phase 18 (a) first: its times are the wgmma / TMA kernels' CUPTI rows
+    rows = causal_variant_checks(dev, torch.Generator(device=dev).manual_seed(18))
+    torch.cuda.empty_cache()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows = kernel_checks(dev, gen)
+    rows += kernel_checks(dev, gen)
     rows += int4_kernel_checks(dev, gen)
     rows.append(megakernel_checks(dev, gen))
     rows.append(q8_kernel_checks(dev, gen))
@@ -5875,8 +5947,6 @@ def main(argv=None) -> int:
     rows += ring_kernel_checks(dev, gen)
     torch.cuda.empty_cache()
     rows += enc_kernel_checks(dev, gen)
-    torch.cuda.empty_cache()
-    rows += causal_variant_checks(dev, gen)
     torch.cuda.empty_cache()
     rows += ksplit_kernel_checks(dev, gen)
     torch.cuda.empty_cache()

@@ -16,9 +16,10 @@ Bars:
   outliers (tests/test_causal_attention.py:146-163, its shapes): bounded,
       dma and dma2 lose rows to exp underflow in both packages (more than 0.1
       from XLA's `mha`, the same rows zeroed); twopass and cond within 2e-4.
-The port's kernels keep 64 x 64 tiles, so block_q / chunk_k change nothing
-in the port (checked here) and JAX's results at 128 or 256 agree with the
-port's within the bars.
+The port's kernels keep their own tiles (64 x 64; the wgmma twopass and dma2
+kernels 128 x 128 and 128 x 64), so block_q / chunk_k change nothing in the
+port (checked here) and JAX's results at 128 or 256 agree with the port's
+within the bars.
 """
 
 import jax
@@ -185,3 +186,19 @@ def test_kn_is_per_kv_head_over_every_key():
     want = np.asarray(jnp.sqrt(jnp.max(jnp.sum(kh ** 2, axis=-1), axis=-1))).reshape(B, HKV)
     np.testing.assert_allclose(got, want, rtol=1e-6)
     assert got[0, 1] > 2 * got[0, 0]
+
+
+def test_tma_bias_hands_the_kernels_an_aligned_f32_row():
+    """The twopass and dma2 wrappers hand TMA the key bias f32, contiguous and
+    on a 16-byte boundary: a view that starts 4 bytes into its storage is
+    copied, an aligned f32 row passes as it is, a bf16 one is cast."""
+    buf = torch.arange(2 * T + 1, dtype=torch.float32)
+    view = buf[1:].view(2, T)
+    assert view.data_ptr() % 16 == 4
+    out = ca._tma_bias(view)
+    assert out.data_ptr() % 16 == 0 and out.is_contiguous() and torch.equal(out, view)
+    aligned = torch.zeros(2, T)
+    assert ca._tma_bias(aligned) is aligned
+    cast = ca._tma_bias(torch.full((2, T), -2.0, dtype=torch.bfloat16))
+    assert cast.dtype == torch.float32 and cast.data_ptr() % 16 == 0
+    assert torch.equal(cast, torch.full((2, T), -2.0))

@@ -1145,12 +1145,11 @@ def test_causal_variant_kernels(dev, name, B, T, Hq, Hkv, hd, pad_from):
 @pytest.mark.parametrize("name,same_as", [("causal_attention_cond", None),
                                           ("causal_attention_bounded_cond",
                                            "causal_attention_bounded"),
-                                          ("causal_attention_dma", "causal_attention_bounded"),
-                                          ("causal_attention_dma2", "causal_attention_bounded")])
+                                          ("causal_attention_dma", "causal_attention_bounded")])
 def test_causal_variants_equal_their_blocks_kernel_bit_for_bit(dev, name, same_as):
-    """cond masks fewer tiles and dma/dma2 copy K/V asynchronously, with the
+    """cond masks fewer tiles and dma copies K/V asynchronously, with the
     per-tile arithmetic of 'always' / the bounded blocks kernel: the same
-    bits."""
+    bits (dma2's wgmma kernel sums in another order: the next test)."""
     qs, k, v, key_bias, kn, _ = _variant_case(dev, 2, 384, 8, 2, 128, 333)
     got = CAUSAL_VARIANTS[name][1](qs, k, v, key_bias, kn)
     if same_as is None:
@@ -1158,6 +1157,65 @@ def test_causal_variants_equal_their_blocks_kernel_bit_for_bit(dev, name, same_a
     else:
         want = CAUSAL_VARIANTS[same_as][1](qs, k, v, key_bias, kn)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_dma2_matches_the_bounded_blocks_kernel_within_the_bar(dev):
+    """dma2's wgmma / TMA kernel and the bounded blocks kernel (WMMA) compute
+    one function with their f32 sums in other orders: o within row 3's bar,
+    l and c within its l / m bars."""
+    qs, k, v, key_bias, kn, mask = _variant_case(dev, 2, 384, 8, 2, 128, 333)
+    got = CAUSAL_VARIANTS["causal_attention_dma2"][1](qs, k, v, key_bias, kn)
+    want = CAUSAL_VARIANTS["causal_attention_bounded"][1](qs, k, v, key_bias, kn)
+    _variant_close(got, want, mask)
+
+
+# the wgmma / TMA kernels: hd 16-128 (dma2: 64, 128), G 1, 3, 4, B 1 and 2, T
+# off the 128 grid for twopass (dma2 takes multiples of 64), one row's keys padded
+SM90_CASES = [("causal_attention_twopass", 2, 1000, 12, 4, 128, 900),
+              ("causal_attention_twopass", 1, 640, 8, 2, 128, 600),
+              ("causal_attention_twopass", 2, 576, 4, 4, 64, 500),
+              ("causal_attention_twopass", 2, 320, 6, 2, 32, 250),
+              ("causal_attention_twopass", 1, 1000, 4, 1, 16, 800),
+              ("causal_attention_dma2", 2, 768, 12, 4, 128, 700),
+              ("causal_attention_dma2", 1, 640, 8, 2, 128, 600),
+              ("causal_attention_dma2", 2, 576, 4, 4, 64, 500),
+              ("causal_attention_dma2", 1, 320, 6, 2, 64, 300)]
+
+
+@pytest.mark.parametrize("name,B,T,Hq,Hkv,hd,pad_from", SM90_CASES)
+def test_sm90_attention_kernels(dev, name, B, T, Hq, Hkv, hd, pad_from):
+    """The twopass and dma2 kernels against their plain versions: o on the
+    valid rows within row 3's bar, l and c within its bars; a second launch
+    gives the same bits."""
+    qs, k, v, key_bias, kn, mask = _variant_case(dev, B, T, Hq, Hkv, hd, pad_from)
+    plain, kernel = CAUSAL_VARIANTS[name]
+    got = kernel(qs, k, v, key_bias, kn)
+    torch.cuda.synchronize()
+    _variant_close(got, plain(qs, k, v, key_bias, kn), mask)
+    again = kernel(qs, k, v, key_bias, kn)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_twopass_residuals_drive_the_backward_kernels(dev):
+    """twopass's l and c are the backward's residuals: the dq and dk/dv
+    kernels fed them give the plain backward's gradients within rows 11-12's
+    bars."""
+    B, T, Hq, Hkv, hd = 2, 512, 12, 4, 128
+    qs, k, v, key_bias, kn, _ = _variant_case(dev, B, T, Hq, Hkv, hd, 450, seed=41)
+    res = CAUSAL_VARIANTS["causal_attention_twopass"][1](qs, k, v, key_bias, kn)
+    do = _randn(dev, B, T, Hq, hd, seed=45)
+    got = ca.causal_attention_bwd_cuda(qs, k, v, key_bias, res.o, res.l, res.m, do)
+    want = ca.causal_attention_bwd_plain(qs, k, v, key_bias, res.o, res.l, res.m, do)
+    ratios = [_grad_ratio(g, w, name) for g, w, name in zip(got, want, BWD_NAMES)]
+    assert max(ratios) <= 1, ratios
+
+
+def test_sm90_kernel_info(dev):
+    """Both kernels report their registers, no spills and one resident block
+    an SM at hd 128 (the runtime's view of what the build log says)."""
+    for name in ("causal_attention_twopass", "causal_attention_dma2"):
+        info = ca.sm90_kernel_info(name, 128)
+        assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0, (name, info)
 
 
 def test_causal_variant_checks_reject_planted_faults(dev):
