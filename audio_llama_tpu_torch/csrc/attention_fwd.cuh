@@ -1,7 +1,8 @@
-// Tiled attention forward on the tensor cores (bf16 in, f32 accumulate),
-// shared by the encoder kernel (enc_attention.cu, non-causal, static
-// valid-key length) and the causal prefill kernel (causal_attention.cu,
-// causal GQA with a key-padding bias).
+// Tiled attention forward on the tensor cores (bf16 in, f32 accumulate):
+// the encoder's kernels (enc_attention.cu, enc_attention_bounded.cu,
+// enc_attention_twopass.cu; non-causal, a static valid-key length), and
+// AttnParams and the row copy that the port's other attention kernels share.
+// The causal forwards left this tile loop for wgmma and TMA (sm90.cuh).
 //
 // A block owns BQ = 64 query rows of one (batch, query head); each of its
 // four warps owns 16 rows. The keys stream through shared memory in tiles of
@@ -15,32 +16,19 @@
 // and the epilogue writes O / l. Inputs are read through (batch, time, head)
 // element strides, so [B, T, H*hd] projection outputs need no transpose.
 //
-// Two more softmax modes of the same tile loop serve the encoder's and the
-// causal forward's A/B kernels; both shift every tile by one FIXED per-row
-// value, so neither rescales O (r = 1) and the order of the key tiles only
-// changes f32 sums:
-//   kSoftmaxBounded (enc_attention_bounded.cu, causal_attention_fixed.cu):
-//       the Cauchy-Schwarz bound ||q_i|| * kn[b, kv head] in place of the row
-//       max, p = 0 past the valid keys, out = l > 0 ? O / l : 0 (a row whose
-//       exp all underflows is 0); the denominator is summed from bf16(p)
-//       (the encoder's ones column) or, with l_f32, from the f32 p (the
-//       causal kernel's explicit row sum, causal_attention.py:138-139);
-//   kSoftmaxTwoPass (enc_attention_twopass.cu; the causal two-pass forward
-//       has its own wgmma / TMA kernel, causal_attention_twopass.cu):
-//       a first pass over the key tiles takes the TRUE row max of S plus the
-//       bias (-1e9 past the valid keys), then the main loop forms
-//       p = exp(S + bias - m), optionally through a bf16 exp argument
-//       (exp_bf16).
-// Both use expf (not __expf) for the row's p. In the causal kernels the key
-// bias and the causal mask enter both modes as they enter the online one
-// (fixed_logit); causal_attention_dma.cu runs the bounded mode's tile
-// arithmetic (row_bound, fixed_softmax_lane, pv_tile) behind an asynchronous
-// copy pipeline.
-//
-// COND is the TPU kernel's tri='cond' mode (causal_attention.py:125-131): the
-// causal mask is applied only on key tiles that reach past the tile's first
-// query (k0 + kBK - 1 > q0). On the other tiles every key is at or before
-// every query, so the mask changes nothing and COND gives 'always' bit for bit.
+// Two more softmax modes of the same tile loop serve the encoder's A/B
+// kernels; both shift every tile by one FIXED per-row value, so neither
+// rescales O (r = 1) and the order of the key tiles only changes f32 sums:
+//   kSoftmaxBounded (enc_attention_bounded.cu): the Cauchy-Schwarz bound
+//       ||q_i|| * kn[b, kv head] in place of the row max, p = 0 past the
+//       valid keys, out = l > 0 ? O / l : 0 (a row whose exp all underflows
+//       is 0); the denominator is summed from bf16(p) (the encoder's ones
+//       column);
+//   kSoftmaxTwoPass (enc_attention_twopass.cu): a first pass over the key
+//       tiles takes the TRUE row max of S (-1e9 past the valid keys), then
+//       the main loop forms p = exp(S - m), optionally through a bf16 exp
+//       argument (exp_bf16).
+// Both use expf (not __expf) for the row's p.
 #pragma once
 
 #include <mma.h>
@@ -63,14 +51,13 @@ struct AttnParams {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
-  float* l_out;            // [B*Hq, T] row denominators, or null
-  float* m_out;            // [B*Hq, T] row maxima, or null
-  const float* key_bias;   // [B, T] additive key bias, or null
-  const float* kn;         // [B*Hkv] max key norm per (batch, KV head) (kSoftmaxBounded)
-  int exp_bf16;            // kSoftmaxTwoPass: round exp's argument to bf16
-  int l_f32;               // kSoftmaxBounded: denominator from the f32 p, not bf16(p)
+  float* l_out;            // [B*Hq, T] row denominators (the causal forwards)
+  float* m_out;            // [B*Hq, T] row shifts (the causal forwards)
+  const float* key_bias;   // [B, T] additive key bias (the causal forwards)
+  const float* kn;         // [B*Hkv] max key norm per (batch, KV head) (bounded)
+  int exp_bf16;            // two-pass: round exp's argument to bf16
   int T;                   // rows of q/k/v/o along time
-  int n_keys;              // keys at index >= n_keys are masked
+  int n_keys;              // keys at index >= n_keys are masked (the encoder)
   int Hq, Hkv;
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
@@ -167,30 +154,18 @@ __device__ __forceinline__ float row_bound(const __nv_bfloat16* sQ, int row, int
   return sqrtf(ss) * kn;
 }
 
-// A fixed-shift mode's logit: S plus the key bias (keys < T), then the causal
-// mask's -1e9 (the TPU kernels' _tri_mask) where `mask` and the key is in the
-// query's future. The encoder passes no bias and no mask: S itself.
-__device__ __forceinline__ float fixed_logit(float s, const float* bias, int key, int T,
-                                             bool mask, int qrow) {
-  if (bias && key < T) s += bias[key];
-  if (mask && key > qrow) s = kNeg;
-  return s;
-}
-
 // A fixed-shift mode's p over this lane's kBK / 2 columns of its row (srow:
 // its scores; key0: the key of its first column), written to prow as bf16;
-// returns the lane pair's sum of p (f32 or rounded, as p.l_f32 says).
+// returns the lane pair's sum of the rounded p.
 template <int MODE>
 __device__ __forceinline__ float fixed_softmax_lane(const float* srow, __nv_bfloat16* prow,
-                                                    int key0, const AttnParams& p,
-                                                    const float* bias, bool mask, int qrow,
-                                                    float shift) {
+                                                    int key0, const AttnParams& p, float shift) {
   constexpr int HC = kBK / 2;
   float psum = 0.f;
 #pragma unroll
   for (int j = 0; j < HC; ++j) {
     const int key = key0 + j;
-    const float x = fixed_logit(srow[j], bias, key, p.T, mask, qrow);
+    const float x = srow[j];
     float e;
     if constexpr (MODE == kSoftmaxBounded) {
       e = key < p.n_keys ? expf(x - shift) : 0.f;
@@ -201,16 +176,15 @@ __device__ __forceinline__ float fixed_softmax_lane(const float* srow, __nv_bflo
     }
     const __nv_bfloat16 pb = __float2bfloat16(e);
     prow[j] = pb;
-    psum += p.l_f32 ? e : __bfloat162float(pb);
+    psum += __bfloat162float(pb);
   }
   return psum + __shfl_xor_sync(0xffffffffu, psum, 1);
 }
 
-template <int HD, bool CAUSAL, int MODE, bool COND = false>
+template <int HD, int MODE>
 __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnParams p) {
   using namespace nvcuda;
   using Sm = AttnSmem<HD>;
-  static_assert(!COND || CAUSAL, "tri='cond' is a causal mode");
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + Sm::q_bytes);
@@ -229,7 +203,6 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnParams p) {
   const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* kb = p.k + b * p.k_sb + kvh * p.k_sh;
   const __nv_bfloat16* vb = p.v + b * p.v_sb + kvh * p.v_sh;
-  const float* bias = p.key_bias ? p.key_bias + (long long)b * p.T : nullptr;
 
   copy_rows_bf16(sQ, Sm::LDQ, qb, p.q_st, q0, kBQ, p.T, HD);
   for (int i = tid; i < kBQ * Sm::LDO; i += blockDim.x) sO[i] = 0.f;
@@ -241,8 +214,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnParams p) {
   const int qrow = q0 + row;
   float m_run = kNeg, l_run = 0.f;
 
-  int n_tiles = (p.n_keys + kBK - 1) / kBK;
-  if (CAUSAL) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);  // skip future tiles
+  const int n_tiles = (p.n_keys + kBK - 1) / kBK;
   constexpr int HC = kBK / 2;
 
   if constexpr (MODE == kSoftmaxBounded) {
@@ -250,8 +222,8 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnParams p) {
     m_run = row_bound<HD>(sQ, row, half, p.kn[b * p.Hkv + kvh]);
   }
   if constexpr (MODE == kSoftmaxTwoPass) {
-    // pass 1: the true row max of S plus the bias (and the causal mask) over
-    // every tile that holds a valid key (later tiles only add -1e9 terms)
+    // pass 1: the true row max of S over every tile that holds a valid key
+    // (later tiles only add -1e9 terms)
     for (int t = 0; t < n_tiles; ++t) {
       const int k0 = t * kBK;
       __syncthreads();
@@ -263,8 +235,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnParams p) {
 #pragma unroll
       for (int j = 0; j < HC; ++j) {
         const int key = k0 + half * HC + j;
-        const float v = fixed_logit(srow[j], bias, key, p.T, CAUSAL, qrow);
-        m_run = fmaxf(m_run, key >= p.n_keys ? v + kNeg : v);
+        m_run = fmaxf(m_run, key >= p.n_keys ? srow[j] + kNeg : srow[j]);
       }
       __syncwarp();
     }
@@ -273,9 +244,6 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnParams p) {
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
-    // the causal mask on this tile: every tile ('always'), or only the
-    // tiles that reach past the block's first query ('cond')
-    const bool mask = CAUSAL && (!COND || k0 + kBK - 1 > q0);
     __syncthreads();  // every warp is done with the previous K/V tile
     copy_rows_bf16(sK, Sm::LDQ, kb, p.k_st, k0, kBK, p.T, HD);
     copy_rows_bf16(sV, Sm::LDQ, vb, p.v_st, k0, kBK, p.T, HD);
@@ -293,10 +261,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnParams p) {
 #pragma unroll
       for (int j = 0; j < HC; ++j) {
         const int key = k0 + half * HC + j;
-        float v = srow[j];
-        if (bias) v += key < p.T ? bias[key] : 0.f;
-        if (key >= p.n_keys) v = kNeg;
-        if (mask && key > qrow) v = kNeg;
+        const float v = key >= p.n_keys ? kNeg : srow[j];
         s[j] = v;
         tmax = fmaxf(tmax, v);
       }
@@ -317,7 +282,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnParams p) {
 #pragma unroll
       for (int c = 0; c < HD / 2; ++c) orow[c] *= r;
     } else {
-      l_run += fixed_softmax_lane<MODE>(srow, prow, k0 + half * HC, p, bias, mask, qrow, m_run);
+      l_run += fixed_softmax_lane<MODE>(srow, prow, k0 + half * HC, p, m_run);
     }
     __syncwarp();
 
@@ -334,30 +299,27 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnParams p) {
       __nv_bfloat162 two = __floats2bfloat162_rn(orow[c] * inv, orow[c + 1] * inv);
       *reinterpret_cast<__nv_bfloat162*>(dst + c) = two;
     }
-    if (half == 0 && p.l_out) {
-      p.l_out[(long long)bh * p.T + qrow] = l_run;
-      p.m_out[(long long)bh * p.T + qrow] = m_run;
-    }
   }
 }
 
-template <int HD, bool CAUSAL, int MODE, bool COND>
+template <int HD, int MODE>
 cudaError_t launch_attn_fwd(const AttnParams& p, int B, cudaStream_t stream) {
   const size_t smem = AttnSmem<HD>::total;
-  cudaError_t err = allow_smem(attn_fwd_kernel<HD, CAUSAL, MODE, COND>, smem);
+  cudaError_t err = allow_smem(attn_fwd_kernel<HD, MODE>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.T + kBQ - 1) / kBQ, B * p.Hq);
-  attn_fwd_kernel<HD, CAUSAL, MODE, COND><<<grid, kThreads, smem, stream>>>(p);
+  attn_fwd_kernel<HD, MODE><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool CAUSAL, int MODE = kSoftmaxOnline, bool COND = false>
+// The encoder's forward (no causal mask, no key bias, no row statistics).
+template <int MODE = kSoftmaxOnline>
 cudaError_t dispatch_attn_fwd(const AttnParams& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_attn_fwd<16, CAUSAL, MODE, COND>(p, B, stream);
-    case 32: return launch_attn_fwd<32, CAUSAL, MODE, COND>(p, B, stream);
-    case 64: return launch_attn_fwd<64, CAUSAL, MODE, COND>(p, B, stream);
-    case 128: return launch_attn_fwd<128, CAUSAL, MODE, COND>(p, B, stream);
+    case 16: return launch_attn_fwd<16, MODE>(p, B, stream);
+    case 32: return launch_attn_fwd<32, MODE>(p, B, stream);
+    case 64: return launch_attn_fwd<64, MODE>(p, B, stream);
+    case 128: return launch_attn_fwd<128, MODE>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -16,7 +16,7 @@
 // Bound on the H100: operations, 4 * hd * Hq * B * T (T + 1) / 2 FLOP (QK^T
 // and PV over the causal half): 0.0815 ms at B 2, T 2560 at 989 TFLOP/s bf16.
 //
-// The first version (causal_attention_dma.cu's PIPELINED half) ran the WMMA
+// The first version (the PIPELINED half of the WMMA dma kernel) ran the WMMA
 // tile loop of attention_fwd.cuh behind three cp.async stages: S and O went
 // through shared memory, and at 195 KB of it one block of 4 warps an SM fed
 // the tensor cores. This design keeps what dma2 is and moves it onto
@@ -40,8 +40,10 @@
 //     past the warpgroup's first query (a no-op elsewhere); blocks run
 //     longest first.
 // hd 16, 32, 64 and 128. Sums are in a fixed order (no atomics): two launches
-// give the same bits. The bounded blocks kernel sums in another order, so the
-// two agree within row 3's bar, not bit for bit.
+// give the same bits. The bounded kernel (causal_attention_fixed.cu: 128-key
+// tiles, no S_{j+1} overlap) visits each thread's keys, and P V's k-steps, in
+// the same order, and a masked key adds an exact 0, so on the card the two
+// have given the same bits; the checks hold them to row 3's bar.
 #include "sm90.cuh"
 
 namespace al {
@@ -49,23 +51,6 @@ namespace dma2 {
 
 constexpr int BK = 64;     // keys a tile (two live score tiles a thread)
 constexpr int STAGES = 3;  // the K/V ring
-
-// ||qs_row|| over the quad (f32 squares of the bf16 values; each thread a
-// quarter of the row); 0 for a row at or past T.
-template <int HD>
-__device__ __forceinline__ float row_norm(const __nv_bfloat16* qrow, bool valid) {
-  float ss = 0.f;
-  if (valid) {
-    const int q4 = threadIdx.x & 3;
-#pragma unroll
-    for (int c = q4 * (HD / 4); c < (q4 + 1) * (HD / 4); c += 2) {
-      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qrow + c));
-      ss += x.x * x.x;
-      ss += x.y * x.y;
-    }
-  }
-  return sqrtf(sm90::quad_sum(ss));
-}
 
 template <int HD>
 __global__ void __launch_bounds__(sm90::kAttnThreads, 1)
@@ -93,8 +78,8 @@ __global__ void __launch_bounds__(sm90::kAttnThreads, 1)
 
   const __nv_bfloat16* qb = p.q + at.b * p.q_sb + at.h * p.q_sh;
   const float kn = p.kn[at.b * p.Hkv + at.kvh];
-  const float c0 = row_norm<HD>(qb + (long long)at.row0 * p.q_st, at.row0 < p.T) * kn;
-  const float c1 = row_norm<HD>(qb + (long long)at.row1 * p.q_st, at.row1 < p.T) * kn;
+  const float c0 = sm90::row_norm<HD>(qb + (long long)at.row0 * p.q_st, at.row0 < p.T) * kn;
+  const float c1 = sm90::row_norm<HD>(qb + (long long)at.row1 * p.q_st, at.row1 < p.T) * kn;
 
   float o[HD / 2];
 #pragma unroll

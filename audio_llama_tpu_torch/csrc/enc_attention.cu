@@ -39,5 +39,5 @@ AL_EXPORT int al_enc_attention(const void* q, const void* k, const void* v, void
   p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_st = o_st; p.o_sh = o_sh;
-  return al::dispatch_attn_fwd<false>(p, B, hd, static_cast<cudaStream_t>(stream));
+  return al::dispatch_attn_fwd<>(p, B, hd, static_cast<cudaStream_t>(stream));
 }

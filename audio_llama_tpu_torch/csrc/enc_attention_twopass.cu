@@ -12,10 +12,10 @@
 // o / l with no guard. A Hopper block cannot hold a 64 x 1536 f32 score
 // tile in shared memory (384 KB). Of the two ways around it (two passes over
 // the key tiles, or the whole row of a 16-row query tile, 96 KB a block) this
-// kernel takes the two passes, because they are the tile loop every encoder
-// and causal forward kernel of the port already runs (attention_fwd.cuh,
-// kSoftmaxTwoPass mode) at its 64-row tiles and 70 KB of shared memory,
-// which keeps three blocks on an SM: pass 1 computes S tile by tile for
+// kernel takes the two passes, because they are the tile loop the encoder's
+// forward kernels run (attention_fwd.cuh, kSoftmaxTwoPass mode) at its
+// 64-row tiles and 70 KB of shared memory, which keeps three blocks on an
+// SM: pass 1 computes S tile by tile for
 // the row max only (K read, V not), pass 2 computes S again and runs exp,
 // the bf16 rounding and PV with the max fixed, so O is never rescaled. The
 // second QK^T costs half as much tensor-core work again.
@@ -51,6 +51,6 @@ AL_EXPORT int al_enc_attention_twopass(const void* q, const void* k, const void*
   p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_st = o_st; p.o_sh = o_sh;
-  return al::dispatch_attn_fwd<false, al::kSoftmaxTwoPass>(p, B, hd,
-                                                          static_cast<cudaStream_t>(stream));
+  return al::dispatch_attn_fwd<al::kSoftmaxTwoPass>(p, B, hd,
+                                                    static_cast<cudaStream_t>(stream));
 }

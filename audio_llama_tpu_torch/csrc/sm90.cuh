@@ -2,10 +2,12 @@
 // block built on them.
 //
 // Replaces no TPU kernel by itself: it holds what the port's wgmma/TMA
-// kernels share (causal_attention_twopass.cu, the redesign of
-// audio_llama_tpu/ops/causal_attention.py::_fwd_kernel_twopass :188, and
-// causal_attention_dma2.cu, of ::_fwd_kernel_dma2 :321). Those kernels are
-// bound by operations, 4 * hd * Hq * B * T (T + 1) / 2 FLOP at 989 TFLOP/s
+// attention forwards share. Those are causal_attention.cu (the redesign of
+// audio_llama_tpu/ops/causal_attention.py::_fwd_kernel :101, online, tri
+// 'always' / 'cond' / 'never'), causal_attention_fixed.cu (its bounded mode,
+// with ::_fwd_kernel_dma :250, and ::_fwd_kernel_twopass :188) and
+// causal_attention_dma2.cu (::_fwd_kernel_dma2 :321). They are bound by
+// operations, 4 * hd * Hq * B * T (T + 1) / 2 FLOP causal at 989 TFLOP/s
 // bf16 (0.0815 ms at B 2, T 2560, Hq 24, hd 128), so what matters here is
 // keeping the tensor cores fed from shared memory and registers:
 //   - mbarriers (init, arrive with expected transaction bytes, try-wait on a
@@ -19,9 +21,9 @@
 //     registers (RS), with fence / commit_group / wait_group;
 //   - setmaxnreg, so a producer warpgroup hands its registers to the
 //     consumers' accumulators.
-// The old kernels (attention_fwd.cuh) ran WMMA 16x16x16 from shared memory
-// and stored S and O there between products; here both accumulators stay in
-// registers and P feeds P V from registers.
+// The first versions (attention_fwd.cuh) ran WMMA 16x16x16 from shared
+// memory and stored S and O there between products; here both accumulators
+// stay in registers and P feeds P V from registers.
 //
 // Tiles of attention rows. A [ROWS, hd] bf16 tile of q, k or v lands as TMA
 // leaves it: column blocks of CB = min(hd, 64) values, each ROWS rows of
@@ -379,6 +381,24 @@ __device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ||qs_row|| over the quad (f32 squares of the bf16 values; each thread a
+// quarter of the row); 0 for a row at or past T. The bounded family's
+// shift is this times kn[b, kv head].
+template <int HD>
+__device__ __forceinline__ float row_norm(const __nv_bfloat16* qrow, bool valid) {
+  float ss = 0.f;
+  if (valid) {
+    const int q4 = threadIdx.x & 3;
+#pragma unroll
+    for (int c = q4 * (HD / 4); c < (q4 + 1) * (HD / 4); c += 2) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qrow + c));
+      ss += x.x * x.x;
+      ss += x.y * x.y;
+    }
+  }
+  return sqrtf(quad_sum(ss));
+}
+
 // The epilogue of an attention warpgroup: row `row` (rr 0 / 1: the thread's
 // first or second) of o = l > 0 ? O / l : 0 in bf16, and its l and shift c
 // from the quad's first thread; rows at or past T are not written.
@@ -401,8 +421,8 @@ __device__ __forceinline__ void store_row(const float (&o)[HD / 2], int rr, int 
 
 // --- an attention forward block -----------------------------------------------------
 
-// The port's wgmma / TMA attention forwards (causal_attention_twopass.cu,
-// causal_attention_dma2.cu) share one block: 128 queries of one (b, q head),
+// The port's wgmma / TMA attention forwards (causal_attention.cu,
+// causal_attention_fixed.cu, causal_attention_dma2.cu) share one block: 128 queries of one (b, q head),
 // consumer warpgroups 0 and 1 of 64 rows each, and producer warpgroup 2
 // whose first thread issues TMA.
 constexpr int kAttnBQ = 128;
@@ -503,7 +523,8 @@ struct AttnRing {
 };
 
 // s + bias of the accumulator's element pair (i, i + 1) in key tile j of BK
-// keys; -1e9 where `mask` is on and the key lies past the row.
+// keys; -1e9 where `mask` is on and the key lies past the row (at.row0 /
+// row1: a kernel may pass the last key a row sees in their place).
 template <int BK>
 __device__ __forceinline__ float2 logits(const float (&s)[BK / 2], int i, int j, bool mask,
                                          const float* bias, const AttnPlace& at) {
@@ -640,10 +661,14 @@ inline cudaError_t kernel_info(K kernel, int threads, size_t smem, int* out) {
 
 }  // namespace sm90
 
-// kernel_info of the kernels on these blocks at head_dim hd (defined by
-// causal_attention_twopass.cu and causal_attention_dma2.cu; exported by
-// al_sm90_kernel_info).
-cudaError_t twopass_fwd_sm90_info(int hd, int* out);
+// The kernels on these blocks at head_dim hd (defined by causal_attention.cu,
+// causal_attention_fixed.cu and causal_attention_dma2.cu): their launches
+// and their kernel_info (exported by al_sm90_kernel_info).
+cudaError_t online_fwd_sm90_info(int hd, bool causal, int* out);
+cudaError_t fixed_fwd_sm90(const AttnParams& p, int B, int hd, bool bounded,
+                           cudaStream_t stream);
+cudaError_t fixed_fwd_sm90_info(int hd, bool bounded, int* out);
+cudaError_t dma2_fwd_sm90(const AttnParams& p, int B, int hd, cudaStream_t stream);
 cudaError_t dma2_fwd_sm90_info(int hd, int* out);
 
 }  // namespace al

@@ -3,10 +3,9 @@
 Replaces `audio_llama_tpu/ops/causal_attention.py::_fwd_kernel` (`causal_mha`,
 `softmax_mode='online'`, `tri='always'`) and the two kernels of its custom
 VJP, `_dq_kernel` and `_dkv_kernel`. The forward kernel is
-`csrc/causal_attention.cu` over the shared tensor-core tile loop of
-`csrc/attention_fwd.cuh`; the backward kernels are
-`csrc/causal_attention_bwd.cu` (their source notes give the bounds and the
-designs). `causal_attention_plain` and `causal_attention_bwd_plain` are the
+`csrc/causal_attention.cu`, on Hopper's wgmma and TMA (`csrc/sm90.cuh`); the
+backward kernels are `csrc/causal_attention_bwd.cu` (their source notes give
+the bounds and the designs). `causal_attention_plain` and `causal_attention_bwd_plain` are the
 same arithmetic in PyTorch. `_CausalAttention` (a `torch.autograd.Function`)
 joins them: its forward saves qs, k, v, the key bias, o and the row
 statistics l and m, and its backward runs the D = rowsum(dO * O) prologue in
@@ -47,14 +46,16 @@ each a plain version and a kernel here:
       max, p = exp of a bf16 argument when v is bf16, rounded, l summed from
       the rounded p, no rescale; tri does not apply;
   fwd_impl 'dma' / 'dma2' (`causal_attention_dma_*`): the bounded
-      arithmetic, on the card by a kernel that fetches K/V asynchronously
-      and only for the valid key tiles (dma2: three stages, tile j+1's QK^T
-      ahead of tile j's softmax and PV); these take softmax_mode 'bounded'
-      whatever is asked (causal_attention.py:871-872).
-The twopass and dma2 kernels run on Hopper's wgmma and TMA
-(`csrc/causal_attention_twopass.cu`, `csrc/causal_attention_dma2.cu` on
-`csrc/sm90.cuh`); TMA reads the key bias too, so their wrappers hand it over
-16-byte aligned (`_tma_bias`).
+      arithmetic; dma runs the bounded kernel (TMA fetches only the valid
+      key tiles in every mode, which is all that set dma apart on the TPU),
+      dma2 its own (three stages, tile j+1's QK^T ahead of tile j's softmax
+      and PV); these take softmax_mode 'bounded' whatever is asked
+      (causal_attention.py:871-872).
+Every forward kernel runs on Hopper's wgmma and TMA (`csrc/sm90.cuh`):
+online in `csrc/causal_attention.cu`, bounded and twopass in
+`csrc/causal_attention_fixed.cu`, dma2 in `csrc/causal_attention_dma2.cu`.
+TMA reads the key bias too, so the wrappers hand it over 16-byte aligned
+(`_tma_bias`).
 Every variant returns its shift residual as `m` (for the bounded family that
 is JAX's c, the bound), and the one backward above serves them all: it takes
 any per-row shift, P = exp(s - m) / l. kn enters as an input without a
@@ -259,8 +260,11 @@ def _tma_bias(key_bias: torch.Tensor) -> torch.Tensor:
     return key_bias if _cuda.aligned16(key_bias) else key_bias.clone()
 
 
-# the wgmma / TMA kernels, as al_sm90_kernel_info numbers them
-SM90_KERNELS = ("causal_attention_twopass", "causal_attention_dma2")
+# the wgmma / TMA kernels, as al_sm90_kernel_info numbers them: twopass, dma2,
+# online with the causal mask ('always', 'cond'), online 'never', bounded
+# (blocks, blocks_cond, dma)
+SM90_KERNELS = ("causal_attention_twopass", "causal_attention_dma2", "causal_attention",
+                "causal_attention_never", "causal_attention_bounded")
 
 
 def sm90_kernel_info(name: str, hd: int) -> dict:
@@ -288,12 +292,12 @@ def causal_attention_cuda(
     tri: str = "always",
 ) -> CausalOut:
     """Launch the kernel (same arguments as the plain version; tri 'always',
-    'never' or 'cond')."""
+    'never' or 'cond'; any T)."""
     global launches, launches_never, launches_cond
     name = "causal_attention"
     code = _tri_code(tri)
     B, T, Hq, Hkv, hd = _fwd_checks(name, qs, k, v, key_bias)
-    key_bias = key_bias.to(torch.float32).contiguous()
+    key_bias = _tma_bias(key_bias)
     o, l, m = _outputs(qs)
     err = _cuda.library().al_causal_attention(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -317,14 +321,14 @@ def causal_attention_bounded_cuda(
     kn: torch.Tensor, tri: str = "always",
 ) -> CausalOut:
     """Launch the bounded-softmax kernel (`csrc/causal_attention_fixed.cu`;
-    the plain version's arguments; tri 'always' or 'cond')."""
+    the plain version's arguments; tri 'always' or 'cond', one kernel)."""
     global launches_bounded, launches_bounded_cond
     name = "causal_attention_bounded"
     if tri not in ("always", "cond"):
         raise ValueError(f"{name}: tri must be 'always' or 'cond'; got {tri!r}")
     B, T, Hq, Hkv, hd = _fwd_checks(name, qs, k, v, key_bias)
     kn = _kn_arg(name, kn, B, Hkv, qs.device)
-    key_bias = key_bias.to(torch.float32).contiguous()
+    key_bias = _tma_bias(key_bias)
     o, l, m = _outputs(qs)
     err = _cuda.library().al_causal_attention_fixed(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(),
@@ -343,7 +347,7 @@ def causal_attention_bounded_cuda(
 def causal_attention_twopass_cuda(
     qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,
 ) -> CausalOut:
-    """Launch the two-pass kernel (`csrc/causal_attention_twopass.cu`, through
+    """Launch the two-pass kernel (`csrc/causal_attention_fixed.cu`, through
     `al_causal_attention_fixed`; the plain version's arguments; the exp
     argument rounded to bf16, as the TPU kernel's for bf16 v)."""
     global launches_twopass
@@ -366,11 +370,11 @@ def causal_attention_dma_cuda(
     qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,
     kn: torch.Tensor, pipelined: bool = False,
 ) -> CausalOut:
-    """Launch the asynchronous-copy kernel: fwd_impl 'dma'
-    (`csrc/causal_attention_dma.cu`, two K/V stages) or, with `pipelined`,
-    'dma2' (`csrc/causal_attention_dma2.cu`: a three-deep TMA ring, tile
-    j+1's QK^T in flight during tile j's softmax). The plain version's
-    arguments; T a multiple of 64."""
+    """Launch fwd_impl 'dma' (the bounded kernel of
+    `csrc/causal_attention_fixed.cu`: a two-stage TMA ring of the valid key
+    tiles) or, with `pipelined`, 'dma2' (`csrc/causal_attention_dma2.cu`: a
+    three-deep TMA ring, tile j+1's QK^T in flight during tile j's softmax).
+    The plain version's arguments; T a multiple of 64, as JAX's chunks."""
     global launches_dma, launches_dma2
     name = "causal_attention_dma2" if pipelined else "causal_attention_dma"
     B, T, Hq, Hkv, hd = _fwd_checks(name, qs, k, v, key_bias)
@@ -581,8 +585,8 @@ def causal_attention_fwd(
 
     block_q and chunk_k (0: the largest of 512, 256, 128 dividing the padded
     T) are checked as the JAX package needs them, dividing the padded T; the
-    port's kernels keep their own 64 x 64 tiles, so its results do not depend
-    on them, and they agree with JAX's at any choice within the stated bars,
+    port's kernels keep their own tiles, so its results do not depend on
+    them, and they agree with JAX's at any choice within the stated bars,
     not bit for bit (JAX's f32 sums follow its tiles)."""
     B, T, Hq, hd = q.shape
     if scale is None:

@@ -309,6 +309,21 @@ def bound(flops: float, nbytes: float, flop_rate: float = H100_BF16_FLOPS):
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
 
 
+def sdpa_backend(fn) -> str:
+    """The backend PyTorch chose for an SDPA call, from the names of the
+    device kernels one call launched (CUPTI): cudnn, flash, efficient
+    (memory-efficient) or math, with the longest kernel's name."""
+    try:
+        _, by_name, _ = traced(fn)
+    except AssertionError as err:
+        return f"not traced ({err})"
+    names = " ".join(by_name).lower()
+    label = next((label for key, label in (("cudnn", "cudnn"), ("flash", "flash"),
+                                           ("fmha", "efficient"), ("efficient", "efficient"))
+                  if key in names), "math")
+    return f"{label} ({max(by_name, key=by_name.get)[:90]})"
+
+
 # Kernel-vs-plain tolerance: |got - want| <= atol + BF16_ULP * |want|, with
 # atol a fraction of the RMS of the plain output's row (the last dim: one
 # head's output vector, one normalized row). BF16_ULP admits one rounding
@@ -414,6 +429,45 @@ def tol_entry(frac) -> dict:
 # phase 2: each kernel against its plain version at main-path shapes
 # ---------------------------------------------------------------------------
 
+def prefill_attention_case(dev, gen) -> dict:
+    """Row 3's inputs, the causal prefill attention of the bf16 path: T =
+    1526 real tokens padded to 1536, Hq 24 / Hkv 8, hd 128, q pre-scaled,
+    the last 10 keys padded."""
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+
+    lc, bf = full_config().llama, torch.bfloat16
+    B, T, Hq, Hkv, hd = 1, 1536, lc.num_heads, lc.num_kv_heads, lc.head_dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    qs = randn(B, T, Hq, hd) * torch.tensor(hd ** -0.5, dtype=bf, device=dev)
+    k, v = randn(B, T, Hkv, hd), randn(B, T, Hkv, hd)
+    mask = torch.ones(B, T, dtype=torch.int32, device=dev)
+    mask[:, 1526:] = 0
+    key_bias = torch.where(mask != 0, torch.zeros((), device=dev), ca.NEG)
+    return dict(qs=qs, k=k, v=v, mask=mask, key_bias=key_bias)
+
+
+def prefill_sdpa(case):
+    """Row 3's yardsticks on a prefill case -> (SDPA with is_causal and
+    enable_gqa on the unrepeated K/V, whose padded keys lie after every real
+    query; the earlier yardstick: SDPA with a boolean causal and key mask on
+    K/V repeated to Hq, which keeps it off its flash backend), each a
+    function of no arguments."""
+    import torch.nn.functional as F
+
+    qh, kh, vh = (case[n].transpose(1, 2) for n in ("qs", "k", "v"))
+    G = qh.shape[1] // kh.shape[1]
+    T = qh.shape[2]
+    causal_ok = (torch.ones(T, T, dtype=torch.bool, device=qh.device).tril()
+                 & (case["mask"][0] != 0)[None, :])
+    kr, vr = (case[n].repeat_interleave(G, dim=2).transpose(1, 2) for n in ("k", "v"))
+    return (lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=1.0,
+                                                   enable_gqa=True),
+            lambda: F.scaled_dot_product_attention(qh, kr, vr, attn_mask=causal_ok, scale=1.0))
+
+
 def kernel_checks(dev, gen):
     from audio_llama_tpu_torch.ops import causal_attention as ca
     from audio_llama_tpu_torch.ops import decode_attention_mono as dm
@@ -471,28 +525,35 @@ def kernel_checks(dev, gen):
     key_ok = torch.zeros(T, T, dtype=torch.bool, device=dev)
     key_ok[:, :valid] = True
     qh, kh, vh = (t.transpose(1, 2) for t in (qs, k, v))
+    kv_valid = [t[:, :, :valid].contiguous() for t in (kh, vh)]
+
+    def sdpa():  # no mask on the valid keys
+        return F.scaled_dot_product_attention(qh, *kv_valid, scale=1.0)
+
+    def sdpa_masked():  # the earlier yardstick: a boolean mask keeps SDPA off flash
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_ok, scale=1.0)
+
     rows.append(dict(
         name="enc_attention", route="cuda", source="audio_llama_tpu_torch/csrc/enc_attention.cu",
         replaces="audio_llama_tpu/ops/enc_attention.py:102", max_abs_err=err,
         tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
         ms=time_ms(lambda: ea.enc_attention_cuda(qs, k, v, valid)),
         plain_ms=events_ms(lambda: ea.enc_attention_plain(qs, k, v, valid)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=key_ok, scale=1.0)),
+        library_ms=time_ms(sdpa), library_backend=sdpa_backend(sdpa),
+        library_ms_masked=time_ms(sdpa_masked), library_masked_backend=sdpa_backend(sdpa_masked),
         launches=None, bound_ms=bms, bound_by=bby, shapes=f"q/k/v[{B},{T},{H},{hd}] bf16, valid {valid}",
+        notes="library_ms: SDPA with no mask on K/V cut to the valid keys; library_ms_masked: "
+              "SDPA on all keys with a boolean key mask",
     ))
     log(f"kernel enc_attention ok: max_abs_err={err:.3e} tol_ratio={ratio:.3f} "
         f"planted faults rejected: {faults}")
 
     # 3. causal prefill attention: T = 1526 real tokens padded to 1536,
     #    Hq 24 / Hkv 8, hd 128, q pre-scaled, last 10 keys padded
-    B, T, Hq, Hkv, hd = 1, 1536, 24, 8, 128
-    qs = randn(B, T, Hq, hd) * torch.tensor(hd ** -0.5, dtype=bf, device=dev)
-    k, v = randn(B, T, Hkv, hd), randn(B, T, Hkv, hd)
-    mask = torch.ones(B, T, dtype=torch.int32, device=dev)
-    mask[:, 1526:] = 0
-    zero = torch.zeros((), device=dev)
-    key_bias = torch.where(mask != 0, zero, ca.NEG)
+    case = prefill_attention_case(dev, gen)
+    qs, k, v, mask, key_bias = (case[n] for n in ("qs", "k", "v", "mask", "key_bias"))
+    B, T, Hq, hd = qs.shape
+    Hkv = k.shape[2]
     got = ca.causal_attention_cuda(qs, k, v, key_bias)
     want = ca.causal_attention_plain(qs, k, v, key_bias)
     frac, real = ATOL_ROW_RMS_FRAC["causal_attention"], 1526
@@ -520,20 +581,22 @@ def kernel_checks(dev, gen):
     flops = 4.0 * B * Hq * hd * T * (T + 1) / 2
     nbytes = 2.0 * B * T * hd * (2 * Hq + 2 * Hkv) + 4.0 * B * T * (1 + 2 * Hq)
     bms, bby = bound(flops, nbytes)
-    causal_ok = torch.ones(T, T, dtype=torch.bool, device=dev).tril() & (mask[0] != 0)[None, :]
-    kr, vr = (t.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2) for t in (k, v))
-    qh = qs.transpose(1, 2)
+    sdpa, sdpa_masked = prefill_sdpa(case)
+    run = lambda: ca.causal_attention_cuda(qs, k, v, key_bias)  # noqa: E731
     rows.append(dict(
         name="causal_attention", route="cuda",
         source="audio_llama_tpu_torch/csrc/causal_attention.cu",
         replaces="audio_llama_tpu/ops/causal_attention.py:101", max_abs_err=err,
         tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
-        ms=time_ms(lambda: ca.causal_attention_cuda(qs, k, v, key_bias)),
+        ms=time_ms(run), ms_events=events_ms(run),
         plain_ms=events_ms(lambda: ca.causal_attention_plain(qs, k, v, key_bias)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kr, vr, attn_mask=causal_ok, scale=1.0)),
-        launches=None, bound_ms=bms, bound_by=bby,
+        library_ms=time_ms(sdpa), library_backend=sdpa_backend(sdpa),
+        library_ms_masked=time_ms(sdpa_masked), library_masked_backend=sdpa_backend(sdpa_masked),
+        launches=None, bound_ms=bms, bound_by=bby, sm90=sm90_report("causal_attention", hd),
         shapes=f"q[{B},{T},{Hq},{hd}] k/v[{B},{T},{Hkv},{hd}] bf16, 1526 real",
+        notes="library_ms: SDPA(is_causal, enable_gqa) on unrepeated K/V (the padded keys lie "
+              "after every real query); library_ms_masked: SDPA with a boolean causal and "
+              "key mask on K/V repeated to Hq",
     ))
     log(f"kernel causal_attention ok: max_abs_err={err:.3e} tol_ratio={ratio:.3f} "
         f"planted faults rejected: {faults}")
@@ -1350,7 +1413,11 @@ def check_tokens(label, toks, shape, V):
         raise AssertionError(f"{label}: bad tokens {toks.tolist()}")
 
 
-def main_path(dev, profile: bool = False):
+def bf16_request(dev):
+    """The bf16 path's model and request: seeded bf16 weights at full width
+    with f32 LoRA masters, a 30 s log-mel clip and a 24-token prompt ->
+    (cfg, frozen, trainable, ids, mask, mel, run), run(n, greedy=True,
+    g=None) calling `generate` for n new tokens."""
     from audio_llama_tpu_torch.inference.generate import generate
     from audio_llama_tpu_torch.models import allm, llama
 
@@ -1377,6 +1444,13 @@ def main_path(dev, profile: bool = False):
         return generate(frozen, trainable, cfg, ids, mask, mel, g, max_new_tokens=n,
                         greedy=greedy, temperature=0.7, top_p=0.9, **kw)
 
+    return cfg, frozen, trainable, ids, mask, mel, run
+
+
+def main_path(dev, profile: bool = False):
+    from audio_llama_tpu_torch.models import allm
+
+    cfg, frozen, trainable, ids, mask, mel, run = bf16_request(dev)
     run(2)  # warm-up: library handles, allocator
     enc_ms = min(synced_ms(lambda: allm.process_audio_features(frozen, cfg, mel)) for _ in range(3))
     first_ms = min(synced_ms(lambda: run(1)) for _ in range(3))
@@ -1603,7 +1677,8 @@ def cli_path(dev, model) -> None:
 
 def logit_trail(frozen, trainable, cfg, ids, mask, wav, tokens, megakernel, kv_quant=4):
     """Prefill one request, then feed it `tokens` (teacher-forced) one decode
-    step at a time -> the f32 logits of every step."""
+    step at a time -> the f32 logits of every step: the prefill's last
+    position (the logits token 0 is taken from), then each decode step's."""
     from audio_llama_tpu_torch.inference.generate import build_prefix
     from audio_llama_tpu_torch.models import llama
 
@@ -1613,10 +1688,13 @@ def logit_trail(frozen, trainable, cfg, ids, mask, wav, tokens, megakernel, kv_q
     P, n = embeds.shape[1], tokens.shape[1]
     full_mask = torch.cat([m, torch.ones((1, n), dtype=m.dtype, device=dev)], dim=1)
     cache = llama.KVCache.zeros(cfg.llama, 1, P + n, device=dev, quantized=kv_quant)
-    _, cache = llama.llama_forward(frozen["llama"], cfg.llama, inputs_embeds=embeds,
-                                   attention_mask=full_mask, kv_cache=cache,
-                                   assume_fresh_cache=True, unembed_logits=False)
-    trail = []
+    _, cache, hidden = llama.llama_forward(frozen["llama"], cfg.llama, inputs_embeds=embeds,
+                                           attention_mask=full_mask, kv_cache=cache,
+                                           assume_fresh_cache=True, return_hidden=True,
+                                           unembed_logits=False)
+    last = int(m[0].sum()) - 1
+    trail = [llama.unembed_with_tp(frozen["llama"], cfg.llama, hidden[:, last:last + 1],
+                                   torch.bfloat16, None)[0, 0].float()]
     for i in range(n - 1):
         logits, cache = llama.llama_forward(
             frozen["llama"], cfg.llama, input_ids=tokens[:, i:i + 1], attention_mask=full_mask,
@@ -1708,6 +1786,11 @@ def b1_path(dev, profile: bool = False):
         "logits_vs_per_layer": {"steps": len(steps),
                                 "max_rel_l2": max(st["rel_l2"] for st in steps),
                                 "argmax_agree": all(st["argmax_agree"] for st in steps)},
+        # the gap between the two largest logits at each greedy step: a token
+        # whose margin is within the kernels' rounding may part from another
+        # build's (random weights leave the logits nearly flat)
+        "top2_margin_per_step": [float(t[0] - t[1]) for t in
+                                 (lg.topk(2).values for lg in trails[0])],
         "greedy_tokens": toks.tolist(), "sampled_tokens": sampled.tolist(),
         "launches": launches,
     }
@@ -2161,8 +2244,9 @@ KERNEL_GROUPS = (  # substring of the device kernel's name -> group, first match
     ("megakernel", "decode_megakernel"),
     ("decode_quant_kernel<__nv_bfloat16, 3, true>", "decode_attention_q8 kernel"),
     ("decode_quant_kernel", "decode_attention_q4 kernel"),
-    ("attn_fwd_kernel<64, false>", "enc_attention kernel"),
-    ("attn_fwd_kernel<128, true>", "causal_attention kernel"),
+    ("attn_fwd_kernel<64", "enc_attention kernel"),
+    ("online_kernel", "causal_attention kernel"), ("fixed_kernel", "causal_attention kernel"),
+    ("dma2_kernel", "causal_attention kernel"),
     ("dq_kernel", "causal_attention_dq kernel"), ("dkv_kernel", "causal_attention_dkv kernel"),
     ("decode_kernel", "decode_attention kernel"),
     ("db_kernel", "decode_attention_db kernel"), ("packed_", "decode_attention_packed kernel"),
@@ -2786,6 +2870,7 @@ def ring_kernel_checks(dev, gen):
             launch_fault=launch_check,
             ms=time_ms(run), ms_events=events_ms(run), plain_ms=plain_ms,
             library_ms=library_ms, launches=None, bound_ms=bms, bound_by=bby, shapes=shapes,
+            **({"sm90": sm90_report(name, hd)} if name == RING_NAMES[0] else {}),
             notes="plain_ms of dq and dk/dv: the whole plain backward of the hop; library_ms: "
                   "SDPA (no causal mask, enable_gqa), its forward for the forward kernel, its "
                   "backward (dq, dk, dv in one call) for the backward kernels",
@@ -4517,15 +4602,22 @@ VARIANT_ROWS = {  # kernel row -> (fwd_impl, softmax_mode, TPU kernel it replace
                                  "(softmax='bounded')",
                                  "audio_llama_tpu_torch/csrc/causal_attention_fixed.cu"),
     "causal_attention_twopass": ("blocks", "twopass", "audio_llama_tpu/ops/causal_attention.py:188",
-                                 "audio_llama_tpu_torch/csrc/causal_attention_twopass.cu"),
+                                 "audio_llama_tpu_torch/csrc/causal_attention_fixed.cu"),
     "causal_attention_dma": ("dma", "bounded", "audio_llama_tpu/ops/causal_attention.py:250",
-                             "audio_llama_tpu_torch/csrc/causal_attention_dma.cu"),
+                             "audio_llama_tpu_torch/csrc/causal_attention_fixed.cu"),
     "causal_attention_dma2": ("dma2", "bounded", "audio_llama_tpu/ops/causal_attention.py:321",
                               "audio_llama_tpu_torch/csrc/causal_attention_dma2.cu"),
 }
-# the wgmma / TMA kernels -> their ptxas entry names
-SM90_KERNELS = {"causal_attention_twopass": "twopass_kernelILi128E",
-                "causal_attention_dma2": "dma2_kernelILi128E"}
+# each row's wgmma / TMA kernel -> (its name in ca.SM90_KERNELS, its ptxas entry at hd 128)
+SM90_KERNELS = {
+    "causal_attention": ("causal_attention", "online_kernelILi128ELb1E"),
+    "causal_attention_never": ("causal_attention_never", "online_kernelILi128ELb0E"),
+    "causal_attention_cond": ("causal_attention", "online_kernelILi128ELb1E"),
+    "causal_attention_bounded": ("causal_attention_bounded", "fixed_kernelILi128ELb1E"),
+    "causal_attention_twopass": ("causal_attention_twopass", "fixed_kernelILi128ELb0E"),
+    "causal_attention_dma": ("causal_attention_bounded", "fixed_kernelILi128ELb1E"),
+    "causal_attention_dma2": ("causal_attention_dma2", "dma2_kernelILi128E"),
+}
 # the bounded row also runs under blocks_cond (its own counter, summed in the row)
 VARIANT_ARMS = [(v[0], v[1]) for v in VARIANT_ROWS.values()] + [("blocks_cond", "bounded")]
 VARIANT_T, VARIANT_REAL = 2560, 2014  # experiments/causal_dma_bench.py's T; train A's tokens
@@ -4660,22 +4752,39 @@ def ptxas_report(entry: str) -> dict:
     return out
 
 
+def sm90_report(row: str, hd: int) -> dict:
+    """Row's wgmma / TMA kernel at head_dim hd: ptxas's registers and spills
+    (the build log) and the runtime's registers, local bytes, shared memory
+    and resident blocks per SM. A spill, local memory or a wgmma that ptxas
+    serialized fails the run."""
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+
+    kernel, entry = SM90_KERNELS[row]
+    out = dict(kernel=kernel, ptxas=ptxas_report(entry), runtime=ca.sm90_kernel_info(kernel, hd))
+    px = out["ptxas"]
+    if (px["spill_store_bytes"] or px["spill_load_bytes"] or "wgmma_serialized" in px
+            or out["runtime"]["local_bytes"]):
+        raise AssertionError(f"{row}: spills, local memory or serialized wgmma: {out}")
+    return out
+
+
 def causal_variant_checks(dev, gen):
     """Phase 18 (a): the forward variants' kernels (cond online, bounded
     under blocks and blocks_cond, twopass, dma, dma2) at T 2560 (2014 real
     in the last row), Hq 24, Hkv 8, hd 128, B 2 and 8 against their plain
     versions: o on the valid rows within row 3's bar, l and c within row 3's
     l / m bars; cond == always and bounded-cond, dma == bounded bit for bit,
-    dma2 (wgmma, its own sum order) against bounded within row 3's bars;
+    dma2 (its own kernel) against bounded within row 3's bars;
     two launches bit-equal; planted faults (cond: the diagonal tile
     left unmasked; twopass: its last valid tile left out of pass 1; bounded:
     kn over the valid keys only, and kn of KV head h % Hkv for h // G; dma:
     the diagonal tile not fetched; dma2: tile j's PV read from tile j+1's V
     stage); the outlier input; timed by CUPTI at B 2 and 8 beside the plain
-    version and SDPA (causal, GQA, no padding mask). The wgmma / TMA kernels
-    (twopass, dma2) also report their registers and spills (the build log),
-    resident blocks per SM (the occupancy calculator) and a CUDA-events time
-    beside CUPTI's. `main` runs this phase first, on a generator of its own:
+    version and SDPA (causal, GQA, no padding mask). Each row's wgmma / TMA
+    kernel (online for cond; bounded for bounded and dma; twopass; dma2)
+    also reports its registers and spills (the build log; either fails the
+    run), resident blocks per SM (the occupancy calculator) and a CUDA-events
+    time beside CUPTI's. `main` runs this phase first, on a generator of its own:
     a process's CUPTI loses kernel records once it has traced some 10^5 of
     them, and the later phases trace that many."""
     from audio_llama_tpu_torch.ops import causal_attention as ca
@@ -4715,8 +4824,9 @@ def causal_variant_checks(dev, gen):
         for label, ref in same.items():
             if not all(torch.equal(a, b) for a, b in zip(got[label], ref)):
                 raise AssertionError(f"{label} B={B}: not bit-equal to its blocks kernel")
-        # dma2's wgmma kernel sums in another order than the bounded blocks
-        # kernel: the two within row 3's bars
+        # dma2's kernel and the bounded kernel: within row 3's bars (their
+        # per-thread sum orders match, and on the card they have given the
+        # same bits)
         dma2, bounded = got["causal_attention_dma2"], got["causal_attention_bounded"]
         err, ratio = check_close(f"causal_attention_dma2 B={B} vs bounded blocks",
                                  dma2.o[valid], bounded.o[valid],
@@ -4777,7 +4887,7 @@ def causal_variant_checks(dev, gen):
         sdpa = time_ms(variant_sdpa(case))
         suffix = "" if B == 2 else f"_b{B}"
         events_by_b[B] = {name: events_ms(lambda: variant_call(name, case))
-                          for name in SM90_KERNELS}  # a cross-check of CUPTI's times
+                          for name in VARIANT_ROWS}  # a cross-check of CUPTI's times
         for name in VARIANT_ROWS:
             results[name].update({
                 "ms" + suffix: time_ms(lambda: variant_call(name, case)),
@@ -4808,10 +4918,10 @@ def causal_variant_checks(dev, gen):
                                      f"its plain version {int(zero_want.sum())}")
             results[name]["outlier_rows_zeroed"] = f"{int(zero.sum())} of {zero.numel()}"
     del case, online
-    for name, entry in SM90_KERNELS.items():
+    for name in VARIANT_ROWS:
         r = results[name]
-        r["sm90"] = dict(ptxas=ptxas_report(entry), runtime=ca.sm90_kernel_info(name, hd),
-                         ms_events=events_by_b[2][name], ms_events_b8=events_by_b[8][name])
+        r["sm90"] = dict(sm90_report(name, hd), ms_events=events_by_b[2][name],
+                         ms_events_b8=events_by_b[8][name])
         log(f"{name} (wgmma / TMA, hd {hd}): {json.dumps(r['sm90'])}; ms {r['ms']:.4f} "
             f"({r['ms'].by}), B 8 {r['ms_b8']:.4f} ({r['ms_b8'].by})")
     for name, (fwd_impl, softmax, replaces, source) in VARIANT_ROWS.items():

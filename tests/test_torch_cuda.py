@@ -1097,6 +1097,10 @@ def test_tiny_int8_encoder_on_the_card_matches_the_host(dev, algo):
 # --- the causal forward variants (fwd_impl / softmax_mode) ---------------------
 
 CAUSAL_VARIANTS = {  # kernel -> (plain, kernel) of (qs, k, v, key_bias, kn)
+    "causal_attention": ca.variant_forward("blocks", "online"),
+    "causal_attention_never": (
+        lambda qs, k, v, b, kn: ca.causal_attention_plain(qs, k, v, b, "never"),
+        lambda qs, k, v, b, kn: ca.causal_attention_cuda(qs, k, v, b, "never")),
     "causal_attention_cond": ca.variant_forward("blocks_cond", "online"),
     "causal_attention_bounded": ca.variant_forward("blocks", "bounded"),
     "causal_attention_bounded_cond": ca.variant_forward("blocks_cond", "bounded"),
@@ -1147,9 +1151,10 @@ def test_causal_variant_kernels(dev, name, B, T, Hq, Hkv, hd, pad_from):
                                            "causal_attention_bounded"),
                                           ("causal_attention_dma", "causal_attention_bounded")])
 def test_causal_variants_equal_their_blocks_kernel_bit_for_bit(dev, name, same_as):
-    """cond masks fewer tiles and dma copies K/V asynchronously, with the
-    per-tile arithmetic of 'always' / the bounded blocks kernel: the same
-    bits (dma2's wgmma kernel sums in another order: the next test)."""
+    """cond runs the kernel of 'always', bounded_cond and dma the bounded
+    kernel (their TPU differences, masked tiles and hand-copied K/V, have
+    no counterpart under TMA): the same bits (dma2, a kernel of its own: the
+    next test)."""
     qs, k, v, key_bias, kn, _ = _variant_case(dev, 2, 384, 8, 2, 128, 333)
     got = CAUSAL_VARIANTS[name][1](qs, k, v, key_bias, kn)
     if same_as is None:
@@ -1160,18 +1165,38 @@ def test_causal_variants_equal_their_blocks_kernel_bit_for_bit(dev, name, same_a
 
 
 def test_dma2_matches_the_bounded_blocks_kernel_within_the_bar(dev):
-    """dma2's wgmma / TMA kernel and the bounded blocks kernel (WMMA) compute
-    one function with their f32 sums in other orders: o within row 3's bar,
-    l and c within its l / m bars."""
+    """dma2's kernel (64-key tiles, S_{j+1} ahead) and the bounded kernel
+    (128-key tiles) compute one function: o within row 3's bar, l and c
+    within its l / m bars."""
     qs, k, v, key_bias, kn, mask = _variant_case(dev, 2, 384, 8, 2, 128, 333)
     got = CAUSAL_VARIANTS["causal_attention_dma2"][1](qs, k, v, key_bias, kn)
     want = CAUSAL_VARIANTS["causal_attention_bounded"][1](qs, k, v, key_bias, kn)
     _variant_close(got, want, mask)
 
 
-# the wgmma / TMA kernels: hd 16-128 (dma2: 64, 128), G 1, 3, 4, B 1 and 2, T
-# off the 128 grid for twopass (dma2 takes multiples of 64), one row's keys padded
-SM90_CASES = [("causal_attention_twopass", 2, 1000, 12, 4, 128, 900),
+# the wgmma / TMA kernels in every mode: hd 16-128 (dma2: 64, 128), G 1-4, B 1
+# and 2, T off the 64 grid for online and twopass, off the 128 grid for the
+# bounded blocks modes (dma and dma2 take multiples of 64), one row's keys padded
+SM90_CASES = [("causal_attention", 2, 1000, 12, 4, 128, 900),
+              ("causal_attention", 1, 640, 8, 2, 64, 600),
+              ("causal_attention", 2, 200, 4, 2, 32, 150),
+              ("causal_attention", 1, 330, 4, 4, 16, 300),
+              ("causal_attention_cond", 2, 768, 12, 4, 128, 700),
+              ("causal_attention_cond", 1, 1000, 6, 2, 16, 950),
+              ("causal_attention_never", 2, 1000, 12, 4, 128, 900),
+              ("causal_attention_never", 1, 520, 8, 2, 32, 500),
+              ("causal_attention_never", 2, 96, 4, 1, 16, 90),
+              ("causal_attention_never", 1, 384, 3, 1, 64, 300),
+              ("causal_attention_bounded", 2, 1000, 12, 4, 128, 900),
+              ("causal_attention_bounded", 1, 640, 8, 8, 64, 600),
+              ("causal_attention_bounded", 2, 320, 6, 2, 32, 250),
+              ("causal_attention_bounded", 1, 576, 4, 1, 16, 500),
+              ("causal_attention_bounded_cond", 2, 768, 12, 4, 128, 700),
+              ("causal_attention_bounded_cond", 1, 320, 4, 4, 64, 300),
+              ("causal_attention_dma", 2, 768, 12, 4, 128, 700),
+              ("causal_attention_dma", 1, 640, 8, 2, 32, 600),
+              ("causal_attention_dma", 2, 576, 4, 1, 16, 500),
+              ("causal_attention_twopass", 2, 1000, 12, 4, 128, 900),
               ("causal_attention_twopass", 1, 640, 8, 2, 128, 600),
               ("causal_attention_twopass", 2, 576, 4, 4, 64, 500),
               ("causal_attention_twopass", 2, 320, 6, 2, 32, 250),
@@ -1184,9 +1209,9 @@ SM90_CASES = [("causal_attention_twopass", 2, 1000, 12, 4, 128, 900),
 
 @pytest.mark.parametrize("name,B,T,Hq,Hkv,hd,pad_from", SM90_CASES)
 def test_sm90_attention_kernels(dev, name, B, T, Hq, Hkv, hd, pad_from):
-    """The twopass and dma2 kernels against their plain versions: o on the
-    valid rows within row 3's bar, l and c within its bars; a second launch
-    gives the same bits."""
+    """Each wgmma / TMA kernel in each mode against its plain version: o on
+    the valid rows within row 3's bar, l and the shift m (c) within its bars;
+    a second launch gives the same bits."""
     qs, k, v, key_bias, kn, mask = _variant_case(dev, B, T, Hq, Hkv, hd, pad_from)
     plain, kernel = CAUSAL_VARIANTS[name]
     got = kernel(qs, k, v, key_bias, kn)
@@ -1211,9 +1236,10 @@ def test_twopass_residuals_drive_the_backward_kernels(dev):
 
 
 def test_sm90_kernel_info(dev):
-    """Both kernels report their registers, no spills and one resident block
-    an SM at hd 128 (the runtime's view of what the build log says)."""
-    for name in ("causal_attention_twopass", "causal_attention_dma2"):
+    """Every wgmma / TMA kernel reports its registers, no spills and one
+    resident block an SM at hd 128 (the runtime's view of what the build log
+    says)."""
+    for name in ca.SM90_KERNELS:
         info = ca.sm90_kernel_info(name, 128)
         assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0, (name, info)
 
