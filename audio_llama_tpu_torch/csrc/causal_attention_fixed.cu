@@ -272,7 +272,9 @@ AL_EXPORT int al_causal_attention_dma(const void* q, const void* k, const void* 
 // out[4]: registers per thread, local (spilled) bytes, dynamic shared memory
 // and resident blocks per SM of a wgmma / TMA attention forward at head_dim
 // hd; kind 0: twopass, 1: dma2, 2: online causal ('always', 'cond'), 3:
-// online 'never', 4: bounded (blocks, blocks_cond and dma).
+// online 'never', 4: bounded (blocks, blocks_cond and dma); 5 and 6: the
+// W4A16 prefill (int4_matmul.cu), whole K and K-split, with hd the scale
+// group.
 AL_EXPORT int al_sm90_kernel_info(int kind, int hd, int* out) {
   switch (kind) {
     case 0: return al::fixed_fwd_sm90_info(hd, false, out);
@@ -280,6 +282,8 @@ AL_EXPORT int al_sm90_kernel_info(int kind, int hd, int* out) {
     case 2: return al::online_fwd_sm90_info(hd, true, out);
     case 3: return al::online_fwd_sm90_info(hd, false, out);
     case 4: return al::fixed_fwd_sm90_info(hd, true, out);
+    case 5: return al::w4_prefill_sm90_info(hd, false, out);
+    case 6: return al::w4_prefill_sm90_info(hd, true, out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -2,7 +2,9 @@
 // block built on them.
 //
 // Replaces no TPU kernel by itself: it holds what the port's wgmma/TMA
-// attention forwards share. Those are causal_attention.cu (the redesign of
+// kernels share: the W4A16 prefill (int4_matmul.cu, which uses the blocks
+// below and not the attention block) and the attention forwards. Those are
+// causal_attention.cu (the redesign of
 // audio_llama_tpu/ops/causal_attention.py::_fwd_kernel :101, online, tri
 // 'always' / 'cond' / 'never'), causal_attention_fixed.cu (its bounded mode,
 // with ::_fwd_kernel_dma :250, and ::_fwd_kernel_twopass :188) and
@@ -13,7 +15,7 @@
 //   - mbarriers (init, arrive with expected transaction bytes, try-wait on a
 //     phase parity) for a ring of tiles between one producer thread and the
 //     consumer warpgroups;
-//   - TMA tile loads (cp.async.bulk.tensor, 1-D and 4-D) that land a tile in
+//   - TMA tile loads (cp.async.bulk.tensor, 1-D, 2-D and 4-D) that land a tile in
 //     shared memory, swizzled, with no thread spending registers or
 //     instructions on the copy; rows past the tensor's end are zero-filled;
 //   - wgmma descriptors for those swizzled tiles (K-major and MN-major) and
@@ -114,6 +116,15 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -593,6 +604,26 @@ inline bool rows_map(CUtensorMap* map, const void* base, int hd, int H, int T, i
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A row-major [rows, cols] matrix of `type` (row pitch `pitch` bytes, a
+// multiple of 16; a 16-byte aligned base) as dims (cols, rows), a box of
+// box_rows rows of box_cols values; swizzled 128B (a box row of 128 bytes)
+// or not at all. Rows past the end land as zeros.
+inline bool tile_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                        long long cols, long long rows, long long pitch, int box_cols,
+                        int box_rows, bool swizzle128) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
 // n f32 values as one dim, a box of `box` values from any element on
 // (the key bias of all B rows flat: a box starting at b T + k0).
 inline bool f32_map_1d(CUtensorMap* map, const float* base, long long n, int box) {
@@ -670,5 +701,8 @@ cudaError_t fixed_fwd_sm90(const AttnParams& p, int B, int hd, bool bounded,
 cudaError_t fixed_fwd_sm90_info(int hd, bool bounded, int* out);
 cudaError_t dma2_fwd_sm90(const AttnParams& p, int B, int hd, cudaStream_t stream);
 cudaError_t dma2_fwd_sm90_info(int hd, int* out);
+// The W4A16 prefill kernel (int4_matmul.cu) at a scale group, whole K or
+// K-split.
+cudaError_t w4_prefill_sm90_info(int group, bool ksplit, int* out);
 
 }  // namespace al

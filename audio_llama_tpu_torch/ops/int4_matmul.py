@@ -16,7 +16,8 @@ is a property of the tree (models/llama_int4.py marks `obin` trees with an
 The kernel `int4_matmul_stacked` replaces `_kernel_stacked`: x [..., K] @
 dequant(packed_all[layer]) with the layer picked by a pointer offset into
 the [L, K, N/2] slab. The CUDA kernel is `csrc/int4_matmul.cu` (its source
-note gives the bounds and the two launch shapes, M <= 64 and M > 64).
+note gives the bounds and the two launch shapes: M <= 64 streams the
+weight bytes, M > 64 runs on wgmma and TMA).
 `int4_matmul_stacked_plain` is the same arithmetic in PyTorch: per scale
 group the f32 dot of x with the integer nibbles, times the group's f32
 scale, summed over groups, cast to x's dtype. The group is an argument of
@@ -241,8 +242,8 @@ def int4_matmul_stacked_ksplit_plain(x, packed_all, scales_all, layer, block_k: 
 
 def group_ok(group: int) -> bool:
     """Whether the card's int4 kernels take scale groups of `group` rows: a
-    multiple of 16 (one m16n8k16 k-step) that divides their 128-row tile or
-    is a multiple of it."""
+    multiple of 16 (one k-step of their tensor-core products) that divides
+    their 128-row tile or is a multiple of it."""
     return group > 0 and group % 16 == 0 and (128 % group == 0 or group % 128 == 0)
 
 
@@ -268,6 +269,23 @@ def decode_split(M: int, K: int, Nh: int, group: int = GROUP):
     ksplit = min(n_units, max(1, -(-_TARGET_BLOCKS // blocks)))
     upb = min(max(1, 1024 // unit), -(-n_units // ksplit))
     return mc, upb * unit, -(-n_units // upb)
+
+
+# the prefill kernel's instances, as al_sm90_kernel_info numbers them
+SM90_KINDS = {"int4_matmul_prefill": 5, "int4_matmul_prefill_ksplit": 6}
+
+
+def sm90_kernel_info(name: str, group: int = GROUP) -> dict:
+    """Registers per thread, local (spilled) bytes, dynamic shared memory and
+    resident blocks per SM of the prefill kernel's instance `name` (one of
+    SM90_KINDS) at the scale group, from the CUDA runtime."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    fn = _cuda.library().al_sm90_kernel_info
+    _cuda.check(fn(SM90_KINDS[name], group, ctypes.cast(out, ctypes.c_void_p)),
+                f"{name} info")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2], blocks_per_sm=out[3])
 
 
 def int4_matmul_stacked_cuda(x, packed_all, scales_all, layer, group: int = GROUP,
@@ -297,8 +315,8 @@ def int4_matmul_stacked_cuda(x, packed_all, scales_all, layer, group: int = GROU
         raise ValueError(f"{name}: the slabs must be contiguous")
     x2 = x.reshape(-1, K).contiguous()
     M = x2.shape[0]
-    if not (_cuda.aligned16(x2) and _cuda.aligned16(packed_all)):
-        raise ValueError(f"{name}: x and the packed slab must be 16-byte aligned")
+    if not all(_cuda.aligned16(t) for t in (x2, packed_all, scales_all)):
+        raise ValueError(f"{name}: x and the packed and scale slabs must be 16-byte aligned")
     li = int(layer)
     p, s = packed_all[li], scales_all[li]
     if return_planes:
@@ -366,8 +384,8 @@ def int4_matmul_cuda(x, packed, scales, group: int = GROUP, fmt: Optional[str] =
     packed, scales = packed.contiguous(), scales.contiguous()
     x2 = x.reshape(-1, K).contiguous()
     M = x2.shape[0]
-    if not (_cuda.aligned16(x2) and _cuda.aligned16(packed)):
-        raise ValueError(f"{name}: x and the packed weight must be 16-byte aligned")
+    if not all(_cuda.aligned16(t) for t in (x2, packed, scales)):
+        raise ValueError(f"{name}: x, the packed weight and the scales must be 16-byte aligned")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     mc, kr, ksplit = (0, 0, 1) if M > DECODE_MAX_M else decode_split(M, K, Nh, group)
     ws_ptr = cnt_ptr = None

@@ -736,6 +736,32 @@ def full_config():
 INT4_PROMPTS = (24, 20, 16, 12)
 
 
+PREFILL_TOKENS = 64  # tokens a block of the W4A16 prefill kernel (int4_matmul.cu)
+
+
+def prefill_faults(got, want, frac, run, packed, li) -> dict:
+    """The W4A16 prefill kernel's planted faults, each of which must fail the
+    bar that `got` (its output at a prefill shape, one [M, N] row) passed:
+    the low and high nibble planes swapped in the epilogue; the second token
+    tile's rows shifted by one; a stale ring stage, K tile 1 (rows 128-255)
+    computed with tile 0's packed bytes."""
+    nh = got.shape[-1] // 2
+    swapped = torch.cat([got[:, nh:], got[:, :nh]], dim=-1)
+    shifted = got.clone()
+    t = slice(PREFILL_TOKENS, 2 * PREFILL_TOKENS)
+    shifted[t] = torch.roll(got[t], 1, dims=0)
+    stale = packed.clone()
+    stale[li, 128:256] = packed[li, :128]
+    return {
+        "prefill: nibble planes swapped in the epilogue": must_reject(
+            "int4_matmul_stacked", "planes swapped", swapped, want, frac),
+        "prefill: a token tile's rows shifted by one": must_reject(
+            "int4_matmul_stacked", "token tile shifted", shifted, want, frac),
+        "prefill: K tile 1 with tile 0's packed bytes (a stale ring stage)": must_reject(
+            "int4_matmul_stacked", "stale ring stage", run(p=stale), want, frac),
+    }
+
+
 def int4_kernel_checks(dev, gen):
     """The four kernels of the int4 path at its shapes (B = 4): mel power,
     the W4A16 matmul (decode and prefill shapes, both pack formats), the
@@ -800,16 +826,22 @@ def int4_kernel_checks(dev, gen):
         f"planted faults rejected: {faults}")
     del wav, padded, got, want
 
-    # 6. W4A16 matmul: decode q|k|v (pair, planes) and o (obin) at M = B,
-    #    prefill gate|up (pair, planes) and down (obin) at M = B * prefix
+    # 6. W4A16 matmul: decode q|k|v (pair, planes) and o (obin) at M = B;
+    #    the prefill's four products (q|k|v and gate|up pair, planes; o and
+    #    down obin, one row) at M = B * prefix and at B = 1's 1526 rows
     L, D, Fd = lc.num_layers, lc.hidden_size, lc.intermediate_size
     Nqkv = (lc.num_heads + 2 * lc.num_kv_heads) * lc.head_dim
+    Nq = lc.num_heads * lc.head_dim
+    M1 = cfg.audio_seq_len + 2 + PROMPT  # b1_path's prefix
     cases = [  # (label, M, K, N, fmt, planes)
         ("decode q|k|v", B, D, Nqkv, "pair", True),
-        ("decode o", B, lc.num_heads * lc.head_dim, D, "obin", False),
-        ("prefill gate|up", B * prefix, D, 2 * Fd, "pair", True),
-        ("prefill down", B * prefix, Fd, D, "obin", False),
+        ("decode o", B, Nq, D, "obin", False),
     ]
+    for M in (B * prefix, M1):
+        cases += [(f"prefill q|k|v M {M}", M, D, Nqkv, "pair", True),
+                  (f"prefill o M {M}", M, Nq, D, "obin", False),
+                  (f"prefill gate|up M {M}", M, D, 2 * Fd, "pair", True),
+                  (f"prefill down M {M}", M, Fd, D, "obin", False)]
     frac = ATOL_ROW_RMS_FRAC["int4_matmul_stacked"]
     by_shape, faults, worst = [], {}, (0.0, 0.0)
     li = min(5, L - 1)  # a layer inside the slab, picked by pointer offset
@@ -825,7 +857,8 @@ def int4_kernel_checks(dev, gen):
             return i4.int4_matmul_stacked_plain(xx, p, s, layer, fmt=f)
 
         want = plain()
-        err, ratio = check_close(f"int4_matmul_stacked {label}", run(), want, frac)
+        got = run()
+        err, ratio = check_close(f"int4_matmul_stacked {label}", got, want, frac)
         worst = max(worst, (ratio, err))
         if label == "decode q|k|v":
             faults["group g read with group g+1's scale"] = must_reject(
@@ -834,6 +867,9 @@ def int4_kernel_checks(dev, gen):
         if fmt == "obin":
             faults[f"{label}: obin bytes decoded as pair"] = must_reject(
                 "int4_matmul_stacked", "obin decoded as pair", run(f="pair"), want, frac)
+        if label == f"prefill q|k|v M {B * prefix}":
+            faults.update(prefill_faults(got, want, frac, run, packed, li))
+        del got
         w_deq = i4.dequantize_ref(packed[li], scales[li], fmt=fmt).to(bf)
         flops = 2.0 * M * K * N
         nbytes = K * N / 2 + (K / 128) * N * 4 + 2.0 * M * (K + N)
@@ -850,6 +886,7 @@ def int4_kernel_checks(dev, gen):
         by_shape.append(shape_row)
         log(f"kernel int4_matmul_stacked {label} ok: {json.dumps(shape_row)}")
         del packed, scales, x, want, w_deq
+        torch.cuda.empty_cache()
     first = by_shape[0]
     rows.append(dict(
         name="int4_matmul_stacked", route="cuda",
@@ -859,7 +896,7 @@ def int4_kernel_checks(dev, gen):
         ms=first["ms"], plain_ms=first["plain_ms"], library_ms=first["library_ms"],
         bound_ms=first["bound_ms"], bound_by=first["bound_by"], launches=None,
         shapes="the row's times are the decode q|k|v call; by_shape has every shape",
-        by_shape=by_shape,
+        by_shape=by_shape, sm90=w4_sm90_report(),
     ))
     log(f"kernel int4_matmul_stacked ok: planted faults rejected: {faults}")
 
@@ -1533,34 +1570,53 @@ def int4_model(gen, cfg, bits=4, rotate=False):
     return cli.quantize_decoder(cfg, frozen, trainable, bits=bits, rotate=rotate)
 
 
-def int4_path(dev, profile: bool = False):
+def int4_request(dev, b1: bool = False):
+    """The int4 paths' model and request: int4_path's (B = 4, the fused int4
+    tree, four 30 s waveforms, prompts of INT4_PROMPTS tokens right-padded;
+    seed 11) or, with b1, b1_path's (B = 1, the tree rotated, one 30 s
+    waveform, a PROMPT-token prompt; seed 13) -> (cfg, frozen, trainable,
+    ids, mask, wav, run, gen), run(n, greedy=True, g=None, megakernel=True)
+    calling `generate` for n new tokens with the int4 KV cache, gen the
+    generator that made them."""
     from audio_llama_tpu_torch.inference.generate import generate
-    from audio_llama_tpu_torch.models import allm
 
     cfg = full_config()
     gen = torch.Generator(device=dev)
-    gen.manual_seed(11)
+    gen.manual_seed(13 if b1 else 11)
     t0 = time.perf_counter()
-    frozen, trainable = int4_model(gen, cfg)
+    frozen, trainable = int4_model(gen, cfg, rotate=b1)
     torch.cuda.synchronize()
-    log(f"int4: LoRA merged and the decoder quantized on the card in "
+    log(f"{'b1' if b1 else 'int4'}: LoRA merged and the decoder "
+        f"{'rotated and ' if b1 else ''}quantized on the card in "
         f"{time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
-    B = len(INT4_PROMPTS)
+    B = 1 if b1 else len(INT4_PROMPTS)
     wav = torch.randn((B, cfg.mel.max_samples), generator=gen, device=dev) * 0.1
-    ids = torch.randint(0, cfg.llama.vocab_size, (B, max(INT4_PROMPTS)), generator=gen,
-                        device=dev)
-    mask = torch.zeros_like(ids)
-    for b, n in enumerate(INT4_PROMPTS):
-        mask[b, :n] = 1
-    ids = ids * mask  # right-padded with pad id 0
+    if b1:
+        ids = torch.randint(0, cfg.llama.vocab_size, (1, PROMPT), generator=gen, device=dev)
+        mask = torch.ones_like(ids)
+    else:
+        ids = torch.randint(0, cfg.llama.vocab_size, (B, max(INT4_PROMPTS)), generator=gen,
+                            device=dev)
+        mask = torch.zeros_like(ids)
+        for b, n in enumerate(INT4_PROMPTS):
+            mask[b, :n] = 1
+        ids = ids * mask  # right-padded with pad id 0
     kw = dict(eos_id=EOS, pad_id=0, audio_start_id=AUDIO_START, audio_end_id=AUDIO_END,
               compute_dtype=torch.bfloat16, device=dev, kv_quant=4)
 
-    def run(n, greedy=True, g=None):
+    def run(n, greedy=True, g=None, megakernel=True):
         return generate(frozen, trainable, cfg, ids, mask, wav, g, max_new_tokens=n,
-                        greedy=greedy, temperature=0.7, top_p=0.9, **kw)
+                        greedy=greedy, temperature=0.7, top_p=0.9, megakernel=megakernel, **kw)
 
+    return cfg, frozen, trainable, ids, mask, wav, run, gen
+
+
+def int4_path(dev, profile: bool = False):
+    from audio_llama_tpu_torch.models import allm
+
+    cfg, frozen, trainable, ids, mask, wav, run, gen = int4_request(dev)
+    B = len(INT4_PROMPTS)
     run(2)
     enc_ms = min(synced_ms(lambda: allm.process_audio_features(frozen, cfg, wav))
                  for _ in range(3))
@@ -1710,27 +1766,9 @@ def b1_path(dev, profile: bool = False):
     seeded 7) and quantized on the card, as the CLI's --int4_decoder --rotate
     does. Every decode step is one megakernel launch. Then the same request
     with the megakernel off: decode time, and logits step by step."""
-    from audio_llama_tpu_torch.inference.generate import generate
     from audio_llama_tpu_torch.models import allm
 
-    cfg = full_config()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(13)
-    t0 = time.perf_counter()
-    frozen, trainable = int4_model(gen, cfg, rotate=True)
-    torch.cuda.synchronize()
-    log(f"b1: LoRA merged, the decoder rotated and quantized on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
-    wav = torch.randn((1, cfg.mel.max_samples), generator=gen, device=dev) * 0.1
-    ids = torch.randint(0, cfg.llama.vocab_size, (1, PROMPT), generator=gen, device=dev)
-    mask = torch.ones_like(ids)
-    kw = dict(eos_id=EOS, pad_id=0, audio_start_id=AUDIO_START, audio_end_id=AUDIO_END,
-              compute_dtype=torch.bfloat16, device=dev, kv_quant=4)
-
-    def run(n, greedy=True, g=None, megakernel=True):
-        return generate(frozen, trainable, cfg, ids, mask, wav, g, max_new_tokens=n,
-                        greedy=greedy, temperature=0.7, top_p=0.9, megakernel=megakernel, **kw)
-
+    cfg, frozen, trainable, ids, mask, wav, run, _ = int4_request(dev, b1=True)
     run(2)
     run(2, megakernel=False)
     enc_ms = min(synced_ms(lambda: allm.process_audio_features(frozen, cfg, wav))
@@ -2239,7 +2277,7 @@ def eval_path(dev, ctx, tmp) -> dict:
 
 KERNEL_GROUPS = (  # substring of the device kernel's name -> group, first match wins
     ("mel_power_kernel", "mel_power kernel"),
-    ("w4_decode_kernel", "int4_matmul kernel"), ("w4_prefill_kernel", "int4_matmul kernel"),
+    ("w4_decode_kernel", "int4_matmul kernel"), ("w4_wgmma_kernel", "int4_matmul kernel"),
     ("mlp4_kernel", "mlp_int4 kernel"),
     ("megakernel", "decode_megakernel"),
     ("decode_quant_kernel<__nv_bfloat16, 3, true>", "decode_attention_q8 kernel"),
@@ -4768,6 +4806,27 @@ def sm90_report(row: str, hd: int) -> dict:
     return out
 
 
+def w4_sm90_report() -> dict:
+    """Every instance of the W4A16 prefill kernel (int4_matmul.cu: groups
+    16-256, whole K and K-split), as sm90_report reads a row's kernel; a
+    spill, local memory or a serialized wgmma fails the run."""
+    from audio_llama_tpu_torch.ops import int4_matmul as i4
+
+    out = {}
+    for kind, code in i4.SM90_KINDS.items():
+        for group in (16, 32, 64, 128, 256):
+            entry = (f"w4_wgmma_kernelINS_7PrefillILb{code - 5}ELi{max(1, 128 // group)}"
+                     f"ELb{int(group > 128)}E")
+            r = dict(ptxas=ptxas_report(entry), runtime=i4.sm90_kernel_info(kind, group))
+            px = r["ptxas"]
+            if (px["spill_store_bytes"] or px["spill_load_bytes"] or "wgmma_serialized" in px
+                    or r["runtime"]["local_bytes"]):
+                raise AssertionError(f"{kind} group {group}: spills, local memory or "
+                                     f"serialized wgmma: {r}")
+            out[f"{kind} group {group}"] = r
+    return out
+
+
 def causal_variant_checks(dev, gen):
     """Phase 18 (a): the forward variants' kernels (cond online, bounded
     under blocks and blocks_cond, twopass, dma, dma2) at T 2560 (2014 real
@@ -5055,11 +5114,12 @@ def causal_variant_path(dev, gen) -> dict:
 
 def ksplit_kernel_checks(dev, gen):
     """Phase 18 (c): the K-split W4A16 launch at block_k 768 and 1536, both
-    pack formats, at decode q|k|v (M 4, K 3072, N 5120) and prefill gate|up
-    (M 6104, N 16384) against the K-split plain version; planted faults (the
-    last K block dropped; every K block read with block 0's scales); K 8192
-    (the down projection) falls back to the whole-K launch bit for bit; timed
-    beside the whole-K launch and a bf16 matmul on the dequantized weight."""
+    pack formats, at decode q|k|v (M 4, K 3072, N 5120) and the prefill's
+    q|k|v, o (N 3072) and gate|up (N 16384) at M 6104 against the K-split
+    plain version; planted faults (the last K block dropped; every K block
+    read with block 0's scales); K 8192 (the down projection) falls back to
+    the whole-K launch bit for bit; timed beside the whole-K launch and a
+    bf16 matmul on the dequantized weight."""
     from audio_llama_tpu_torch.ops import int4_matmul as i4
 
     cfg = full_config()
@@ -5080,7 +5140,9 @@ def ksplit_kernel_checks(dev, gen):
         return torch.rand(shape, generator=gen, device=dev) * 0.02 + 0.002
 
     by_shape, faults, worst = [], {}, (0.0, 0.0)
-    for label, M, K, N in (("decode q|k|v", B, D, Nqkv), ("prefill gate|up", M_pre, D, 2 * Fd)):
+    Nq = lc.num_heads * lc.head_dim
+    for label, M, K, N in (("decode q|k|v", B, D, Nqkv), ("prefill q|k|v", M_pre, D, Nqkv),
+                           ("prefill o", M_pre, Nq, D), ("prefill gate|up", M_pre, D, 2 * Fd)):
         packed, scales = rand_bytes(L, K, N // 2), rand_scales(L, K // 128, N)
         x = torch.randn((M, K), generator=gen, device=dev).to(bf)
         for fmt in ("pair", "obin"):
@@ -5150,7 +5212,7 @@ def ksplit_kernel_checks(dev, gen):
         plain_ms=first["plain_ms"], library_ms=first["library_ms"], bound_ms=first["bound_ms"],
         bound_by=first["bound_by"], launches=None,
         shapes="the row's times are decode q|k|v (M 4) at block_k 768; by_shape has bk 1536, "
-               "prefill gate|up and the whole-K launch beside each",
+               "the prefill's q|k|v, o and gate|up and the whole-K launch beside each",
         notes="library_ms: x @ the dequantized bf16 weight (cuBLAS)", by_shape=by_shape)
     log(f"kernel {name} ok: planted faults rejected: {faults}")
     return [row]
@@ -5362,8 +5424,8 @@ def int4_2d_checks(dev, gen):
     """Phase 19 (b): the unstacked W4A16 `int4_matmul` at q_proj (K 3072, N
     3072) and down_proj (K 8192, N 3072), M 4 and 6104, both pack formats,
     against `int4_matmul_plain`; planted faults (the last scale group's rows
-    dropped; every group read with group 0's scales); timed at M 4 (q_proj)
-    beside the plain version and a bf16 matmul on the dequantized weight.
+    dropped; every group read with group 0's scales); timed at M 4, 1526 and
+    6104 beside the plain version and a bf16 matmul on the dequantized weight.
     Then its path: `models/llama.py::_linear` on a 2-D w_p tree and on a
     pack-after-shard [K, 1, N/2] one smoothed by w_r, at M 4 and 6104,
     against the plain version, counted."""
@@ -5375,6 +5437,7 @@ def int4_2d_checks(dev, gen):
     D, Fd, bf = lc.hidden_size, lc.intermediate_size, torch.bfloat16
     Nq = lc.num_heads * lc.head_dim
     M_pre = len(INT4_PROMPTS) * (cfg.audio_seq_len + 2 + max(INT4_PROMPTS))
+    M1 = cfg.audio_seq_len + 2 + PROMPT  # B = 1's prefix
     name = "int4_matmul"
     frac = ATOL_ROW_RMS_FRAC[name]
 
@@ -5407,17 +5470,20 @@ def int4_2d_checks(dev, gen):
                     del dropped, s0
                 del got, want
             del x
-        M = len(INT4_PROMPTS)
-        x = torch.randn((M, K), generator=gen, device=dev).to(bf)
         w_deq = i4.dequantize_ref(packed, scales).to(bf)
-        bms, bby = bound(2.0 * M * K * N, K * N / 2 + (K / 128) * N * 4 + 2.0 * M * (K + N))
-        by_shape.append(dict(
-            shape=label, M=M, K=K, N=N, bound_ms=bms, bound_by=bby,
-            ms=time_ms(lambda: i4.int4_matmul_cuda(x, packed, scales), iters=56),
-            plain_ms=events_ms(lambda: i4.int4_matmul_plain(x, packed, scales), iters=10),
-            library_ms=time_ms(lambda: x @ w_deq, iters=56)))
-        log(f"kernel {name} {label} ok: {json.dumps(by_shape[-1])}")
-        del x, w_deq
+        for M in (len(INT4_PROMPTS), M1, M_pre):
+            x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+            bms, bby = bound(2.0 * M * K * N, K * N / 2 + (K / 128) * N * 4 + 2.0 * M * (K + N))
+            iters = 56 if M <= 64 else 10
+            by_shape.append(dict(
+                shape=label, M=M, K=K, N=N, bound_ms=bms, bound_by=bby,
+                ms=time_ms(lambda: i4.int4_matmul_cuda(x, packed, scales), iters=iters),
+                plain_ms=events_ms(lambda: i4.int4_matmul_plain(x, packed, scales),
+                                   iters=10 if M <= 64 else 3),
+                library_ms=time_ms(lambda: x @ w_deq, iters=iters)))
+            log(f"kernel {name} {label} ok: {json.dumps(by_shape[-1])}")
+            del x
+        del w_deq
     # its path: _linear's w_p branch, plain and smoothed, decode and prefill rows
     zero_counters()
     linear_checks, n_calls = {}, 0
@@ -5473,7 +5539,8 @@ def int4_2d_checks(dev, gen):
         planted_fault_ratios=faults, linear_checks=linear_checks, ms=first["ms"],
         plain_ms=first["plain_ms"], library_ms=first["library_ms"],
         bound_ms=first["bound_ms"], bound_by=first["bound_by"], launches=None,
-        shapes="the row's times are q_proj at M 4; by_shape has down_proj",
+        shapes="the row's times are q_proj at M 4; by_shape has M 1526 and 6104 and "
+               "down_proj",
         notes="library_ms: x @ the dequantized bf16 weight (cuBLAS)", by_shape=by_shape)
     log(f"kernel {name} ok: planted faults rejected: {faults}")
     del weights

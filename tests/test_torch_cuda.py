@@ -21,7 +21,8 @@ import torch
 
 torch.set_num_threads(2)
 
-from chip_smoke import ATOL_ROW_RMS_FRAC, GRAD_RMS_DIMS, tol_ratio, variant_reference  # noqa: E402
+from chip_smoke import (ATOL_ROW_RMS_FRAC, GRAD_RMS_DIMS, prefill_faults, tol_ratio,  # noqa: E402
+                        variant_reference)
 from audio_llama_tpu_torch.ops import causal_attention as ca  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_attention_mono as dm  # noqa: E402
 from audio_llama_tpu_torch.ops import enc_attention as ea  # noqa: E402
@@ -238,7 +239,11 @@ def test_mel_power_kernel(dev, seconds, n_mels):
 @pytest.mark.parametrize("fmt", ["pair", "obin"])
 @pytest.mark.parametrize("M,K,Nh", [(1, 3072, 2560), (2, 512, 256), (4, 3072, 1536),
                                     (37, 512, 256), (64, 256, 128), (65, 256, 128),
-                                    (200, 512, 384), (6104, 3072, 128)])
+                                    (200, 512, 384), (6104, 3072, 128),
+                                    # the prefill kernel's 64-token tile edges
+                                    (65, 1024, 2560), (127, 512, 384), (128, 256, 128),
+                                    (129, 512, 2560), (255, 1024, 384), (1526, 3072, 2560),
+                                    (6104, 3072, 384)])
 def test_int4_matmul_kernel(dev, fmt, M, K, Nh):
     L = 3
     packed, scales = _bytes(dev, L, K, Nh), _scales(dev, L, K // 128, 2 * Nh, seed=1)
@@ -1354,7 +1359,10 @@ def test_bounded_variants_zero_the_plain_versions_rows_on_outlier_keys(dev):
 @pytest.mark.parametrize("M,K,Nh,bk", [(4, 3072, 2560, 768), (4, 3072, 2560, 1536),
                                        (1, 1024, 256, 256), (8, 1536, 128, 1536),
                                        (72, 512, 256, 256), (200, 3072, 384, 768),
-                                       (300, 3072, 128, 1536)])
+                                       (300, 3072, 128, 1536), (65, 1536, 384, 768),
+                                       (127, 3072, 128, 1536), (128, 1536, 2560, 768),
+                                       (129, 3072, 2560, 1536), (255, 1536, 384, 768),
+                                       (1526, 3072, 384, 768), (6104, 3072, 2560, 1536)])
 def test_int4_ksplit_kernel(dev, fmt, M, K, Nh, bk):
     """The K-split launch (both shapes) against the K-split plain version;
     a K block dropped, and block ki read with block 0's scales, fail the
@@ -1547,11 +1555,15 @@ def test_linear_w_p_branch_runs_the_2d_kernel(dev):
 @pytest.mark.parametrize("group", [32, 64, 128, 256])
 @pytest.mark.parametrize("fmt", ["pair", "obin"])
 @pytest.mark.parametrize("M,K,Nh,bk", [(4, 3072, 2560, 768), (1, 8192, 1536, 0),
-                                       (200, 3072, 384, 768), (70, 1024, 256, 512)])
+                                       (200, 3072, 384, 768), (70, 1024, 256, 512),
+                                       (127, 1536, 384, 768), (129, 1024, 128, 512),
+                                       (1526, 3072, 2560, 768), (6104, 1536, 128, 768),
+                                       # K blocks that end inside a 128-row tile
+                                       (200, 1024, 128, 64), (1526, 1536, 384, 192)])
 def test_int4_matmul_group_kernels(dev, group, fmt, M, K, Nh, bk):
-    """The stacked W4A16 (whole K and K-split) and the unstacked one at the
-    group against their plain versions; group g read with group g+1's scale
-    fails the same check."""
+    """The stacked W4A16 (whole K and K-split, one row and two planes) and
+    the unstacked one at the group against their plain versions; group g
+    read with group g+1's scale fails the same check."""
     L, N = 2, 2 * Nh
     packed, scales = _bytes(dev, L, K, Nh), _scales(dev, L, K // group, N, seed=1)
     x = _randn(dev, M, K, seed=2)
@@ -1561,8 +1573,11 @@ def test_int4_matmul_group_kernels(dev, group, fmt, M, K, Nh, bk):
         before = (i4.launches, i4.launches_ksplit)
         got = i4.int4_matmul_stacked(x, packed, scales, 1, group=group, fmt=fmt,
                                      block_k=block_k)
+        planes = i4.int4_matmul_stacked(x, packed, scales, 1, group=group, fmt=fmt,
+                                        block_k=block_k, return_planes=True)
         torch.cuda.synchronize()
-        assert (i4.launches + i4.launches_ksplit) == sum(before) + 1
+        assert (i4.launches + i4.launches_ksplit) == sum(before) + 2
+        assert torch.equal(torch.cat(planes, dim=-1), got)
         assert _ratio(got, want, "int4_matmul_stacked") <= 1
         rolled = torch.roll(scales, -1, dims=1).contiguous()
         assert _ratio(i4.int4_matmul_stacked(x, packed, rolled, 1, group=group, fmt=fmt,
@@ -1600,6 +1615,39 @@ def test_mlp_int4_group_kernel(dev, group, dnr, M, K, F, D):
         gs, ds = (t.contiguous() for t in rolled)
         assert _ratio(mlp4.mlp_int4_stacked(x, gup, gs, dn, ds, 1, group=group, chunk=chunk,
                                             dn_r=dn_r), want, "mlp_int4_stacked") > 1
+
+
+@pytest.mark.parametrize("M,group,bk", [(129, 256, 0), (1526, 128, 0), (6104, 32, 768),
+                                        (255, 64, 512)])
+def test_int4_prefill_rejects_planted_faults(dev, M, group, bk):
+    """The prefill kernel's output passes its bar, and each of its planted
+    faults (`chip_smoke.prefill_faults`: the nibble planes swapped in the
+    epilogue, the second token tile's rows shifted by one, K tile 1 computed
+    with tile 0's packed bytes as a stale ring stage would) fails it."""
+    K, Nh, L = 1536, 384, 2
+    packed, scales = _bytes(dev, L, K, Nh), _scales(dev, L, K // group, 2 * Nh, seed=1)
+    x = _randn(dev, M, K, seed=2)
+
+    def run(p=packed):
+        return i4.int4_matmul_stacked(x, p, scales, 1, group=group, block_k=bk)
+
+    want = i4.int4_matmul_stacked_plain(x, packed, scales, 1, group=group, block_k=bk)
+    got = run()
+    assert _ratio(got, want, "int4_matmul_stacked") <= 1
+    faults = prefill_faults(got, want, ATOL_ROW_RMS_FRAC["int4_matmul_stacked"], run, packed, 1)
+    assert len(faults) == 3 and min(faults.values()) > 1, faults
+
+
+@pytest.mark.parametrize("name", list(i4.SM90_KINDS))
+@pytest.mark.parametrize("group", [16, 32, 64, 128, 256])
+def test_int4_prefill_kernel_info(dev, name, group):
+    """Every instance of the prefill kernel fits one block of 384 threads an
+    SM at its launch register count (the consumers' 232 after setmaxnreg and
+    the producer's 40 fill the same 65,536), with no local memory."""
+    info = i4.sm90_kernel_info(name, group)
+    assert info["registers"] * 384 <= 65536 and info["registers"] <= 232, info
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] == 1, info
+    assert info["smem_bytes"] <= 232448, info
 
 
 def test_int4_kernels_refuse_group_48(dev):
