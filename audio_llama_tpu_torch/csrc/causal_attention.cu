@@ -27,10 +27,10 @@
 // 2, T 2560: 0.0815 ms). 'never': 4 * hd * Hq * B * T^2 (25.8 GFLOP at the
 // sp = 2 hop of training, B 2, T 1024: 0.0261 ms).
 //
-// The first version (attention_fwd.cuh: 64 x 64 tiles of four warps, WMMA
-// from shared memory, S stored as f32 and read back, O loaded and stored
-// for every key tile, K and V copied synchronously between barriers) ran at
-// 29-38 TFLOP/s. This design is dma2's (causal_attention_dma2.cu) with the
+// The first version (a WMMA tile loop, since removed: 64 x 64 tiles of four
+// warps, WMMA from shared memory, S stored as f32 and read back, O loaded
+// and stored for every key tile, K and V copied synchronously between
+// barriers) ran at 29-38 TFLOP/s. This design is dma2's (causal_attention_dma2.cu) with the
 // online softmax:
 //   - a block owns 128 queries of one (b, q head): two consumer warpgroups
 //     of 64 rows and a producer warpgroup whose first thread issues TMA;

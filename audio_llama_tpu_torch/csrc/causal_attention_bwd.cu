@@ -24,7 +24,7 @@
 // 7.7e10 and 1.0e11 FLOP at the training shape, 0.078 and 0.104 ms at 989
 // TFLOP/s; the bytes (about 92 and 88 MB) take 0.03 ms.
 //
-// Design: WMMA tensor-core tiles (16x16x16 bf16 -> f32), as attention_fwd.cuh.
+// Design: WMMA tensor-core tiles (16x16x16 bf16 -> f32).
 // dq: one block per (b, q head, 64-row q tile); each of four warps owns 16
 // rows and keeps their dq in accumulator fragments while the key tiles at or
 // below the diagonal stream through shared memory. dkv: one block per (b, kv
@@ -45,6 +45,8 @@
 // share of the whole row's softmax. Bound: all of the products, 2 hd T^2 FLOP
 // per product and head (dq 3.9e10 and dk/dv 5.2e10 FLOP at the sp = 2 hop of
 // training, B 2, T 1024: 0.039 and 0.052 ms).
+#include <mma.h>
+
 #include "attention_fwd.cuh"
 
 namespace al {

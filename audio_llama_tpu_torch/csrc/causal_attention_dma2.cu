@@ -16,8 +16,8 @@
 // Bound on the H100: operations, 4 * hd * Hq * B * T (T + 1) / 2 FLOP (QK^T
 // and PV over the causal half): 0.0815 ms at B 2, T 2560 at 989 TFLOP/s bf16.
 //
-// The first version (the PIPELINED half of the WMMA dma kernel) ran the WMMA
-// tile loop of attention_fwd.cuh behind three cp.async stages: S and O went
+// The first version (the PIPELINED half of the WMMA dma kernel) ran the
+// WMMA tile loop behind three cp.async stages: S and O went
 // through shared memory, and at 195 KB of it one block of 4 warps an SM fed
 // the tensor cores. This design keeps what dma2 is and moves it onto
 // Hopper's units:

@@ -35,7 +35,7 @@
 // and PV over the causal half; twopass's repeated QK^T is not part of the
 // function's work): 0.0815 ms at B 2, T 2560 at 989 TFLOP/s bf16.
 //
-// What held the first versions back (attention_fwd.cuh's bounded and
+// What held the first versions back (the WMMA tile loop's bounded and
 // two-pass modes, and the dma kernel's two cp.async stages: 64 x 64 tiles of
 // 4 warps, WMMA from shared memory, S stored as f32 and read back, O loaded
 // and stored for every key tile; 26-27x the bound) and what this design does
@@ -274,7 +274,8 @@ AL_EXPORT int al_causal_attention_dma(const void* q, const void* k, const void* 
 // hd; kind 0: twopass, 1: dma2, 2: online causal ('always', 'cond'), 3:
 // online 'never', 4: bounded (blocks, blocks_cond and dma); 5 and 6: the
 // W4A16 prefill (int4_matmul.cu), whole K and K-split, with hd the scale
-// group.
+// group; 7-10: the encoder's forward (enc_attention.cu), online, bounded,
+// twopass and twopass with the bf16 exp argument.
 AL_EXPORT int al_sm90_kernel_info(int kind, int hd, int* out) {
   switch (kind) {
     case 0: return al::fixed_fwd_sm90_info(hd, false, out);
@@ -284,6 +285,10 @@ AL_EXPORT int al_sm90_kernel_info(int kind, int hd, int* out) {
     case 4: return al::fixed_fwd_sm90_info(hd, true, out);
     case 5: return al::w4_prefill_sm90_info(hd, false, out);
     case 6: return al::w4_prefill_sm90_info(hd, true, out);
+    case 7: return al::enc_fwd_sm90_info(hd, al::kSoftmaxOnline, false, out);
+    case 8: return al::enc_fwd_sm90_info(hd, al::kSoftmaxBounded, false, out);
+    case 9: return al::enc_fwd_sm90_info(hd, al::kSoftmaxTwoPass, false, out);
+    case 10: return al::enc_fwd_sm90_info(hd, al::kSoftmaxTwoPass, true, out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -8,10 +8,13 @@
 // audio_llama_tpu/ops/causal_attention.py::_fwd_kernel :101, online, tri
 // 'always' / 'cond' / 'never'), causal_attention_fixed.cu (its bounded mode,
 // with ::_fwd_kernel_dma :250, and ::_fwd_kernel_twopass :188) and
-// causal_attention_dma2.cu (::_fwd_kernel_dma2 :321). They are bound by
-// operations, 4 * hd * Hq * B * T (T + 1) / 2 FLOP causal at 989 TFLOP/s
-// bf16 (0.0815 ms at B 2, T 2560, Hq 24, hd 128), so what matters here is
-// keeping the tensor cores fed from shared memory and registers:
+// causal_attention_dma2.cu (::_fwd_kernel_dma2 :321), and the encoder's
+// non-causal forward in its three softmax modes, enc_attention.cu
+// (audio_llama_tpu/ops/enc_attention.py::_kernel_v3 :102, ::_kernel_v2 :54,
+// ::_kernel :232). They are bound by operations, 4 * hd * Hq * B * T (T +
+// 1) / 2 FLOP causal at 989 TFLOP/s bf16 (0.0815 ms at B 2, T 2560, Hq 24,
+// hd 128), so what matters here is keeping the tensor cores fed from shared
+// memory and registers:
 //   - mbarriers (init, arrive with expected transaction bytes, try-wait on a
 //     phase parity) for a ring of tiles between one producer thread and the
 //     consumer warpgroups;
@@ -23,9 +26,9 @@
 //     registers (RS), with fence / commit_group / wait_group;
 //   - setmaxnreg, so a producer warpgroup hands its registers to the
 //     consumers' accumulators.
-// The first versions (attention_fwd.cuh) ran WMMA 16x16x16 from shared
-// memory and stored S and O there between products; here both accumulators
-// stay in registers and P feeds P V from registers.
+// The first versions (a WMMA tile loop, since removed) ran WMMA 16x16x16
+// from shared memory and stored S and O there between products; here both
+// accumulators stay in registers and P feeds P V from registers.
 //
 // Tiles of attention rows. A [ROWS, hd] bf16 tile of q, k or v lands as TMA
 // leaves it: column blocks of CB = min(hd, 64) values, each ROWS rows of
@@ -42,9 +45,10 @@
 //
 // The attention forward block (AttnPlace, AttnRing, launch_attn): 128
 // queries of one (b, q head), two consumer warpgroups and a producer, a ring
-// of K / V / key-bias stages behind full and empty mbarriers, the tensor maps
-// built on the host and the launch. A kernel on it supplies its ring depth,
-// its tile width and its loop.
+// of K / V / key-bias stages behind full and empty mbarriers (the encoder's
+// kernel loads no bias and writes no row statistics), the tensor maps built
+// on the host and the launch. A kernel on it supplies its ring depth, its
+// tile width and its loop.
 #pragma once
 
 #include <cuda.h>
@@ -412,7 +416,8 @@ __device__ __forceinline__ float row_norm(const __nv_bfloat16* qrow, bool valid)
 
 // The epilogue of an attention warpgroup: row `row` (rr 0 / 1: the thread's
 // first or second) of o = l > 0 ? O / l : 0 in bf16, and its l and shift c
-// from the quad's first thread; rows at or past T are not written.
+// from the quad's first thread unless l_out is null; rows at or past T are
+// not written.
 template <int HD>
 __device__ __forceinline__ void store_row(const float (&o)[HD / 2], int rr, int row, float l,
                                           float c, __nv_bfloat16* orow, float* l_out,
@@ -424,7 +429,7 @@ __device__ __forceinline__ void store_row(const float (&o)[HD / 2], int rr, int 
   for (int j = 0; j < HD / 8; ++j)
     *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + cq) =
         __floats2bfloat162_rn(o[4 * j + 2 * rr] * inv, o[4 * j + 2 * rr + 1] * inv);
-  if ((lane & 3) == 0) {
+  if (l_out && (lane & 3) == 0) {
     l_out[row] = l;
     m_out[row] = c;
   }
@@ -433,7 +438,8 @@ __device__ __forceinline__ void store_row(const float (&o)[HD / 2], int rr, int 
 // --- an attention forward block -----------------------------------------------------
 
 // The port's wgmma / TMA attention forwards (causal_attention.cu,
-// causal_attention_fixed.cu, causal_attention_dma2.cu) share one block: 128 queries of one (b, q head),
+// causal_attention_fixed.cu, causal_attention_dma2.cu, enc_attention.cu)
+// share one block: 128 queries of one (b, q head),
 // consumer warpgroups 0 and 1 of 64 rows each, and producer warpgroup 2
 // whose first thread issues TMA.
 constexpr int kAttnBQ = 128;
@@ -511,17 +517,18 @@ struct AttnRing {
       tma_load_4d(smem + cb * QT::CB_BYTES, tq, q_full, cb * QT::CB, h, q0, b);
   }
   // Producer: ring step `it` <- key tile j of (b, KV head kvh): its K rows,
-  // its V rows unless tv is null, and its keys' bias (a [B, T] row-major f32).
+  // its V rows unless tv is null, and its keys' bias (a [B, T] row-major f32)
+  // unless tb is null.
   __device__ void load(int it, const CUtensorMap* tk, const CUtensorMap* tv,
                        const CUtensorMap* tb, int kvh, int j, int b, int T) const {
     const int s = it % STAGES;
     mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-    mbar_arrive_tx(&full[s], KT::BYTES * (tv ? 2 : 1) + BK * 4);
+    mbar_arrive_tx(&full[s], KT::BYTES * (tv ? 2 : 1) + (tb ? BK * 4 : 0));
     for (int cb = 0; cb < KT::NCB; ++cb) {
       tma_load_4d(k(s) + cb * KT::CB_BYTES, tk, &full[s], cb * KT::CB, kvh, j * BK, b);
       if (tv) tma_load_4d(v(s) + cb * KT::CB_BYTES, tv, &full[s], cb * KT::CB, kvh, j * BK, b);
     }
-    tma_load_1d(bias(s), tb, &full[s], b * T + j * BK);
+    if (tb) tma_load_1d(bias(s), tb, &full[s], b * T + j * BK);
   }
   // Consumer: wait for ring step it's tiles; its stage.
   __device__ int acquire(int it) const {
@@ -546,8 +553,9 @@ __device__ __forceinline__ float2 logits(const float (&s)[BK / 2], int i, int j,
                      (mask && key + 1 > row) ? kNeg : s[i + 1] + bb.y);
 }
 
-// The epilogue: the quads' l, then both rows of o = l > 0 ? O / l : 0, l and
-// the shift c.
+// The epilogue: the quads' l, then both rows of o = l > 0 ? O / l : 0, and
+// l and the shift c where p.l_out is set (the causal forwards; the encoder
+// writes o only).
 template <int HD>
 __device__ __forceinline__ void store_rows(const float (&o)[HD / 2], float l0, float l1,
                                            float c0, float c1, const AttnParams& p,
@@ -555,8 +563,8 @@ __device__ __forceinline__ void store_rows(const float (&o)[HD / 2], float l0, f
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   __nv_bfloat16* ob = p.o + at.b * p.o_sb + at.h * p.o_sh;
-  float* lb = p.l_out + (long long)at.bh * p.T;
-  float* mb = p.m_out + (long long)at.bh * p.T;
+  float* lb = p.l_out ? p.l_out + (long long)at.bh * p.T : nullptr;
+  float* mb = p.m_out ? p.m_out + (long long)at.bh * p.T : nullptr;
   store_row<HD>(o, 0, at.row0, l0, c0, ob + (long long)at.row0 * p.o_st, lb, mb, p.T);
   store_row<HD>(o, 1, at.row1, l1, c1, ob + (long long)at.row1 * p.o_st, lb, mb, p.T);
 }
@@ -639,17 +647,18 @@ inline bool f32_map_1d(CUtensorMap* map, const float* base, long long n, int box
 }
 
 // The four maps of an attention forward (q in boxes of kAttnBQ rows, k and v
-// of BK rows, the key bias of BK values) and a launch of `kernel` on
+// of BK rows, the key bias of BK values; no bias map, and tb all zeros, when
+// p.key_bias is null: the encoder) and a launch of `kernel` on
 // ceil(T / kAttnBQ) * B * Hq blocks of kAttnThreads with `smem` bytes.
 template <int HD, int BK, typename K>
 cudaError_t launch_attn(K kernel, size_t smem, const AttnParams& p, int B,
                         cudaStream_t stream) {
   if (reinterpret_cast<uintptr_t>(p.key_bias) % 16) return cudaErrorInvalidValue;  // TMA
-  CUtensorMap tq, tk, tv, tb;
+  CUtensorMap tq, tk, tv, tb{};
   if (!rows_map(&tq, p.q, HD, p.Hq, p.T, B, p.q_sh, p.q_st, p.q_sb, kAttnBQ) ||
       !rows_map(&tk, p.k, HD, p.Hkv, p.T, B, p.k_sh, p.k_st, p.k_sb, BK) ||
       !rows_map(&tv, p.v, HD, p.Hkv, p.T, B, p.v_sh, p.v_st, p.v_sb, BK) ||
-      !f32_map_1d(&tb, p.key_bias, (long long)B * p.T, BK))
+      (p.key_bias && !f32_map_1d(&tb, p.key_bias, (long long)B * p.T, BK)))
     return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -693,14 +702,17 @@ inline cudaError_t kernel_info(K kernel, int threads, size_t smem, int* out) {
 }  // namespace sm90
 
 // The kernels on these blocks at head_dim hd (defined by causal_attention.cu,
-// causal_attention_fixed.cu and causal_attention_dma2.cu): their launches
-// and their kernel_info (exported by al_sm90_kernel_info).
+// causal_attention_fixed.cu, causal_attention_dma2.cu and enc_attention.cu):
+// their launches and their kernel_info (exported by al_sm90_kernel_info).
 cudaError_t online_fwd_sm90_info(int hd, bool causal, int* out);
 cudaError_t fixed_fwd_sm90(const AttnParams& p, int B, int hd, bool bounded,
                            cudaStream_t stream);
 cudaError_t fixed_fwd_sm90_info(int hd, bool bounded, int* out);
 cudaError_t dma2_fwd_sm90(const AttnParams& p, int B, int hd, cudaStream_t stream);
 cudaError_t dma2_fwd_sm90_info(int hd, int* out);
+// The encoder's forward in softmax mode `mode` (kSoftmaxOnline, Bounded or
+// TwoPass; exp_bf16: twopass's bf16 exp argument).
+cudaError_t enc_fwd_sm90_info(int hd, int mode, bool exp_bf16, int* out);
 // The W4A16 prefill kernel (int4_matmul.cu) at a scale group, whole K or
 // K-split.
 cudaError_t w4_prefill_sm90_info(int group, bool ksplit, int* out);

@@ -27,9 +27,8 @@ BUILD_DIR = CSRC / "build"
 SOURCES = ("layer_norm.cu", "enc_attention.cu", "causal_attention.cu", "decode_attention.cu",
            "mel_power.cu", "int4_matmul.cu", "mlp_int4.cu", "decode_attention_q4.cu",
            "decode_megakernel.cu", "causal_attention_bwd.cu", "decode_attention_db.cu",
-           "decode_attention_packed.cu", "enc_attention_v3q.cu", "enc_attention_bounded.cu",
-           "enc_attention_twopass.cu", "causal_attention_fixed.cu", "decode_attention_single.cu",
-           "causal_attention_dma2.cu")
+           "decode_attention_packed.cu", "enc_attention_v3q.cu", "causal_attention_fixed.cu",
+           "decode_attention_single.cu", "causal_attention_dma2.cu")
 HEADERS = ("common.cuh", "attention_fwd.cuh", "int4_common.cuh", "decode_rows.cuh", "sm90.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]

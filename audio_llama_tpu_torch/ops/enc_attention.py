@@ -3,16 +3,18 @@ length, in the four algorithms of `enc_attention(algo=...)`.
 
 Counterpart of `audio_llama_tpu/ops/enc_attention.py`. Each TPU kernel has a
 hand-written CUDA kernel and a plain PyTorch version that repeats its
-arithmetic:
+arithmetic. The three bf16 algorithms are three softmax modes of one Hopper
+kernel on wgmma and TMA (`enc_kernel` in csrc/enc_attention.cu, on the
+attention block of csrc/sm90.cuh):
 
-  algo='v3', softmax='safe'    `_kernel_v3`   -> csrc/enc_attention.cu
-      (the tile loop of csrc/attention_fwd.cuh, running true max);
+  algo='v3', softmax='safe'    `_kernel_v3`   -> the online mode (running
+      true max);
   algo='bounded', or 'v3' with softmax='bounded'
                                `_kernel_v2` (and `_kernel_v3`'s bounded
-      mode, the same function in another layout) -> csrc/enc_attention_bounded.cu
-      (attention_fwd.cuh's fixed Cauchy-Schwarz shift);
-  algo='twopass'               `_kernel`      -> csrc/enc_attention_twopass.cu
-      (attention_fwd.cuh's two passes: the true row max, then exp and PV);
+      mode, the same function in another layout) -> the bounded mode (the
+      fixed Cauchy-Schwarz shift);
+  algo='twopass'               `_kernel`      -> the twopass mode (the true
+      row max from a pass over K, then exp and PV);
   algo='v3q'                   `_kernel_v3q`  -> csrc/enc_attention_v3q.cu
       (int8 QK and int8 PV on the tensor cores, `mma.sync` s8).
 
@@ -41,6 +43,28 @@ launches = 0  # v3 (softmax='safe') kernel launches through `enc_attention`
 launches_v3q = 0
 launches_bounded = 0
 launches_twopass = 0
+# the wgmma kernel's modes -> their kind in `al_sm90_kernel_info`
+SM90_KINDS = {"enc_attention": 7, "enc_attention_bounded": 8, "enc_attention_twopass": 9,
+              "enc_attention_twopass_bf16": 10}
+
+
+def key_tile(hd: int) -> int:
+    """Keys a tile of the wgmma kernel at head_dim hd (csrc/enc_attention.cu
+    `kBK`): 128, or 64 at hd 128. The keys past valid_len are masked on the
+    last tile that holds a valid key; later tiles are not loaded."""
+    return 64 if hd == 128 else 128
+
+
+def sm90_kernel_info(name: str, hd: int = 64) -> dict:
+    """Registers per thread, local (spilled) bytes, dynamic shared memory and
+    resident blocks per SM of the wgmma kernel's mode `name` (one of
+    SM90_KINDS) at head_dim hd, from the CUDA runtime."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    fn = _cuda.library().al_sm90_kernel_info
+    _cuda.check(fn(SM90_KINDS[name], hd, ctypes.cast(out, ctypes.c_void_p)), f"{name} info")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2], blocks_per_sm=out[3])
 
 
 def _scores(qs: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -186,8 +210,10 @@ def _strides(*ts):
 def enc_attention_cuda(
     qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len: int
 ) -> torch.Tensor:
-    """Launch the v3 kernel. qs/k/v may be strided views ([B, T, H, hd] over a
-    [B, T, H*hd] projection output); the last dim must be contiguous."""
+    """Launch the kernel's online mode (v3). qs/k/v may be strided views ([B,
+    T, H, hd] over a [B, T, H*hd] projection output, or a head-major [B, H,
+    T, hd] tensor transposed); the last dim must be contiguous and the other
+    strides and the bases 16-byte multiples (TMA)."""
     global launches
     name = "enc_attention"
     _check_kernel_args(name, qs, k, v, valid_len)
@@ -205,8 +231,8 @@ def enc_attention_cuda(
 def enc_attention_bounded_cuda(
     qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kn: torch.Tensor, valid_len: int
 ) -> torch.Tensor:
-    """Launch the bounded kernel (layouts as `enc_attention_cuda`; kn [B, H]
-    f32)."""
+    """Launch the kernel's bounded mode (layouts as `enc_attention_cuda`; kn
+    [B, H] f32)."""
     global launches_bounded
     name = "enc_attention_bounded"
     _check_kernel_args(name, qs, k, v, valid_len)
@@ -228,8 +254,8 @@ def enc_attention_twopass_cuda(
     qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len: int,
     exp_dtype=torch.float32,
 ) -> torch.Tensor:
-    """Launch the two-pass kernel (layouts as `enc_attention_cuda`); at least
-    one valid key."""
+    """Launch the kernel's twopass mode (layouts as `enc_attention_cuda`); at
+    least one valid key."""
     global launches_twopass
     name = "enc_attention_twopass"
     _check_kernel_args(name, qs, k, v, valid_len, min_valid=1)

@@ -504,7 +504,8 @@ def kernel_checks(dev, gen):
     log(f"kernel layer_norm ok: max_abs_err={err:.3e} tol_ratio={ratio:.3f}")
 
     # 2. encoder attention: [1, 1536, 20, 64] bf16 views of [1, 1536, 1280],
-    #    1500 valid keys, q pre-scaled
+    #    1500 valid keys, q pre-scaled; timed at B 1, 4 (the int4 B = 4
+    #    request's encoder batch) and 8 (bench.py's encode batch)
     B, T, H, hd, valid = 1, 1536, 20, 64, 1500
     qkv = [randn(B, T, H * hd).view(B, T, H, hd) for _ in range(3)]
     qs = qkv[0] * torch.tensor(hd ** -0.5, dtype=bf, device=dev)
@@ -519,21 +520,9 @@ def kernel_checks(dev, gen):
             ea.enc_attention_cuda(qs, k, v, valid + d)[:, :valid], want, frac)
         for d in (1, -1)
     }
-    flops = 4.0 * B * H * T * valid * hd
-    nbytes = 2.0 * 4 * B * T * H * hd
-    bms, bby = bound(flops, nbytes)
-    key_ok = torch.zeros(T, T, dtype=torch.bool, device=dev)
-    key_ok[:, :valid] = True
-    qh, kh, vh = (t.transpose(1, 2) for t in (qs, k, v))
-    kv_valid = [t[:, :, :valid].contiguous() for t in (kh, vh)]
-
-    def sdpa():  # no mask on the valid keys
-        return F.scaled_dot_product_attention(qh, *kv_valid, scale=1.0)
-
-    def sdpa_masked():  # the earlier yardstick: a boolean mask keeps SDPA off flash
-        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_ok, scale=1.0)
-
-    rows.append(dict(
+    bms, bby = bound(*enc_work("enc_attention", B, T, H, hd, valid))
+    sdpa, sdpa_masked = enc_sdpa(qs, k, v, valid)
+    row = dict(
         name="enc_attention", route="cuda", source="audio_llama_tpu_torch/csrc/enc_attention.cu",
         replaces="audio_llama_tpu/ops/enc_attention.py:102", max_abs_err=err,
         tol=tol_entry(frac), tol_ratio=ratio, planted_fault_ratios=faults,
@@ -541,10 +530,21 @@ def kernel_checks(dev, gen):
         plain_ms=events_ms(lambda: ea.enc_attention_plain(qs, k, v, valid)),
         library_ms=time_ms(sdpa), library_backend=sdpa_backend(sdpa),
         library_ms_masked=time_ms(sdpa_masked), library_masked_backend=sdpa_backend(sdpa_masked),
-        launches=None, bound_ms=bms, bound_by=bby, shapes=f"q/k/v[{B},{T},{H},{hd}] bf16, valid {valid}",
+        launches=None, bound_ms=bms, bound_by=bby, sm90=enc_sm90_report("enc_attention"),
+        shapes=f"q/k/v[B,{T},{H},{hd}] bf16 views of [B,{T},{H * hd}], valid {valid}, B 1 "
+               "(ms) and 4, 8 (ms_b4, ms_b8)",
         notes="library_ms: SDPA with no mask on K/V cut to the valid keys; library_ms_masked: "
               "SDPA on all keys with a boolean key mask",
-    ))
+    )
+    gen_b = torch.Generator(device=dev).manual_seed(2)  # leaves gen's later draws as they were
+    for Bb in (4, 8):
+        case = enc_case(dev, gen_b, Bb)
+        sdpa_b, _ = enc_sdpa(case["qs"], case["k"], case["v"], valid)
+        bms_b, _ = bound(*enc_work("enc_attention", Bb, T, H, hd, valid))
+        row.update({f"ms_b{Bb}": time_ms(lambda: enc_call("enc_attention", case)),
+                    f"library_ms_b{Bb}": time_ms(sdpa_b), f"bound_ms_b{Bb}": bms_b})
+        del case, sdpa_b
+    rows.append(row)
     log(f"kernel enc_attention ok: max_abs_err={err:.3e} tol_ratio={ratio:.3f} "
         f"planted faults rejected: {faults}")
 
@@ -2282,7 +2282,7 @@ KERNEL_GROUPS = (  # substring of the device kernel's name -> group, first match
     ("megakernel", "decode_megakernel"),
     ("decode_quant_kernel<__nv_bfloat16, 3, true>", "decode_attention_q8 kernel"),
     ("decode_quant_kernel", "decode_attention_q4 kernel"),
-    ("attn_fwd_kernel<64", "enc_attention kernel"),
+    ("enc_kernel<", "enc_attention kernel"),
     ("online_kernel", "causal_attention kernel"), ("fixed_kernel", "causal_attention kernel"),
     ("dma2_kernel", "causal_attention kernel"),
     ("dq_kernel", "causal_attention_dq kernel"), ("dkv_kernel", "causal_attention_dkv kernel"),
@@ -4328,10 +4328,15 @@ ENC_ROWS = {  # kernel row -> (TPU kernel it replaces, source)
     "enc_attention_v3q": ("audio_llama_tpu/ops/enc_attention.py:170",
                           "audio_llama_tpu_torch/csrc/enc_attention_v3q.cu"),
     "enc_attention_bounded": ("audio_llama_tpu/ops/enc_attention.py:54",
-                              "audio_llama_tpu_torch/csrc/enc_attention_bounded.cu"),
+                              "audio_llama_tpu_torch/csrc/enc_attention.cu"),
     "enc_attention_twopass": ("audio_llama_tpu/ops/enc_attention.py:232",
-                              "audio_llama_tpu_torch/csrc/enc_attention_twopass.cu"),
+                              "audio_llama_tpu_torch/csrc/enc_attention.cu"),
 }
+# the wgmma / TMA encoder kernel's modes (ea.SM90_KINDS) -> their ptxas entry at hd 64
+ENC_SM90 = {"enc_attention": "enc_kernelILi64ELi0ELb0E",
+            "enc_attention_bounded": "enc_kernelILi64ELi1ELb0E",
+            "enc_attention_twopass": "enc_kernelILi64ELi2ELb0E",
+            "enc_attention_twopass_bf16": "enc_kernelILi64ELi2ELb1E"}
 ENC_ALGOS = ("v3", "v3q", "twopass", "bounded")
 ENC_KERNEL = {"v3": "enc_attention", "v3q": "enc_attention_v3q",
               "twopass": "enc_attention_twopass", "bounded": "enc_attention_bounded"}
@@ -4357,9 +4362,9 @@ def enc_case(dev, gen, B, T=1536, valid=1500, H=20, hd=64, mag=1.0):
 
 def enc_call(name, case, cuda=True, valid=None, layout="v3", exp_dtype=torch.float32,
              kn=None, sv=None):
-    """One call of an encoder variant kernel (or its plain version) on the
-    case -> [B, T, H, hd]; `valid`, `kn`, `sv`: what to pass in place of the
-    case's (a fault plants others)."""
+    """One call of an encoder kernel (v3: enc_attention; or a variant's) or
+    its plain version on the case -> [B, T, H, hd]; `valid`, `kn`, `sv`: what
+    to pass in place of the case's (a fault plants others)."""
     from audio_llama_tpu_torch.ops import enc_attention as ea
 
     valid = case["valid"] if valid is None else valid
@@ -4368,11 +4373,75 @@ def enc_call(name, case, cuda=True, valid=None, layout="v3", exp_dtype=torch.flo
         fn = ea.enc_attention_v3q_cuda if cuda else ea.enc_attention_v3q_plain
         return fn(qi, ki, vti, c, sv0 if sv is None else sv, valid, torch.bfloat16)
     qs, k, v = case["heads"] if layout == "head-major" else (case["qs"], case["k"], case["v"])
+    if name == "enc_attention":
+        return (ea.enc_attention_cuda if cuda else ea.enc_attention_plain)(qs, k, v, valid)
     if name == "enc_attention_bounded":
         fn = ea.enc_attention_bounded_cuda if cuda else ea.enc_attention_bounded_plain
         return fn(qs, k, v, case["kn"] if kn is None else kn, valid)
     fn = ea.enc_attention_twopass_cuda if cuda else ea.enc_attention_twopass_plain
     return fn(qs, k, v, valid, exp_dtype)
+
+
+def enc_work(name, B, T, H, hd, valid):
+    """(FLOP, bytes) an encoder attention call must do: QK^T and PV over the
+    valid keys; q, k, v read once and o written once (v3q: its int8 tensors
+    and f32 scales)."""
+    flops = 4.0 * B * T * valid * hd * H
+    if name == "enc_attention_v3q":
+        return flops, (3.0 * B * T * H * hd + 4.0 * B * T * H + 4.0 * B * H * hd
+                       + 2.0 * B * T * H * hd)
+    return flops, 2.0 * 4 * B * T * H * hd
+
+
+def enc_sdpa(qs, k, v, valid):
+    """The encoder rows' library calls on [B, T, H, hd] inputs -> (SDPA with
+    no mask on K/V cut to the valid keys; the earlier yardstick, SDPA on all
+    keys with a boolean key mask, which keeps it off its flash backend), each
+    a function of no arguments."""
+    import torch.nn.functional as F
+
+    qh, kh, vh = (t.transpose(1, 2) for t in (qs, k, v))
+    kv_valid = [t[:, :, :valid].contiguous() for t in (kh, vh)]
+    key_ok = (torch.arange(kh.shape[2], device=kh.device) < valid)[None, :]
+    return (lambda: F.scaled_dot_product_attention(qh, *kv_valid, scale=1.0),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_ok, scale=1.0))
+
+
+def enc_reference(case, name, fault):
+    """The function an encoder kernel with a planted fault computes on the
+    case, in f32 by the plain version's rules (`name`: enc_attention, _bounded
+    or _twopass), with the kernel's key tiles (`ea.key_tile`):
+      'stale K' / 'stale V': key tile j >= 1 meets tile j-1's K (its V), as a
+          ring stage read before its refill;
+      'mask off': the last valid tile's keys past valid_len are not masked;
+      'max one tile short': twopass's pass 1 leaves the last valid tile out
+          of the row max.
+    -> [B, T, H, hd] bf16."""
+    from audio_llama_tpu_torch.ops import enc_attention as ea
+
+    qs, k, v, valid = case["qs"], case["k"], case["v"], case["valid"]
+    T, hd = k.shape[1], k.shape[3]
+    bk = ea.key_tile(hd)
+    n = -(-valid // bk)
+    key = torch.arange(T, device=k.device)
+    late = (key >= bk)[None, :, None, None]
+    if fault == "stale K":
+        k = torch.where(late, torch.roll(k, bk, dims=1), k)
+    elif fault == "stale V":
+        v = torch.where(late, torch.roll(v, bk, dims=1), v)
+    seen = key < (min(n * bk, T) if fault == "mask off" else valid)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float()).masked_fill(~seen, ea.NEG)
+    if name == "enc_attention_bounded":
+        c = qs.float().square().sum(dim=-1).sqrt().permute(0, 2, 1)[..., None] * \
+            case["kn"][:, :, None, None]
+        p = torch.exp(s - c).masked_fill(~seen, 0.0)
+    else:
+        in_max = key < (n - 1) * bk if fault == "max one tile short" else seen
+        m = s.masked_fill(~in_max, ea.NEG).amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+    p = p.to(v.dtype).float()
+    return ea._guarded(torch.einsum("bhqk,bkhd->bhqd", p, v.float()),
+                       p.sum(dim=-1, keepdim=True), qs.dtype)
 
 
 def enc_faults(name, case):
@@ -4436,30 +4505,34 @@ def enc_kernel_checks(dev, gen):
                 worst = max(worst, (ratio, err))
                 log(f"kernel {name} {label} ok: max_abs_err={err:.3e} tol_ratio={ratio:.3f} "
                     f"planted faults rejected: {faults}")
-            flops = 4.0 * B * T * valid * hd * H
+            suffix = "" if B == 1 else f"_b{B}"
             if name == "enc_attention_v3q":
-                nbytes = 3.0 * B * T * H * hd + 4.0 * B * T * H + 4.0 * B * H * hd + 2.0 * B * T * H * hd
-                bms, bby = bound(flops, nbytes, H100_INT8_OPS)
+                bms, bby = bound(*enc_work(name, B, T, H, hd, valid), H100_INT8_OPS)
                 qi, ki, vti, c, sv = case["v3q"]
                 lib = [t.to(torch.bfloat16).contiguous() for t in (  # dequantized [B, H, T, hd]
                     qi.transpose(1, 2) * (c / case["scale"]).transpose(1, 2)[..., None],
                     ki.transpose(1, 2).float(), vti.transpose(2, 3) * sv[:, :, None, :])]
-                lib_scale = case["scale"]
+                library = {"library_ms" + suffix: time_ms(lambda: F.scaled_dot_product_attention(
+                    *lib, attn_mask=key_ok, scale=case["scale"]))}
             else:
-                nbytes = 2.0 * 4 * B * T * H * hd
-                bms, bby = bound(flops, nbytes)
-                lib = [t.transpose(1, 2) for t in (case["qs"], case["k"], case["v"])]
-                lib_scale = 1.0
-            suffix = "" if B == 1 else f"_b{B}"
+                bms, bby = bound(*enc_work(name, B, T, H, hd, valid))
+                lib, lib_masked = enc_sdpa(case["qs"], case["k"], case["v"], valid)
+                library = {"library_ms" + suffix: time_ms(lib),
+                           "library_backend" + suffix: sdpa_backend(lib),
+                           "library_ms_masked" + suffix: time_ms(lib_masked)}
+                row["notes"] = ("library_ms: SDPA with no mask on K/V cut to the valid keys; "
+                                "library_ms_masked: SDPA on all keys with a boolean key mask")
             row.update({
                 "ms" + suffix: time_ms(lambda: enc_call(name, case)),
                 "plain_ms" + suffix: events_ms(lambda: enc_call(name, case, cuda=False), iters=5),
-                "library_ms" + suffix: time_ms(lambda: F.scaled_dot_product_attention(
-                    *lib, attn_mask=key_ok, scale=lib_scale)),
-                "bound_ms" + suffix: bms, "bound_by" + suffix: bby,
+                **library, "bound_ms" + suffix: bms, "bound_by" + suffix: bby,
             })
             del case, lib
             torch.cuda.empty_cache()
+        if name in ENC_SM90:
+            row["sm90"] = enc_sm90_report(name)
+            if name == "enc_attention_twopass":
+                row["sm90_exp_bf16"] = enc_sm90_report("enc_attention_twopass_bf16")
         row["tol_ratio"], row["max_abs_err"] = worst
         row["shapes"] = f"q/k/v[B,{T},{H},{hd}], {valid} valid, B 1 (ms) and {ENC_B} (ms_b{ENC_B})"
         rows.append(row)
@@ -4790,26 +4863,38 @@ def ptxas_report(entry: str) -> dict:
     return out
 
 
+def sm90_checked(label: str, entry: str, runtime: dict) -> dict:
+    """ptxas's registers and spills of the kernel whose mangled name holds
+    `entry` (the build log) beside the runtime's registers, local bytes,
+    shared memory and resident blocks per SM. A spill, local memory or a
+    wgmma that ptxas serialized fails the run."""
+    px = ptxas_report(entry)
+    if (px["spill_store_bytes"] or px["spill_load_bytes"] or "wgmma_serialized" in px
+            or runtime["local_bytes"]):
+        raise AssertionError(f"{label}: spills, local memory or serialized wgmma: "
+                             f"{dict(ptxas=px, runtime=runtime)}")
+    return dict(ptxas=px, runtime=runtime)
+
+
 def sm90_report(row: str, hd: int) -> dict:
-    """Row's wgmma / TMA kernel at head_dim hd: ptxas's registers and spills
-    (the build log) and the runtime's registers, local bytes, shared memory
-    and resident blocks per SM. A spill, local memory or a wgmma that ptxas
-    serialized fails the run."""
+    """Row's wgmma / TMA kernel at head_dim hd, by `sm90_checked`."""
     from audio_llama_tpu_torch.ops import causal_attention as ca
 
     kernel, entry = SM90_KERNELS[row]
-    out = dict(kernel=kernel, ptxas=ptxas_report(entry), runtime=ca.sm90_kernel_info(kernel, hd))
-    px = out["ptxas"]
-    if (px["spill_store_bytes"] or px["spill_load_bytes"] or "wgmma_serialized" in px
-            or out["runtime"]["local_bytes"]):
-        raise AssertionError(f"{row}: spills, local memory or serialized wgmma: {out}")
-    return out
+    return dict(kernel=kernel, **sm90_checked(row, entry, ca.sm90_kernel_info(kernel, hd)))
+
+
+def enc_sm90_report(kind: str) -> dict:
+    """The encoder kernel's mode `kind` (a key of ENC_SM90) at hd 64, by
+    `sm90_checked`."""
+    from audio_llama_tpu_torch.ops import enc_attention as ea
+
+    return dict(kernel=kind, **sm90_checked(kind, ENC_SM90[kind], ea.sm90_kernel_info(kind, 64)))
 
 
 def w4_sm90_report() -> dict:
     """Every instance of the W4A16 prefill kernel (int4_matmul.cu: groups
-    16-256, whole K and K-split), as sm90_report reads a row's kernel; a
-    spill, local memory or a serialized wgmma fails the run."""
+    16-256, whole K and K-split), by `sm90_checked`."""
     from audio_llama_tpu_torch.ops import int4_matmul as i4
 
     out = {}
@@ -4817,13 +4902,8 @@ def w4_sm90_report() -> dict:
         for group in (16, 32, 64, 128, 256):
             entry = (f"w4_wgmma_kernelINS_7PrefillILb{code - 5}ELi{max(1, 128 // group)}"
                      f"ELb{int(group > 128)}E")
-            r = dict(ptxas=ptxas_report(entry), runtime=i4.sm90_kernel_info(kind, group))
-            px = r["ptxas"]
-            if (px["spill_store_bytes"] or px["spill_load_bytes"] or "wgmma_serialized" in px
-                    or r["runtime"]["local_bytes"]):
-                raise AssertionError(f"{kind} group {group}: spills, local memory or "
-                                     f"serialized wgmma: {r}")
-            out[f"{kind} group {group}"] = r
+            out[f"{kind} group {group}"] = sm90_checked(
+                f"{kind} group {group}", entry, i4.sm90_kernel_info(kind, group))
     return out
 
 

@@ -66,10 +66,18 @@ def test_layer_norm_kernel(dev, dtype, rows, d):
     _close(got, ln.layer_norm_plain(x, s, b), dtype, "layer_norm")
 
 
-@pytest.mark.parametrize("T,H,hd,valid", [(1536, 20, 64, 1500), (128, 4, 16, 64),
-                                          (256, 2, 128, None)])
-def test_enc_attention_kernel(dev, T, H, hd, valid):
-    q, k, v = (_randn(dev, 2, T, H * hd, seed=i).view(2, T, H, hd) for i in range(3))
+# the wgmma encoder kernel's edges (`ea.key_tile`: 128 keys a tile, 64 at hd
+# 128): one valid key, the last key of a tile, a whole tile, one key past it
+# and every key; T 200 and 1000 (off the 128-query and key grids); B 1-3
+ENC_EDGES = [(1 + i % 3, (200, 1000)[(i + j) % 2], 3, hd, valid)
+             for j, hd in enumerate((16, 32, 64, 128))
+             for i, valid in enumerate((1, 127, 128, 129, None))]
+
+
+@pytest.mark.parametrize("B,T,H,hd,valid", [(2, 1536, 20, 64, 1500), (2, 128, 4, 16, 64),
+                                            (2, 256, 2, 128, None)] + ENC_EDGES)
+def test_enc_attention_kernel(dev, B, T, H, hd, valid):
+    q, k, v = (_randn(dev, B, T, H * hd, seed=i).view(B, T, H, hd) for i in range(3))
     before = ea.launches
     got = ea.enc_attention(q, k, v, valid_len=valid, scale=hd ** -0.5)
     torch.cuda.synchronize()
@@ -1003,20 +1011,79 @@ ENC_ARMS = [("enc_attention_v3q", {}), ("enc_attention_bounded", {}),
             ("enc_attention_twopass", {"exp_dtype": torch.bfloat16})]
 
 
-@pytest.mark.parametrize("name,arm", ENC_ARMS)
-@pytest.mark.parametrize("B,T,H,valid", [(1, 1536, 20, 1500), (2, 256, 4, 200),
-                                         (1, 128, 2, 128)])
-def test_enc_variant_kernels(dev, name, arm, B, T, H, valid):
+ENC_VARIANT_CASES = (
+    [(name, arm, B, T, H, 64, valid) for name, arm in ENC_ARMS
+     for B, T, H, valid in [(1, 1536, 20, 1500), (2, 256, 4, 200), (1, 128, 2, 128)]]
+    # the wgmma kernel's modes at its edges (v3q is another kernel: hd 64, T % 64 == 0)
+    + [(name, arm, *edge) for name, arm in ENC_ARMS if name != "enc_attention_v3q"
+       for edge in ENC_EDGES])
+
+
+@pytest.mark.parametrize("name,arm,B,T,H,hd,valid", ENC_VARIANT_CASES)
+def test_enc_variant_kernels(dev, name, arm, B, T, H, hd, valid):
     """v3q, bounded and twopass at the main path's geometry and at small ones,
     within the encoder attention's bar of their plain versions."""
     from chip_smoke import enc_call, enc_case
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    case = enc_case(dev, gen, B, T=T, valid=valid, H=H)
+    valid = T if valid is None else valid
+    case = enc_case(dev, gen, B, T=T, valid=valid, H=H, hd=hd)
     got = enc_call(name, case, **arm)
     torch.cuda.synchronize()
     want = enc_call(name, case, cuda=False, **arm)
     _close(got[:, :valid], want[:, :valid], torch.bfloat16, name)
+
+
+ENC_MODES = [("enc_attention", {}), ("enc_attention_bounded", {}), ("enc_attention_twopass", {}),
+             ("enc_attention_twopass", {"exp_dtype": torch.bfloat16})]
+
+
+@pytest.mark.parametrize("name,arm", ENC_MODES)
+@pytest.mark.parametrize("layout", ["v3", "head-major"])
+def test_enc_kernel_gives_the_same_bits_twice(dev, name, arm, layout):
+    """Every mode of the wgmma encoder kernel sums in a fixed order: a second
+    launch on the same inputs gives the same bits."""
+    from chip_smoke import enc_call, enc_case
+
+    case = enc_case(dev, torch.Generator(device=dev).manual_seed(8), 2, T=1000, valid=900, H=4)
+    got = enc_call(name, case, layout=layout, **arm)
+    assert torch.equal(got, enc_call(name, case, layout=layout, **arm))
+
+
+ENC_TILE_FAULTS = [(name, fault) for name in ("enc_attention", "enc_attention_bounded",
+                                              "enc_attention_twopass")
+                   for fault in ("stale K", "stale V", "mask off")] + [
+    ("enc_attention_twopass", "max one tile short")]
+
+
+@pytest.mark.parametrize("name,fault", ENC_TILE_FAULTS)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_enc_kernel_check_rejects_ring_and_mask_faults(dev, name, fault, hd):
+    """The faults of a ring-fed tile loop, computed by `chip_smoke.
+    enc_reference` with the kernel's key tiles: tile j read with tile j-1's
+    K or V (a stale stage), the last valid tile's keys past valid_len left
+    unmasked, and twopass's pass-1 max one tile short (on a key of the last
+    valid tile 1200 times a unit direction, which the short max leaves to
+    overflow) each fail the bar that the kernel passes; the reference
+    without a fault passes it."""
+    from chip_smoke import enc_call, enc_case, enc_reference
+
+    T, valid = 256, 200
+    case = enc_case(dev, torch.Generator(device=dev).manual_seed(9), 2, T=T, valid=valid, H=4,
+                    hd=hd)
+    if fault == "max one tile short":
+        d = torch.randn((4, hd), generator=torch.Generator(device=dev).manual_seed(10),
+                        device=dev)
+        case["k"][:, valid - 1] = (d / d.norm(dim=-1, keepdim=True) * 1200.0).to(torch.bfloat16)
+
+    def passes(got, want):
+        return bool(torch.isfinite(got).all()) and tol_ratio(got, want,
+                                                             ATOL_ROW_RMS_FRAC[name]) <= 1
+
+    want = enc_call(name, case, cuda=False)[:, :valid]
+    assert passes(enc_call(name, case)[:, :valid], want)
+    assert passes(enc_reference(case, name, None)[:, :valid], want)
+    assert not passes(enc_reference(case, name, fault)[:, :valid], want), fault
 
 
 @pytest.mark.parametrize("name", ["enc_attention_v3q", "enc_attention_bounded",
@@ -1243,10 +1310,14 @@ def test_twopass_residuals_drive_the_backward_kernels(dev):
 def test_sm90_kernel_info(dev):
     """Every wgmma / TMA kernel reports its registers, no spills and one
     resident block an SM at hd 128 (the runtime's view of what the build log
-    says)."""
+    says); the encoder kernel's modes at every head_dim they take."""
     for name in ca.SM90_KERNELS:
         info = ca.sm90_kernel_info(name, 128)
         assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0, (name, info)
+    for name in ea.SM90_KINDS:
+        for hd in (16, 32, 64, 128):
+            info = ea.sm90_kernel_info(name, hd)
+            assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0, (name, hd, info)
 
 
 def test_causal_variant_checks_reject_planted_faults(dev):
