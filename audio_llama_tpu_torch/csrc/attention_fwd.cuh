@@ -1,10 +1,8 @@
 // What the port's attention kernels share: the forwards' parameter block
-// (AttnParams), the softmax-mode codes, and a plain 16-byte row copy into
-// shared memory. It holds no kernel: the forwards are on wgmma and TMA
-// (sm90.cuh and the kernels on it: causal_attention.cu,
-// causal_attention_fixed.cu, causal_attention_dma2.cu, enc_attention.cu);
-// the causal backward (causal_attention_bwd.cu) copies its tiles with
-// copy_rows_bf16.
+// (AttnParams) and the softmax-mode codes. It holds no kernel: the forwards
+// and the causal backward are on wgmma and TMA (sm90.cuh and the kernels on
+// it: causal_attention.cu, causal_attention_fixed.cu,
+// causal_attention_dma2.cu, enc_attention.cu, causal_attention_bwd.cu).
 #pragma once
 
 #include "common.cuh"
@@ -33,18 +31,5 @@ struct AttnParams {
   long long v_sb, v_st, v_sh;
   long long o_sb, o_st, o_sh;
 };
-
-__device__ __forceinline__ void copy_rows_bf16(__nv_bfloat16* dst, int ld_dst,
-                                               const __nv_bfloat16* src, long long st,
-                                               int row0, int rows, int T, int hd) {
-  // 16-byte vectors; rows past T are zero-filled
-  const int vpr = hd / 8;
-  for (int i = threadIdx.x; i < rows * vpr; i += blockDim.x) {
-    const int r = i / vpr, c = (i % vpr) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T) val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * st + c);
-    *reinterpret_cast<uint4*>(dst + r * ld_dst + c) = val;
-  }
-}
 
 }  // namespace al

@@ -275,7 +275,9 @@ AL_EXPORT int al_causal_attention_dma(const void* q, const void* k, const void* 
 // online 'never', 4: bounded (blocks, blocks_cond and dma); 5 and 6: the
 // W4A16 prefill (int4_matmul.cu), whole K and K-split, with hd the scale
 // group; 7-10: the encoder's forward (enc_attention.cu), online, bounded,
-// twopass and twopass with the bf16 exp argument.
+// twopass and twopass with the bf16 exp argument; 11-14: the causal backward
+// (causal_attention_bwd.cu), dq 'always', dq 'never', dk/dv 'always', dk/dv
+// 'never'.
 AL_EXPORT int al_sm90_kernel_info(int kind, int hd, int* out) {
   switch (kind) {
     case 0: return al::fixed_fwd_sm90_info(hd, false, out);
@@ -289,6 +291,10 @@ AL_EXPORT int al_sm90_kernel_info(int kind, int hd, int* out) {
     case 8: return al::enc_fwd_sm90_info(hd, al::kSoftmaxBounded, false, out);
     case 9: return al::enc_fwd_sm90_info(hd, al::kSoftmaxTwoPass, false, out);
     case 10: return al::enc_fwd_sm90_info(hd, al::kSoftmaxTwoPass, true, out);
+    case 11: return al::bwd_sm90_info(hd, true, true, out);
+    case 12: return al::bwd_sm90_info(hd, true, false, out);
+    case 13: return al::bwd_sm90_info(hd, false, true, out);
+    case 14: return al::bwd_sm90_info(hd, false, false, out);
     default: return cudaErrorInvalidValue;
   }
 }

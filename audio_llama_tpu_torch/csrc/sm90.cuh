@@ -3,7 +3,9 @@
 //
 // Replaces no TPU kernel by itself: it holds what the port's wgmma/TMA
 // kernels share: the W4A16 prefill (int4_matmul.cu, which uses the blocks
-// below and not the attention block) and the attention forwards. Those are
+// below and not the attention block), the causal backward
+// (causal_attention_bwd.cu: dq and dk/dv, on the tiles, products and
+// AttnPlace below with a ring of its own) and the attention forwards. Those are
 // causal_attention.cu (the redesign of
 // audio_llama_tpu/ops/causal_attention.py::_fwd_kernel :101, online, tri
 // 'always' / 'cond' / 'never'), causal_attention_fixed.cu (its bounded mode,
@@ -452,13 +454,14 @@ constexpr int kAttnThreads = 384;
 struct AttnPlace {
   int q0, bh, b, h, kvh, wg, wrow, row0, row1, cq;
 
-  __device__ AttnPlace(const AttnParams& p, int B) {
-    const int BH = B * p.Hq, n_qt = (p.T + kAttnBQ - 1) / kAttnBQ;
+  __device__ AttnPlace(const AttnParams& p, int B) : AttnPlace(p.T, p.Hq, p.Hkv, B) {}
+  __device__ AttnPlace(int T, int Hq, int Hkv, int B) {
+    const int BH = B * Hq, n_qt = (T + kAttnBQ - 1) / kAttnBQ;
     q0 = (n_qt - 1 - (int)blockIdx.x / BH) * kAttnBQ;
     bh = blockIdx.x % BH;
-    b = bh / p.Hq;
-    h = bh % p.Hq;
-    kvh = h / (p.Hq / p.Hkv);
+    b = bh / Hq;
+    h = bh % Hq;
+    kvh = h / (Hq / Hkv);
     wg = threadIdx.x / 128;
     const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
     wrow = q0 + 64 * wg;
@@ -702,7 +705,8 @@ inline cudaError_t kernel_info(K kernel, int threads, size_t smem, int* out) {
 }  // namespace sm90
 
 // The kernels on these blocks at head_dim hd (defined by causal_attention.cu,
-// causal_attention_fixed.cu, causal_attention_dma2.cu and enc_attention.cu):
+// causal_attention_fixed.cu, causal_attention_dma2.cu, enc_attention.cu,
+// int4_matmul.cu and causal_attention_bwd.cu):
 // their launches and their kernel_info (exported by al_sm90_kernel_info).
 cudaError_t online_fwd_sm90_info(int hd, bool causal, int* out);
 cudaError_t fixed_fwd_sm90(const AttnParams& p, int B, int hd, bool bounded,
@@ -716,5 +720,8 @@ cudaError_t enc_fwd_sm90_info(int hd, int mode, bool exp_bf16, int* out);
 // The W4A16 prefill kernel (int4_matmul.cu) at a scale group, whole K or
 // K-split.
 cudaError_t w4_prefill_sm90_info(int group, bool ksplit, int* out);
+// The causal backward's dq or dk/dv kernel (causal_attention_bwd.cu), causal
+// (tri='always') or not (tri='never').
+cudaError_t bwd_sm90_info(int hd, bool dq, bool causal, int* out);
 
 }  // namespace al

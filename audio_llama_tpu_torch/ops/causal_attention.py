@@ -4,8 +4,9 @@ Replaces `audio_llama_tpu/ops/causal_attention.py::_fwd_kernel` (`causal_mha`,
 `softmax_mode='online'`, `tri='always'`) and the two kernels of its custom
 VJP, `_dq_kernel` and `_dkv_kernel`. The forward kernel is
 `csrc/causal_attention.cu`, on Hopper's wgmma and TMA (`csrc/sm90.cuh`); the
-backward kernels are `csrc/causal_attention_bwd.cu` (their source notes give
-the bounds and the designs). `causal_attention_plain` and `causal_attention_bwd_plain` are the
+backward kernels are `csrc/causal_attention_bwd.cu`, on the same blocks, and
+take T a multiple of 128 (their source notes give the bounds and the
+designs). `causal_attention_plain` and `causal_attention_bwd_plain` are the
 same arithmetic in PyTorch. `_CausalAttention` (a `torch.autograd.Function`)
 joins them: its forward saves qs, k, v, the key bias, o and the row
 statistics l and m, and its backward runs the D = rowsum(dO * O) prologue in
@@ -85,7 +86,8 @@ launches_bounded_cond = 0  # bounded-softmax forward launches, tri='cond'
 launches_twopass = 0  # two-pass forward launches
 launches_dma = 0  # fwd_impl='dma' kernel launches
 launches_dma2 = 0  # fwd_impl='dma2' kernel launches
-BWD_TILE = 64  # the backward kernels' tile: T must be a multiple of it
+BWD_TILE = 64  # the dma forwards' tile, and the backward kernels' diagonal tile
+BWD_BLOCK = 128  # the backward kernels' blocks (queries or keys): T must be a multiple of it
 TRI = ("always", "never")  # the backward kernels' modes
 FWD_TRI = {"never": 0, "always": 1, "cond": 2}  # the forward kernel's modes
 FWD_IMPLS = ("blocks", "blocks_cond", "dma", "dma2")
@@ -260,11 +262,14 @@ def _tma_bias(key_bias: torch.Tensor) -> torch.Tensor:
     return key_bias if _cuda.aligned16(key_bias) else key_bias.clone()
 
 
-# the wgmma / TMA kernels, as al_sm90_kernel_info numbers them: twopass, dma2,
+# the wgmma / TMA kernels -> their kind in al_sm90_kernel_info: twopass, dma2,
 # online with the causal mask ('always', 'cond'), online 'never', bounded
-# (blocks, blocks_cond, dma)
-SM90_KERNELS = ("causal_attention_twopass", "causal_attention_dma2", "causal_attention",
-                "causal_attention_never", "causal_attention_bounded")
+# (blocks, blocks_cond, dma); the backward's dq and dk/dv, 'always' and 'never'
+SM90_KERNELS = {"causal_attention_twopass": 0, "causal_attention_dma2": 1,
+                "causal_attention": 2, "causal_attention_never": 3,
+                "causal_attention_bounded": 4, "causal_attention_dq": 11,
+                "causal_attention_dq_never": 12, "causal_attention_dkv": 13,
+                "causal_attention_dkv_never": 14}
 
 
 def sm90_kernel_info(name: str, hd: int) -> dict:
@@ -276,7 +281,7 @@ def sm90_kernel_info(name: str, hd: int) -> dict:
 
     out = (ctypes.c_int * 4)()
     fn = _cuda.library().al_sm90_kernel_info
-    _cuda.check(fn(SM90_KERNELS.index(name), hd, ctypes.cast(out, ctypes.c_void_p)),
+    _cuda.check(fn(SM90_KERNELS[name], hd, ctypes.cast(out, ctypes.c_void_p)),
                 f"{name} info")
     return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2], blocks_per_sm=out[3])
 
@@ -463,8 +468,8 @@ def _bwd_checks(name, qs, k, v, key_bias, l, m, do, d):
     Hkv = k.shape[2]
     if Hq % Hkv:
         raise ValueError(f"{name}: Hq={Hq} not a multiple of Hkv={Hkv}")
-    if T % BWD_TILE:
-        raise ValueError(f"{name}: T={T} not a multiple of {BWD_TILE}")
+    if T % BWD_BLOCK:
+        raise ValueError(f"{name}: T={T} not a multiple of {BWD_BLOCK}")
     if hd not in (16, 32, 64, 128):
         raise ValueError(f"{name}: head_dim {hd} not in (16, 32, 64, 128)")
     for t, shape in ((k, (B, T, Hkv, hd)), (v, (B, T, Hkv, hd)), (do, (B, T, Hq, hd)),
@@ -484,7 +489,8 @@ def _bwd_checks(name, qs, k, v, key_bias, l, m, do, d):
 
 def causal_attention_dq_cuda(qs, k, v, key_bias, l, m, do, d, tri="always") -> torch.Tensor:
     """Launch the dq kernel: qs, do [B, T, Hq, hd], k, v [B, T, Hkv, hd] bf16
-    contiguous; key_bias [B, T], l, m, d [B*Hq, T] f32 -> dq [B, T, Hq, hd]."""
+    contiguous; key_bias [B, T], l, m, d [B*Hq, T] f32, all 16-byte aligned;
+    T a multiple of BWD_BLOCK -> dq [B, T, Hq, hd]."""
     global launches_dq, launches_dq_never
     name = "causal_attention_dq"
     causal = _causal_flag(tri)

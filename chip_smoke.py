@@ -2610,21 +2610,60 @@ def bwd_reference(qs, k, v, key_bias, l, m, do, d, visible, kv_of):
     return dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def train_kernel_checks(dev, gen):
-    """The dq and dk/dv kernels at the training geometry (B 2, T 2048 = 2014
-    real + 34 pad keys, Hq 24, Hkv 8, hd 128, bf16; row 1's tail padded from
-    1800) against the plain backward on the forward kernel's residuals;
-    planted faults: D not computed (0), the causal mask dropped on one
-    diagonal tile, queries mapped to the wrong KV head (h % Hkv for h // G).
-    Two launches give the same bits. Timed beside the plain backward and
-    the backward of `F.scaled_dot_product_attention` (causal, GQA)."""
-    import torch.nn.functional as F
+BWD_FAULTS = {  # a planted fault of the backward kernels -> the outputs it must move
+    "stale K": ("dq",), "stale Q": ("dk", "dv"), "stale dO": ("dk", "dv"),
+    "mask off on the last tile": ("dq", "dk", "dv"),
+    "statistics one step off": ("dq", "dk", "dv")}
 
+
+def bwd_fault_reference(qs, k, v, key_bias, l, m, do, d, fault=None):
+    """The function a backward kernel with a planted fault computes, by
+    `bwd_reference` with the kernels' 64-row ring steps (`ca.BWD_TILE`):
+      'stale K': dq's key tile j >= 1 meets tile j-1's K (in S and in dS K),
+          as a ring stage read before its refill;
+      'stale Q' / 'stale dO': dk/dv's query tile i >= 1 meets tile i-1's Q
+          (in S^T and dS^T Q) or dO (in dP^T and P^T dO);
+      'mask off on the last tile': the diagonal tile of the last query tile
+          (its last 64 queries and keys) is not masked;
+      'statistics one step off': query tile i >= 1 reads tile i-1's m, l and
+          D.
+    None: no fault. -> (dq, dk, dv) in the inputs' dtypes."""
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+
+    T, Hq, Hkv = qs.shape[1], qs.shape[2], k.shape[2]
+    n = ca.BWD_TILE
+    t = torch.arange(T, device=qs.device)
+
+    def stale(x, dim):  # row i >= n of x along `dim` is row i - n's
+        late = (t >= n).reshape([-1 if i == dim else 1 for i in range(x.dim())])
+        return torch.where(late, torch.roll(x, n, dims=dim), x)
+
+    visible = t[None, :] <= t[:, None]
+    if fault == "stale K":
+        k = stale(k, 1)
+    elif fault == "stale Q":
+        qs = stale(qs, 1)
+    elif fault == "stale dO":
+        do = stale(do, 1)
+    elif fault == "mask off on the last tile":
+        visible = visible | ((t[:, None] >= T - n) & (t[None, :] >= T - n))
+    elif fault == "statistics one step off":
+        l, m, d = stale(l, 1), stale(m, 1), stale(d, 1)
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    return bwd_reference(qs, k, v, key_bias, l, m, do, d, visible,
+                         torch.arange(Hq, device=qs.device) // (Hq // Hkv))
+
+
+def train_bwd_case(dev, gen, B=TRAIN_B) -> dict:
+    """The backward's inputs at the training geometry (T 2048 = 2014 real +
+    34 pad keys, Hq 24, Hkv 8, hd 128, bf16; row 1's tail padded from 1800):
+    qs pre-scaled, k, v, a cotangent dO, the key bias, the forward kernel's
+    residuals (o, l, m) and the prologue's D."""
     from audio_llama_tpu_torch.ops import causal_attention as ca
 
     lc = full_config().llama
-    B, T, Hq, Hkv, hd = TRAIN_B, TRAIN_T, lc.num_heads, lc.num_kv_heads, lc.head_dim
-    G = Hq // Hkv
+    T, Hq, Hkv, hd = TRAIN_T, lc.num_heads, lc.num_kv_heads, lc.head_dim
     bf = torch.bfloat16
 
     def randn(*shape):
@@ -2637,7 +2676,51 @@ def train_kernel_checks(dev, gen):
     mask[1, 1800:] = 0
     key_bias = torch.where(mask != 0, torch.zeros((), device=dev), ca.NEG)
     o, l, m = ca.causal_attention_cuda(qs, k, v, key_bias)
-    d = ca.attention_bwd_prologue(o, do)
+    return dict(qs=qs, k=k, v=v, key_bias=key_bias, o=o, l=l, m=m, do=do,
+                d=ca.attention_bwd_prologue(o, do))
+
+
+def sdpa_backward(qs, k, v, do, causal: bool):
+    """One call of the backward of `F.scaled_dot_product_attention` (GQA;
+    is_causal or no mask) on the case's tensors: dq, dk and dv together,
+    the yardstick of the dq and dk/dv kernels (the port never calls it)."""
+    import torch.nn.functional as F
+
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (qs, k, v))
+    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, scale=1.0,
+                                         enable_gqa=True)
+    doh = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+
+
+def bwd_bounds(B, T, Hq, Hkv, hd, causal: bool) -> dict:
+    """The least time of the dq and of the dk/dv kernel (`bound`): each
+    hd-deep product over the causal half (or every pair), per head; inputs
+    read once, outputs written once."""
+    pairs = T * (T + 1) / 2 if causal else T * T
+    per_product = 2.0 * hd * pairs * B * Hq
+    in_bytes = 2.0 * B * T * hd * (2 * Hq + 2 * Hkv) + 4.0 * B * T * (3 * Hq + 1)
+    return {"dq": bound(3 * per_product, in_bytes + 2.0 * B * T * Hq * hd),
+            "dkv": bound(4 * per_product, in_bytes + 2.0 * 2 * B * T * Hkv * hd)}
+
+
+def train_kernel_checks(dev, gen):
+    """The dq and dk/dv kernels at the training geometry (`train_bwd_case`,
+    B 2) against the plain backward on the forward kernel's residuals;
+    planted faults: D not computed (0), the causal mask dropped on one
+    diagonal tile, queries mapped to the wrong KV head (h % Hkv for h // G).
+    Two launches give the same bits, and at B 8 (train B's batch) the first
+    two batch rows give the bits of a B 2 launch on them. Timed at B 2 and B
+    8 beside the plain backward (B 2) and the backward of
+    `F.scaled_dot_product_attention` (causal, GQA); each row carries its
+    wgmma / TMA kernel's `sm90` report."""
+    from audio_llama_tpu_torch.ops import causal_attention as ca
+
+    lc = full_config().llama
+    B, T, Hq, Hkv, hd = TRAIN_B, TRAIN_T, lc.num_heads, lc.num_kv_heads, lc.head_dim
+    G = Hq // Hkv
+    c = train_bwd_case(dev, gen)
+    qs, k, v, key_bias, o, l, m, do, d = (c[n] for n in "qs k v key_bias o l m do d".split())
     want = ca.causal_attention_bwd_plain(qs, k, v, key_bias, o, l, m, do)
 
     def dq_run(dd=d):
@@ -2678,44 +2761,64 @@ def train_kernel_checks(dev, gen):
             "dk": must_reject("causal_attention_dkv", fault, gk, wk,
                               ATOL_ROW_RMS_FRAC["causal_attention_dkv"], rms_dims=GRAD_RMS_DIMS)}
     del planted, want
-    # bounds: each hd-deep product over the causal half, per head
-    per_product = 2.0 * hd * T * (T + 1) / 2 * B * Hq
-    in_bytes = 2.0 * B * T * hd * (2 * Hq + 2 * Hkv) + 4.0 * B * T * (3 * Hq + 1)
-    bq = bound(3 * per_product, in_bytes + 2.0 * B * T * Hq * hd)
-    bkv = bound(4 * per_product, in_bytes + 2.0 * 2 * B * T * Hkv * hd)
-    # timed by CUDA events: every call here lasts 0.3 ms or more, so the host's
-    # launch gaps do not count, and the CUPTI sums of `time_ms` have read
-    # these kernels low after earlier phases (PERF.md, PR 4); `ms_cupti`
-    # keeps that reading beside them
+    bounds = bwd_bounds(B, T, Hq, Hkv, hd, causal=True)
+    # timed by CUDA events, with CUPTI's reading beside (`ms_cupti`): CUPTI's
+    # sums have read these kernels low after earlier phases (PERF.md, rows 11-12)
     plain_ms = events_ms(lambda: ca.causal_attention_bwd_plain(qs, k, v, key_bias, o, l, m, do),
                          iters=3, warmup=1)
-    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (qs, k, v))
-    sdpa = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=1.0,
-                                          enable_gqa=True)
-    doh = do.transpose(1, 2)
-    library_ms = events_ms(lambda: torch.autograd.grad(sdpa, (qh, kh, vh), doh,
-                                                       retain_graph=True))
-    shapes = (f"qs/dO[{B},{T},{Hq},{hd}] k/v[{B},{T},{Hkv},{hd}] bf16, l/m/D [{B * Hq},{T}] "
-              f"f32, keys >= {TRAIN_REAL} (row 1: >= 1800) padded")
+    sdpa = sdpa_backward(qs, k, v, do, causal=True)
+    library_ms, library_backend = events_ms(sdpa), sdpa_backend(sdpa)
+    del sdpa
+    timed = {"causal_attention_dq": dict(ms=events_ms(dq_run), ms_cupti=time_ms(dq_run)),
+             "causal_attention_dkv": dict(ms=events_ms(dkv_run), ms_cupti=time_ms(dkv_run))}
+    del c, qs, k, v, key_bias, o, l, m, do, d, got_dq, got_dk, got_dv
+    torch.cuda.empty_cache()
+    # B 8 (train B's batch): its first two batch rows (row 1 padded from 1800,
+    # as at B 2) must give the bits of a B 2 launch on those rows, then timed
+    B8 = 8
+    c8 = train_bwd_case(dev, gen, B8)
+    args8 = tuple(c8[n] for n in "qs k v key_bias l m do d".split())
+    # the first B batch rows: of [B8, ...] and of the [B8 * Hq, T] statistics
+    args2 = tuple(a[:B * Hq] if a.shape[0] == B8 * Hq else a[:B] for a in args8)
+    got8 = (ca.causal_attention_dq_cuda(*args8), *ca.causal_attention_dkv_cuda(*args8))
+    got2 = (ca.causal_attention_dq_cuda(*args2), *ca.causal_attention_dkv_cuda(*args2))
+    if not all(torch.equal(a[:B], b) for a, b in zip(got8, got2)):
+        raise AssertionError("causal attention backward: B 8's first rows differ from B 2's")
+    del got8, got2, args2
+    bounds8 = bwd_bounds(B8, T, Hq, Hkv, hd, causal=True)
+    library_ms_b8 = events_ms(sdpa_backward(c8["qs"], c8["k"], c8["v"], c8["do"], causal=True))
+    for name, fn in (("causal_attention_dq", ca.causal_attention_dq_cuda),
+                     ("causal_attention_dkv", ca.causal_attention_dkv_cuda)):
+        timed[name].update(ms_b8=events_ms(lambda fn=fn: fn(*args8)),
+                           ms_cupti_b8=time_ms(lambda fn=fn: fn(*args8)))
+    del c8, args8
+    torch.cuda.empty_cache()
+    shapes = (f"qs/dO[B,{T},{Hq},{hd}] k/v[B,{T},{Hkv},{hd}] bf16, l/m/D [B*{Hq},{T}] "
+              f"f32, keys >= {TRAIN_REAL} (row 1: >= 1800) padded; B {B} (ms) and {B8} (ms_b8)")
     rows = []
-    for name, run, (bms, bby), err_names in (
-            ("causal_attention_dq", dq_run, bq, ("causal_attention_dq",)),
-            ("causal_attention_dkv", dkv_run, bkv, ("causal_attention_dk", "causal_attention_dv"))):
+    for name, err_names in (("causal_attention_dq", ("causal_attention_dq",)),
+                            ("causal_attention_dkv", ("causal_attention_dk",
+                                                      "causal_attention_dv"))):
         frac = ATOL_ROW_RMS_FRAC[name]
+        key = "dq" if name.endswith("dq") else "dkv"
+        checked = [results[n] for n in err_names]
         rows.append(dict(
             name=name, route="cuda", source="audio_llama_tpu_torch/csrc/causal_attention_bwd.cu",
-            replaces="audio_llama_tpu/ops/causal_attention.py:" + ("471" if name.endswith("dq")
+            replaces="audio_llama_tpu/ops/causal_attention.py:" + ("471" if key == "dq"
                                                                    else "514"),
-            max_abs_err=max(results[n][0] for n in err_names),
+            max_abs_err=max(r[0] for r in checked),
             tol={**tol_entry(frac), "rms_over": "each (batch, head)'s [T, hd] slab"},
-            tol_ratio=max(results[n][1] for n in err_names),
-            planted_fault_ratios={f: r["dq" if name.endswith("dq") else "dk"]
+            tol_ratio=max(r[1] for r in checked),
+            planted_fault_ratios={f: r["dq" if key == "dq" else "dk"]
                                   for f, r in faults.items()},
-            ms=events_ms(run), ms_cupti=time_ms(run), plain_ms=plain_ms, library_ms=library_ms,
-            launches=None, bound_ms=bms, bound_by=bby, shapes=shapes,
-            notes="times by CUDA events; plain_ms: the whole plain backward (dq, dk and dv); "
-                  "library_ms: the backward of SDPA(is_causal, enable_gqa), dq, dk and dv in "
-                  "one call",
+            **timed[name], plain_ms=plain_ms, library_ms=library_ms,
+            library_backend=library_backend, library_ms_b8=library_ms_b8, launches=None,
+            bound_ms=bounds[key][0], bound_by=bounds[key][1], bound_ms_b8=bounds8[key][0],
+            shapes=shapes,
+            sm90=sm90_report(name, hd),
+            notes="times by CUDA events (ms_cupti: CUPTI); plain_ms: the whole plain backward "
+                  "(dq, dk and dv) at B 2; library_ms: the backward of SDPA(is_causal, "
+                  "enable_gqa), dq, dk and dv in one call",
         ))
         log(f"kernel {name} ok: {json.dumps(rows[-1])}")
     return rows
@@ -2869,11 +2972,9 @@ def ring_kernel_checks(dev, gen):
     per_product = 2.0 * hd * T * T * B * Hq
     in_bytes = 2.0 * B * T * hd * (Hq + 2 * Hkv) + 4.0 * B * T
     stats = 4.0 * B * Hq * T
+    bwd = bwd_bounds(B, T, Hq, Hkv, hd, causal=False)
     bounds = {RING_NAMES[0]: bound(2 * per_product, in_bytes + 2.0 * B * T * Hq * hd + 2 * stats),
-              RING_NAMES[1]: bound(3 * per_product, in_bytes + 2.0 * B * T * Hq * hd + 3 * stats
-                                   + 2.0 * B * T * Hq * hd),
-              RING_NAMES[2]: bound(4 * per_product, in_bytes + 2.0 * B * T * Hq * hd + 3 * stats
-                                   + 2.0 * 2 * B * T * Hkv * hd)}
+              RING_NAMES[1]: bwd["dq"], RING_NAMES[2]: bwd["dkv"]}
     plain_fwd = events_ms(lambda: ca.causal_attention_plain(qs, k, v, bias, tri="never"),
                           iters=3, warmup=1)
     plain_bwd = events_ms(lambda: ca.causal_attention_bwd_plain(qs, k, v, bias, o, l, m, do,
@@ -2908,7 +3009,7 @@ def ring_kernel_checks(dev, gen):
             launch_fault=launch_check,
             ms=time_ms(run), ms_events=events_ms(run), plain_ms=plain_ms,
             library_ms=library_ms, launches=None, bound_ms=bms, bound_by=bby, shapes=shapes,
-            **({"sm90": sm90_report(name, hd)} if name == RING_NAMES[0] else {}),
+            sm90=sm90_report(name, hd),
             notes="plain_ms of dq and dk/dv: the whole plain backward of the hop; library_ms: "
                   "SDPA (no causal mask, enable_gqa), its forward for the forward kernel, its "
                   "backward (dq, dk, dv in one call) for the backward kernels",
@@ -4721,6 +4822,10 @@ VARIANT_ROWS = {  # kernel row -> (fwd_impl, softmax_mode, TPU kernel it replace
 }
 # each row's wgmma / TMA kernel -> (its name in ca.SM90_KERNELS, its ptxas entry at hd 128)
 SM90_KERNELS = {
+    "causal_attention_dq": ("causal_attention_dq", "dq_kernelILi128ELb1E"),
+    "causal_attention_dq_never": ("causal_attention_dq_never", "dq_kernelILi128ELb0E"),
+    "causal_attention_dkv": ("causal_attention_dkv", "dkv_kernelILi128ELb1E"),
+    "causal_attention_dkv_never": ("causal_attention_dkv_never", "dkv_kernelILi128ELb0E"),
     "causal_attention": ("causal_attention", "online_kernelILi128ELb1E"),
     "causal_attention_never": ("causal_attention_never", "online_kernelILi128ELb0E"),
     "causal_attention_cond": ("causal_attention", "online_kernelILi128ELb1E"),

@@ -21,8 +21,8 @@ import torch
 
 torch.set_num_threads(2)
 
-from chip_smoke import (ATOL_ROW_RMS_FRAC, GRAD_RMS_DIMS, prefill_faults, tol_ratio,  # noqa: E402
-                        variant_reference)
+from chip_smoke import (ATOL_ROW_RMS_FRAC, BWD_FAULTS, GRAD_RMS_DIMS,  # noqa: E402
+                        bwd_fault_reference, prefill_faults, tol_ratio, variant_reference)
 from audio_llama_tpu_torch.ops import causal_attention as ca  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_attention_mono as dm  # noqa: E402
 from audio_llama_tpu_torch.ops import enc_attention as ea  # noqa: E402
@@ -614,8 +614,12 @@ def _grad_ratio(got, want, name):
     return tol_ratio(got, want, ATOL_ROW_RMS_FRAC[name], GRAD_RMS_DIMS)
 
 
-@pytest.mark.parametrize("B,T,Hq,Hkv,hd,pad", [(2, 512, 24, 8, 128, 34), (1, 256, 4, 2, 64, 0),
-                                               (2, 128, 6, 6, 32, 5), (2, 128, 4, 2, 16, 3)])
+@pytest.mark.parametrize("B,T,Hq,Hkv,hd,pad", [
+    (2, 512, 24, 8, 128, 34), (1, 256, 4, 2, 64, 0), (2, 128, 6, 6, 32, 5), (2, 128, 4, 2, 16, 3),
+    # the wgmma kernels' edges: T 128, 384, 2048; G 1, 3, 6; a tail padded
+    # inside a 64-row step; a batch row padded from 1800
+    (1, 384, 6, 1, 128, 40), (2, 384, 9, 3, 64, 20), (1, 128, 6, 1, 16, 0),
+    (3, 384, 3, 3, 32, 100), (2, 128, 12, 4, 128, 7), (2, 2048, 24, 8, 128, 248)])
 def test_causal_attention_bwd_kernels(dev, B, T, Hq, Hkv, hd, pad):
     case = _bwd_case(dev, B, T, Hq, Hkv, hd, pad)
     want = ca.causal_attention_bwd_plain(*case)
@@ -632,6 +636,35 @@ def test_causal_attention_bwd_is_deterministic(dev):
     second = ca.causal_attention_bwd_cuda(*case)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fault", list(BWD_FAULTS))
+@pytest.mark.parametrize("hd", [64, 128])
+def test_causal_attention_bwd_check_rejects_ring_and_mask_faults(dev, fault, hd):
+    """The faults of the ring-fed backward kernels, computed by `chip_smoke.
+    bwd_fault_reference` with their 64-row steps: dq's key tile j read with
+    tile j-1's K, dk/dv's query tile i with tile i-1's Q or dO (a stale
+    stage), the diagonal mask left off on the last tile, and the query
+    statistics m, l and D read one step off: each fails the bar on every
+    output it moves, which the kernels and the reference without a fault
+    pass."""
+    case = _bwd_case(dev, 2, 384, 6, 2, hd, 20)
+    qs, k, v, key_bias, o, l, m, do = case
+    d = ca.attention_bwd_prologue(o, do)
+    want = ca.causal_attention_bwd_plain(*case)
+    outs = ("dq", "dk", "dv")
+
+    def passes(got, i):
+        return bool(torch.isfinite(got[i]).all()) and _grad_ratio(got[i], want[i],
+                                                                  BWD_NAMES[i]) <= 1
+
+    got = ca.causal_attention_bwd_cuda(*case)
+    clean = bwd_fault_reference(qs, k, v, key_bias, l, m, do, d)
+    faulty = bwd_fault_reference(qs, k, v, key_bias, l, m, do, d, fault)
+    for i, out in enumerate(outs):
+        assert passes(got, i) and passes(clean, i), out
+    for out in BWD_FAULTS[fault]:
+        assert not passes(faulty, outs.index(out)), (fault, out)
 
 
 def test_causal_attention_bwd_check_rejects_a_wrong_d(dev):
@@ -818,7 +851,11 @@ def _hop(dev, B, T, Hq, Hkv, hd, pad_from, seed=11):
 
 @pytest.mark.parametrize("B,T,Hq,Hkv,hd,pad_from", [(2, 512, 24, 8, 128, 400),
                                                     (1, 256, 4, 2, 64, None),
-                                                    (2, 128, 4, 2, 16, 100)])
+                                                    (2, 128, 4, 2, 16, 100),
+                                                    (1, 384, 6, 1, 128, 340),
+                                                    (2, 384, 9, 3, 32, 300),
+                                                    (2, 128, 3, 3, 64, 70),
+                                                    (2, 2048, 24, 8, 128, 1800)])
 def test_never_kernels_match_their_plain_versions(dev, B, T, Hq, Hkv, hd, pad_from):
     """The forward, dq and dk/dv kernels with tri='never' on a ring hop, the
     backward fed the row statistics merged over the hop and the local block."""
@@ -1310,10 +1347,16 @@ def test_twopass_residuals_drive_the_backward_kernels(dev):
 def test_sm90_kernel_info(dev):
     """Every wgmma / TMA kernel reports its registers, no spills and one
     resident block an SM at hd 128 (the runtime's view of what the build log
-    says); the encoder kernel's modes at every head_dim they take."""
+    says); the causal backward's dq and dk/dv kernels (both modes) and the
+    encoder kernel's modes at every head_dim they take."""
     for name in ca.SM90_KERNELS:
         info = ca.sm90_kernel_info(name, 128)
         assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0, (name, info)
+    for name in ("causal_attention_dq", "causal_attention_dq_never", "causal_attention_dkv",
+                 "causal_attention_dkv_never"):
+        for hd in (16, 32, 64):
+            info = ca.sm90_kernel_info(name, hd)
+            assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0, (name, hd, info)
     for name in ea.SM90_KINDS:
         for hd in (16, 32, 64, 128):
             info = ea.sm90_kernel_info(name, hd)
