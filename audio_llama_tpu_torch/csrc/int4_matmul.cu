@@ -14,16 +14,16 @@
 // Two launch shapes of one function, by M:
 //  - M <= 64 (decode): bound by the weight bytes, K * N / 2 per call plus
 //    the scales (q|k|v at 3B dims, group 128: 8.4 MB, 2.5 us at 3.35 TB/s;
-//    group 32: 9.8 MB, 2.9 us). A block owns 128 packed columns (one 4-byte
-//    load a lane, a warp reads 128 contiguous bytes of a row) and a range of
-//    K rows, a multiple of 128 and of the group (so the block count and
-//    shared memory do not depend on the group; a smaller group only reads
-//    more scales); its 8 warps split each group's rows.
-//    x stays in shared memory as f32. So that enough blocks stream the slab,
-//    the K rows are split over blocks (split-K); each block writes its f32
-//    partial to a workspace and the last block of a column tile (by an
-//    atomic counter) adds the partials in split order, so the sum does not
-//    depend on which block finishes first.
+//    group 32: 9.8 MB, 2.9 us). On the weight-streaming core of
+//    int4_common.cuh: a cluster of C blocks along K (C <= 8) owns a tile
+//    of 64 packed columns, each block K / C rows streamed through a
+//    4-stage cp.async ring in shared memory; its warps turn the nibbles
+//    into bf16 in registers and run mma.sync (x as B, 8 tokens an n-tile,
+//    every weight byte read once whatever M); the blocks' f32 partials meet
+//    through distributed shared memory in rank order. No workspace, no
+//    counter. ops/int4_matmul.py::decode_plan picks C: the largest
+//    cluster, as the card's sweeps ranked it (PERF.md, the int4 decode
+//    products).
 //  - M > 64 (prefill): bound by the tensor cores, 2 M K N FLOP at 989
 //    TFLOP/s bf16 (M 6104: gate|up 614.4 GFLOP, 0.621 ms; down 0.311 ms;
 //    q|k|v 0.194 ms; o 0.1165 ms; the bytes, ~263 MB at gate|up, take 0.08
@@ -66,10 +66,12 @@
 // in order, and the partials are added into the accumulator in block order,
 // then rounded once (the TPU kernel's VMEM scratch across its minor grid
 // axis). Its bounds are the whole-K kernel's (the same bytes and FLOP). In
-// the decode shape the blocks along K are the split-K blocks, bk rows each,
-// whose workspace reduce already adds the partials in block order; in the
-// prefill shape (KSPLIT) the register accumulators hold the K block's sum,
-// added at the block's last group to the running sum of the blocks, also in
+// the decode shape every block's rows lie inside one K block (bk a multiple
+// of K / C), and the cluster adds the blocks' partials in order inside each
+// K block, then the K blocks in order (a K block that no C <= 8 divides into
+// whole 64-row stages falls back to the prefill kernel); in the prefill
+// shape (KSPLIT) the register accumulators hold the K block's sum, added at
+// the block's last group to the running sum of the blocks, also in
 // registers, with no workspace.
 #include "int4_common.cuh"
 #include "sm90.cuh"
@@ -77,88 +79,53 @@
 namespace {
 
 using al::kTile;
+using al::unpack_word;
 
-constexpr int kDecodeThreads = 256;  // 8 warps
-constexpr int kDecodeCols = 128;     // packed columns per block (32 lanes x 4 bytes)
+// --- the decode shape (M <= 64) on the weight-streaming core ------------------
 
-__device__ __forceinline__ void store_col(__nv_bfloat16* out, long long ldo, long long hi_off,
-                                          int tile, int row, int c, float v) {
-  const long long at = c < kDecodeCols ? (long long)row * ldo + tile * kDecodeCols + c
-                                       : hi_off + (long long)row * ldo + tile * kDecodeCols +
-                                             (c - kDecodeCols);
-  out[at] = __float2bfloat16(v);
+// grid (nh / kTW) x C blocks in clusters of C along K (blockIdx.x = tile * C
+// + rank); the block partials are summed in rank order inside K blocks of
+// bk rows (bk = K: one block).
+template <int NT>
+__global__ void __launch_bounds__(al::w4::kThreads)
+    w4_decode_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
+                     const int8_t* __restrict__ p, int nh, const float* __restrict__ s, int fmt,
+                     int group, int bk, __nv_bfloat16* __restrict__ out, long long ldo,
+                     long long hi_off) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = blockIdx.x / (int)al::w4::cg::this_cluster().num_blocks();
+  constexpr int tw = al::w4::kTW;
+  const al::w4::Product P{x, K, p, s, nh, group, fmt};
+  const al::w4::Unit u{0, K, bk};
+  al::w4::run_unit<NT>(P, M, tile, u, smem, [](int, int) {},
+                       [&](int tok, int c, float lo, float hi) {
+                         const long long at = (long long)tok * ldo + tile * tw + c;
+                         out[at] = __float2bfloat16(lo);
+                         out[hi_off + at] = __float2bfloat16(hi);
+                       });
 }
 
-__device__ __forceinline__ long long ws_col(int nh, int tile, int c) {
-  return c < kDecodeCols ? tile * kDecodeCols + c : nh + tile * kDecodeCols + (c - kDecodeCols);
-}
-
-// grid (nh / 128, ksplit, ceil(M / MC)); block ks takes K rows
-// [ks * kr, min(K, (ks + 1) * kr)); dynamic shared memory
-// 4 * (MC * kr + 8 * MC * 256) bytes.
-template <int MC>
-__global__ void __launch_bounds__(kDecodeThreads)
-w4_decode_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
-                 const int8_t* __restrict__ p, int nh, const float* __restrict__ s, int fmt,
-                 int group, int kr, __nv_bfloat16* __restrict__ out, long long ldo,
-                 long long hi_off, float* __restrict__ ws, int* __restrict__ counters) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int flag;
-  const int tile = blockIdx.x, ks = blockIdx.y, mz = blockIdx.z;
-  const int ksplit = gridDim.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = mz * MC, mc = min(MC, M - m0);
-  const int kb = ks * kr, ke = min(K, kb + kr), kn = ke - kb;
-  float* xs = smem;             // [MC, kn]
-  float* red = smem + MC * kr;  // [8 warps, MC, 256 columns]
-
-  al::stage_rows_f32<MC>(xs, x, K, M, m0, kb, kn);
-  __syncthreads();
-  float acc[MC][8];
-#pragma unroll
-  for (int m = 0; m < MC; ++m)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[m][i] = 0.f;
-  const int col = tile * kDecodeCols + lane * 4;
-  al::w4_accumulate<MC, 4>(acc, xs, kn, kb, p, nh, col, kb, ke, warp, 8, s, 2LL * nh, nh, fmt,
-                           group);
-#pragma unroll
-  for (int m = 0; m < MC; ++m)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      red[(warp * MC + m) * 256 + lane * 4 + i] = acc[m][i];
-      red[(warp * MC + m) * 256 + kDecodeCols + lane * 4 + i] = acc[m][4 + i];
-    }
-  __syncthreads();
-
-  if (ksplit == 1) {
-    for (int idx = threadIdx.x; idx < mc * 256; idx += blockDim.x) {
-      const int m = idx / 256, c = idx % 256;
-      float v = 0.f;
-      for (int w = 0; w < 8; ++w) v += red[(w * MC + m) * 256 + c];
-      store_col(out, ldo, hi_off, tile, m0 + m, c, v);
-    }
-    return;
+template <int NT>
+struct Decode {
+  static cudaError_t run(const __nv_bfloat16* x, int M, int K, const int8_t* p, int nh,
+                         const float* s, int fmt, int group, int C, int bk,
+                         __nv_bfloat16* out, long long ldo, long long hi_off,
+                         cudaStream_t stream) {
+    if (nh % al::w4::kTW) return cudaErrorInvalidValue;
+    return al::w4::launch_clustered(w4_decode_kernel<NT>, nh / al::w4::kTW * C, C,
+                                    al::w4::unit_smem<NT>(K / C, group), stream, x, M, K, p, nh,
+                                    s, fmt, group, bk, out, ldo, hi_off);
   }
-  const long long wrow = 2LL * nh;
-  float* part = ws + (long long)(mz * ksplit + ks) * MC * wrow;
-  for (int idx = threadIdx.x; idx < mc * 256; idx += blockDim.x) {
-    const int m = idx / 256, c = idx % 256;
-    float v = 0.f;
-    for (int w = 0; w < 8; ++w) v += red[(w * MC + m) * 256 + c];
-    part[m * wrow + ws_col(nh, tile, c)] = v;
+};
+
+// The instance's info at the shared memory of a block over kn rows.
+template <int NT>
+struct DecodeInfo {
+  static cudaError_t run(int kn, int group, int* out) {
+    return al::sm90::kernel_info(w4_decode_kernel<NT>, al::w4::kThreads,
+                                 al::w4::unit_smem<NT>(kn, group), out);
   }
-  int* counter = counters + mz * gridDim.x + tile;
-  if (!al::last_to_arrive(counter, ksplit, &flag)) return;
-  for (int idx = threadIdx.x; idx < mc * 256; idx += blockDim.x) {
-    const int m = idx / 256, c = idx % 256;
-    float v = 0.f;
-    for (int k2 = 0; k2 < ksplit; ++k2)
-      v += __ldcg(ws + (long long)(mz * ksplit + k2) * MC * wrow + m * wrow + ws_col(nh, tile, c));
-    store_col(out, ldo, hi_off, tile, m0 + m, c, v);
-  }
-  if (threadIdx.x == 0) *counter = 0;
-}
+};
 
 // --- the prefill shape (M > 64) on wgmma and TMA --------------------------------
 
@@ -187,29 +154,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-// The nibbles at bits 0-3 and 16-19 of w (offset-binary: value + 8) as a
-// bf16 pair of their values: 0x4300 | u is 128 + u, and 128 + u - 136 is
-// exact.
-__device__ __forceinline__ uint32_t nibble_pair(uint32_t w) {
-  uint32_t r;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
-      : "=r"(r)
-      : "r"((w & 0x000F000Fu) | 0x43004300u), "r"(0x3F803F80u), "r"(0xC308C308u));
-  return r;
-}
-
-// A word of ldmatrix.trans (bytes 0, 2: packed column c at rows k, k + 1;
-// bytes 1, 3: column c + 1) -> the A fragment's two registers of those rows
-// for the low-nibble product (lo[0]: row c, lo[1]: row c + 1) and the
-// high-nibble one.
-__device__ __forceinline__ void unpack_word(uint32_t w, uint32_t& lo0, uint32_t& lo1,
-                                            uint32_t& hi0, uint32_t& hi1) {
-  lo0 = nibble_pair(w);
-  lo1 = nibble_pair(w >> 8);
-  hi0 = nibble_pair(w >> 4);
-  hi1 = nibble_pair(w >> 12);
 }
 
 // acc += part * the scale of its accumulator row (s.x: the thread's first
@@ -438,63 +382,40 @@ cudaError_t launch_prefill(const __nv_bfloat16* x, int M, int K, const int8_t* p
   });
 }
 
-template <int MC>
-cudaError_t launch_decode(const __nv_bfloat16* x, int M, int K, const int8_t* p, int nh,
-                          const float* s, int fmt, int group, int kr, int ksplit,
-                          __nv_bfloat16* out, long long ldo, long long hi_off, float* ws,
-                          int* counters, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)MC * kr + (size_t)8 * MC * 256);
-  cudaError_t err = al::allow_smem(w4_decode_kernel<MC>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(nh / kDecodeCols, ksplit, (M + MC - 1) / MC);
-  w4_decode_kernel<MC><<<grid, kDecodeThreads, smem, stream>>>(
-      x, M, K, p, nh, s, fmt, group, kr, out, ldo, hi_off, ws, counters);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // x [M, K] bf16 row-major; packed: the layer's [K, nh] int8 slab; scales:
 // the layer's [K/group, 2*nh] f32; out bf16: low-nibble column j of row m at
 // out[m*ldo + j], high-nibble column j at out[hi_off + m*ldo + j].
-// M <= 64 takes the decode shape with mc rows per block (1, 2, 4 or 8), kr
-// K rows per block (a multiple of the group) and ksplit = ceil(K / kr)
-// blocks along K (a K-split call passes kr = bk and ksplit = K / bk); ws
-// holds f32 [ceil(M/mc), ksplit, mc, 2*nh] and counters ceil(M/mc) * nh/128
-// ints that are zero at entry (and left zero). M > 64 takes the prefill
-// shape; gpb > 0 (groups per K block, dividing K / group) makes it the
+// M <= 64 with C > 0 takes the decode shape: clusters of C blocks over
+// tiles of 64 packed columns, each block K / C rows (whole 64-row stages
+// and groups), their partials summed in rank order inside K blocks of bk
+// rows (bk = K for the whole-K call, the K-split's block otherwise;
+// ops/int4_matmul.py::decode_plan picks C). M > 64, or C
+// 0 (a K-split whose blocks the decode shape cannot take), takes the
+// prefill shape; gpb > 0 (groups per K block, dividing K / group) makes it the
 // K-split kernel, 0 the whole-K one. Requires al::group_ok(group),
-// K % group == 0, K % 128 == 0, nh % 128 == 0, 16-byte aligned x and packed
-// (checked by the wrapper).
+// K % group == 0, K % 128 == 0, nh % 128 == 0, 16-byte aligned x, packed
+// and scales (checked by the wrapper).
 AL_EXPORT int al_int4_matmul(const void* x, int M, int K, const void* packed, int nh,
                              const void* scales, int fmt, void* out, long long ldo,
-                             long long hi_off, void* ws, void* counters, int mc, int kr,
-                             int ksplit, int gpb, int group, void* stream) {
+                             long long hi_off, int C, int bk, int gpb, int group,
+                             void* stream) {
   if (M == 0) return cudaSuccess;
-  if (!al::group_ok(group) || K % group || K % kTile || nh % kDecodeCols)
+  if (!al::group_ok(group) || K % group || K % kTile || nh % kPCols)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* p = static_cast<const int8_t*>(packed);
   const auto* s = static_cast<const float*>(scales);
   auto* o = static_cast<__nv_bfloat16*>(out);
-  auto* w = static_cast<float*>(ws);
-  auto* c = static_cast<int*>(counters);
-  if (M > 64) {
+  if (M > 64 || C == 0) {
     if (gpb > 0 && (K / group) % gpb) return cudaErrorInvalidValue;
     return launch_prefill(xb, M, K, p, nh, s, fmt, group, gpb, o, ldo, hi_off, st);
   }
-  if (kr <= 0 || kr % group || ksplit != (K + kr - 1) / kr) return cudaErrorInvalidValue;
-#define AL_DECODE(MC) \
-  launch_decode<MC>(xb, M, K, p, nh, s, fmt, group, kr, ksplit, o, ldo, hi_off, w, c, st)
-  switch (mc) {
-    case 1: return AL_DECODE(1);
-    case 2: return AL_DECODE(2);
-    case 4: return AL_DECODE(4);
-    case 8: return AL_DECODE(8);
-    default: return cudaErrorInvalidValue;
-  }
-#undef AL_DECODE
+  if (!al::w4::unit_ok(al::w4::Unit{0, K, bk}, C, group)) return cudaErrorInvalidValue;
+  return al::w4::with_instance<Decode>(M, xb, M, K, p, nh, s, fmt, group, C, bk, o, ldo,
+                                       hi_off, st);
 }
 
 // The unstacked W4A16, replacing audio_llama_tpu/ops/int4_matmul.py::_kernel
@@ -502,14 +423,20 @@ AL_EXPORT int al_int4_matmul(const void* x, int M, int K, const void* packed, in
 // -> out [M, N] bf16 with f32 accumulation, the TPU kernel's lo and hi planes
 // written side by side as one row (its [2, M, N/2] output concatenated). The
 // same device code as the stacked launch with the layer's slab the whole
-// weight: the decode shape (split-K workspace `ws`, `counters`) up to 64
-// rows, the prefill shape past them, whole K.
+// weight: the decode shape up to 64 rows (whole K: bk = K), the prefill
+// shape past them, whole K.
 AL_EXPORT int al_int4_matmul_2d(const void* x, int M, int K, const void* packed, int nh,
-                                const void* scales, int fmt, void* out, void* ws,
-                                void* counters, int mc, int kr, int ksplit, int group,
+                                const void* scales, int fmt, void* out, int C, int group,
                                 void* stream) {
-  return al_int4_matmul(x, M, K, packed, nh, scales, fmt, out, 2LL * nh, nh, ws, counters, mc,
-                        kr, ksplit, 0, group, stream);
+  return al_int4_matmul(x, M, K, packed, nh, scales, fmt, out, 2LL * nh, nh, C, K, 0, group,
+                        stream);
+}
+
+// The decode kernel's instance for M rows with blocks of kn rows at the
+// scale group: registers, local bytes, the dynamic shared memory its launch
+// asks for and resident blocks per SM.
+AL_EXPORT int al_int4_decode_info(int M, int kn, int group, void* out) {
+  return al::w4::with_instance<DecodeInfo>(M, kn, group, static_cast<int*>(out));
 }
 
 namespace al {

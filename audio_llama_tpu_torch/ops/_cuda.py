@@ -51,9 +51,11 @@ SIGNATURES = {
     "al_causal_attention_dma": [_P] * 8 + [_I] * 5 + _STRIDES + [_I, _P],
     "al_decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P, _P],
     "al_mel_power": [_P, _I, _L, _I, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P],
-    "al_int4_matmul": [_P, _I, _I, _P, _I, _P, _I, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _P],
-    "al_int4_matmul_2d": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    "al_mlp_int4": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "al_int4_matmul": [_P, _I, _I, _P, _I, _P, _I, _P, _L, _L] + [_I] * 4 + [_P],
+    "al_int4_matmul_2d": [_P, _I, _I, _P, _I, _P, _I, _P] + [_I] * 2 + [_P],
+    "al_int4_decode_info": [_I, _I, _I, _P],
+    "al_mlp_int4": [_P, _I, _I] + [_P] * 5 + [_I] * 6 + [_P] * 5,
+    "al_mlp_int4_info": [_I] * 6 + [_P],
     "al_decode_attention_q4": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P, _P],
     "al_decode_attention_q8": [_I] + [_P] * 11 + [_I] * 7 + [_F, _P, _P],
     "al_decode_megakernel": [_P] * 24 + [_I] * 8 + [_F, _F, _I, _I, _P],
@@ -69,7 +71,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-_counters = {}  # device -> int32 zeros shared by the split-sum kernels
+_counters = {}  # device -> int32 zeros shared by the counting kernels
 _barriers = {}  # device -> the megakernel's grid-barrier words
 
 
@@ -152,10 +154,10 @@ def library() -> ctypes.CDLL:
 
 
 def counters(device: torch.device, n: int) -> torch.Tensor:
-    """n int32 zeros on `device` for the kernels that add their blocks'
-    partial sums in a fixed order (ops/int4_matmul.py, ops/mlp_int4.py): the
-    last block of a sum finds itself by an atomic count and resets the count
-    to zero, so one buffer serves every launch on the stream."""
+    """n int32 zeros on `device` for the kernels that count in device memory
+    (ops/mlp_int4.py: its ticket, ready and arrival counts;
+    ops/decode_attention_packed.py): each kernel leaves them zero, so one
+    buffer serves every launch on the stream."""
     with _lock:
         buf = _counters.get(device)
         if buf is None or buf.numel() < n:

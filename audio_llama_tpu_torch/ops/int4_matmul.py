@@ -17,7 +17,8 @@ The kernel `int4_matmul_stacked` replaces `_kernel_stacked`: x [..., K] @
 dequant(packed_all[layer]) with the layer picked by a pointer offset into
 the [L, K, N/2] slab. The CUDA kernel is `csrc/int4_matmul.cu` (its source
 note gives the bounds and the two launch shapes: M <= 64 streams the
-weight bytes, M > 64 runs on wgmma and TMA).
+weight bytes through the tensor cores on the core of `csrc/int4_common.cuh`,
+in clusters whose shape `decode_plan` picks; M > 64 runs on wgmma and TMA).
 `int4_matmul_stacked_plain` is the same arithmetic in PyTorch: per scale
 group the f32 dot of x with the integer nibbles, times the group's f32
 scale, summed over groups, cast to x's dtype. The group is an argument of
@@ -50,8 +51,9 @@ projection's K 8192 whole. Each launch counts in `launches` (whole K) or
 
 from __future__ import annotations
 
+import functools
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -69,7 +71,7 @@ launches_ksplit = 0  # K-split kernel launches (block_k or INT4_BK in effect)
 launches_2d = 0  # unstacked kernel launches through `int4_matmul`
 
 DECODE_MAX_M = 64  # rows up to which the kernel takes its weight-streaming shape
-_TARGET_BLOCKS = 264  # two blocks per SM of the H100's 132
+_MAX_CLUSTER = 8  # blocks a cluster (the portable limit)
 _SMEM_MAX = 232448  # shared memory a block can use on the H100
 
 
@@ -257,18 +259,101 @@ def check_group(name: str, K: int, group: int) -> None:
             f"got group={group} K={K}")
 
 
-def decode_split(M: int, K: int, Nh: int, group: int = GROUP):
-    """(rows per block, K rows per block, blocks along K) of the kernel's
-    M <= 64 shape: enough blocks to stream the slab on every SM. A block's K
-    rows are a multiple of 128 and of the group, so a group below 128 gives
-    the blocks and shared memory of group 128 (at most 1024 rows a block)."""
-    mc = next(c for c in (1, 2, 4, 8) if c >= min(M, 8))
-    unit = max(128, group)
-    n_units = -(-K // unit)
-    blocks = (Nh // 128) * -(-M // mc)
-    ksplit = min(n_units, max(1, -(-_TARGET_BLOCKS // blocks)))
-    upb = min(max(1, 1024 // unit), -(-n_units // ksplit))
-    return mc, upb * unit, -(-n_units // upb)
+def decode_instance(M: int) -> int:
+    """NT, the n-tiles of 8 tokens of the decode kernels' instance for M <= 64
+    rows (int4_common.cuh's `with_instance`)."""
+    return 1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8
+
+
+KROWS, KSTAGES = 64, 4  # a ring stage's rows and the ring's stages (int4_common.cuh)
+TILE = 64  # packed columns a decode block's tile (int4_common.cuh's kTW)
+
+
+def unit_smem(nt: int, kn: int, group: int) -> int:
+    """Dynamic shared memory of a decode block over kn rows: the ring, x and
+    the scales while the rows stream, then the block's sums over the same
+    bytes. The launch's own figure is int4_common.cuh's `unit_smem`; this
+    copy is the planners' feasibility check (the card tests compare the two
+    through `decode_kernel_info`)."""
+    tok = 8 * nt
+    stream = (KSTAGES * KROWS * TILE + tok * ((kn + 63) // 64 * 64 + 8) * 2
+              + (kn // group) * 2 * TILE * 4)
+    return max(stream, 2 * tok * TILE * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_sizes(nt: int, K: int, span: int, group: int) -> Tuple[int, ...]:
+    """Every cluster size C over K rows (int4_common.cuh's `unit_ok`): C <= 8
+    blocks of whole 64-row stages and whole groups, each inside one block of
+    `span` rows (span | K), the block in shared memory."""
+    out = []
+    for C in range(1, _MAX_CLUSTER + 1):
+        kn = K // C
+        if K % C or kn % KROWS or kn % group or span % kn:
+            continue
+        if unit_smem(nt, kn, group) <= _SMEM_MAX:
+            out.append(C)
+    return tuple(out)
+
+
+class DecodePlan(NamedTuple):
+    """The launch of the W4A16's decode shape: instance NT, clusters of C
+    blocks over a tile of TILE packed columns each (`tiles` tiles), K / C
+    rows a block, the block partials summed in order inside K blocks of
+    `bk` rows (K: the whole-K call); `smem` bytes a block."""
+    nt: int
+    C: int
+    bk: int
+    tiles: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.C
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(M: int, K: int, Nh: int, group: int = GROUP, bk: int = 0) -> DecodePlan:
+    """The decode shape's launch for M <= 64 rows, K, Nh packed columns and
+    the K-split block bk (0: whole K): the largest cluster that fits (the
+    card's sweeps, PERF.md, int4 decode: a block's chain of ring stages and
+    k-steps is what the time follows, so the fewest rows a block win).
+    ValueError where none fits (a K block below 64 rows or a group, or more
+    than 8 of them)."""
+    nt = decode_instance(M)
+    span = bk or K
+    sizes = cluster_sizes(nt, K, span, group)
+    if not sizes or Nh % TILE:
+        raise ValueError(f"int4 decode: no launch for M={M} K={K} N/2={Nh} group={group} "
+                         f"block_k={bk}")
+    C = max(sizes)
+    return DecodePlan(nt, C, span, Nh // TILE, unit_smem(nt, K // C, group))
+
+
+def decode_plan_or_none(M: int, K: int, Nh: int, group: int, bk: int = 0):
+    """`decode_plan` up to DECODE_MAX_M rows where one fits, else None (the
+    wrappers then launch the prefill kernel, which takes every M and K
+    block)."""
+    if M > DECODE_MAX_M:
+        return None
+    try:
+        return decode_plan(M, K, Nh, group, bk)
+    except ValueError:
+        return None
+
+
+def decode_kernel_info(M: int, kn: int, group: int) -> dict:
+    """Registers per thread, local (spilled) bytes, the dynamic shared memory
+    its launch asks for and resident blocks per SM of the decode kernel's
+    instance for M rows with blocks of kn rows at the scale group, from the
+    CUDA runtime."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    _cuda.check(_cuda.library().al_int4_decode_info(M, kn, group,
+                                                    ctypes.cast(out, ctypes.c_void_p)),
+                "int4 decode info")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2], blocks_per_sm=out[3])
 
 
 # the prefill kernel's instances, as al_sm90_kernel_info numbers them
@@ -326,26 +411,13 @@ def int4_matmul_stacked_cuda(x, packed_all, scales_all, layer, group: int = GROU
         out = torch.empty((M, N), dtype=x.dtype, device=x.device)
         ldo, hi_off = N, Nh
     bk = ksplit_block(K, block_k, group) if block_k else 0
-    gpb = bk // group if M > DECODE_MAX_M else 0
-    if M > DECODE_MAX_M:
-        mc, kr, ksplit = 0, 0, 1
-    elif bk:  # the decode shape's blocks along K are the K blocks
-        mc, kr, ksplit = decode_split(M, K, Nh, group)[0], bk, K // bk
-        if 4 * (mc * bk + 8 * mc * 256) > _SMEM_MAX:
-            raise ValueError(f"{name}: block_k={bk} leaves the decode shape's x rows and "
-                             f"partials ({mc} rows) past {_SMEM_MAX} bytes of shared memory")
-    else:
-        mc, kr, ksplit = decode_split(M, K, Nh, group)
-    mz = -(-M // mc) if mc else 0
-    if ksplit > 1:
-        ws = torch.empty((mz, ksplit, mc, N), dtype=torch.float32, device=x.device)
-        cnt = _cuda.counters(x.device, mz * (Nh // 128))
-        ws_ptr, cnt_ptr = ws.data_ptr(), cnt.data_ptr()
-    else:
-        ws_ptr = cnt_ptr = None
+    plan = decode_plan_or_none(M, K, Nh, group, bk)
+    # no decode plan (past 64 rows, or K blocks the ring cannot take): the
+    # prefill kernel, whole K or K-split
+    gpb, C, span = (bk // group, 0, 0) if plan is None else (0, plan.C, plan.bk)
     err = _cuda.library().al_int4_matmul(
         x2.data_ptr(), M, K, p.data_ptr(), Nh, s.data_ptr(), code, out.data_ptr(), ldo, hi_off,
-        ws_ptr, cnt_ptr, mc, kr, ksplit, gpb, group, _cuda.stream_handle(x),
+        C, span, gpb, group, _cuda.stream_handle(x),
     )
     _cuda.check(err, name)
     if bk:
@@ -387,16 +459,10 @@ def int4_matmul_cuda(x, packed, scales, group: int = GROUP, fmt: Optional[str] =
     if not all(_cuda.aligned16(t) for t in (x2, packed, scales)):
         raise ValueError(f"{name}: x, the packed weight and the scales must be 16-byte aligned")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    mc, kr, ksplit = (0, 0, 1) if M > DECODE_MAX_M else decode_split(M, K, Nh, group)
-    ws_ptr = cnt_ptr = None
-    if ksplit > 1:
-        mz = -(-M // mc)
-        ws = torch.empty((mz, ksplit, mc, N), dtype=torch.float32, device=x.device)
-        ws_ptr = ws.data_ptr()
-        cnt_ptr = _cuda.counters(x.device, mz * (Nh // 128)).data_ptr()
+    plan = decode_plan_or_none(M, K, Nh, group)
     err = _cuda.library().al_int4_matmul_2d(
         x2.data_ptr(), M, K, packed.data_ptr(), Nh, scales.data_ptr(), code, out.data_ptr(),
-        ws_ptr, cnt_ptr, mc, kr, ksplit, group, _cuda.stream_handle(x),
+        0 if plan is None else plan.C, group, _cuda.stream_handle(x),
     )
     _cuda.check(err, name)
     launches_2d += 1

@@ -20,11 +20,13 @@ path).
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _cuda
+from . import int4_matmul as i4
 from .int4_matmul import (FMT_CODE, GROUP, _fmt, _unpack_planes, check_group,
                           int4_matmul_stacked_ref)
 
@@ -32,13 +34,13 @@ launches = 0  # kernel launches through `mlp_int4_stacked` without dn_r
 launches_dnr = 0  # kernel launches with a down equalizer dn_r (smoothed trees)
 
 MAX_M = 64
+SMS = 132  # the H100's SMs
 CHUNK = 512  # F columns per chunk (the TPU kernel's grid step)
-# The CUDA kernel's chunk: 128 columns, 128 / G down scale groups of G
-# rows (G itself above 128). The TPU kernel walks its chunks in order on one
-# core; here each chunk is a block, so 128 columns a chunk put 64 blocks on
-# the card at F = 8192 (512 would leave 116 of 132 SMs idle). The
-# activations are the same; only the f32 order of the sum over chunks
-# changes.
+# The chunk the model passes for the card's kernel: 128 columns, or the
+# group above 128. The TPU kernel walks its chunks in order on one core; the
+# CUDA kernel tiles F by its own plan (`mlp_plan`), whatever the chunk: the
+# activations are the same, and only the f32 order of the down sum over F
+# changes (the plain version sums by chunks).
 KERNEL_CHUNK = 128
 
 
@@ -60,13 +62,78 @@ def geometry_ok(K: int, F: int, D: int, group: int = GROUP, chunk: Optional[int]
 
 
 def kernel_chunk(F: int, dh: int, group: int = GROUP):
-    """The F-chunk the fused kernel runs at for an MLP of F columns and a
-    down slab of dh packed columns, or None where the kernel cannot tile it
-    (the caller then takes the two-call planes path)."""
+    """The F-chunk the model runs the fused kernel at for an MLP of F columns
+    and a down slab of dh packed columns, or None where the kernel cannot
+    tile it (the caller then takes the two-call planes path): the kernel's
+    column tiles (`int4_matmul.TILE` packed columns) must divide F and dh."""
     c = pick_chunk(F, group, target=max(KERNEL_CHUNK, group))
-    if c is None or 256 % (c // 8) or dh % 8:
+    if c is None or F % i4.TILE or dh % i4.TILE:
         return None
     return c
+
+
+class MlpPlan(NamedTuple):
+    """The fused kernel's launch: instance NT, clusters of C blocks over
+    tiles of `int4_matmul.TILE` packed columns; gate|up units (`tiles_g`
+    tiles of F over all K, K / C rows a block), then down units (`tiles_d`
+    tiles of D/2 times n_kc K chunks of F / n_kc rows, F / n_kc / C rows a
+    block); `smem` bytes a block."""
+    nt: int
+    C: int
+    n_kc: int
+    tiles_g: int
+    tiles_d: int
+    smem: int
+
+    @property
+    def units(self) -> int:
+        return self.tiles_g + self.n_kc * self.tiles_d
+
+    @property
+    def counters(self) -> int:
+        return 2 + self.tiles_g + self.tiles_d
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_plan(M: int, K: int, F: int, dh: int, group: int = GROUP) -> Optional[MlpPlan]:
+    """The fused kernel's launch for M <= 64 rows: one cluster size C for
+    both products, first one that gives both at least a block an SM, then
+    the largest (as `int4_matmul.decode_plan`), then the down product's K
+    chunks nearest 4 (the card's best at the 3B widths, PERF.md, int4
+    decode). None where nothing fits."""
+    nt = i4.decode_instance(M)
+    if F % i4.TILE or dh % i4.TILE:
+        return None
+    tiles_g, tiles_d = F // i4.TILE, dh // i4.TILE
+    gate_up = i4.cluster_sizes(nt, K, K, group)
+    best = None
+    for n_kc in (1, 2, 4, 8, 16, 32):  # K chunks of the down product
+        kcr = F // n_kc
+        if F % n_kc or kcr % group:
+            continue
+        for C in i4.cluster_sizes(nt, kcr, kcr, group):
+            if C not in gate_up:
+                continue
+            key = (tiles_g * C < SMS or tiles_d * n_kc * C < SMS, -C,
+                   abs(n_kc.bit_length() - 3))
+            if best is None or key < best[0]:
+                smem = max(i4.unit_smem(nt, K // C, group), i4.unit_smem(nt, kcr // C, group))
+                best = key, MlpPlan(nt, C, n_kc, tiles_g, tiles_d, smem)
+    return None if best is None else best[1]
+
+
+def kernel_info(M: int, K: int, F: int, plan: MlpPlan, group: int = GROUP) -> dict:
+    """Registers per thread, local (spilled) bytes, the dynamic shared memory
+    its launch asks for and resident blocks per SM of the fused kernel's
+    instance for M rows at `plan` (K, F, the scale group), from the CUDA
+    runtime."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    _cuda.check(_cuda.library().al_mlp_int4_info(M, K, F, plan.C, plan.n_kc, group,
+                                                 ctypes.cast(out, ctypes.c_void_p)),
+                "mlp_int4 info")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2], blocks_per_sm=out[3])
 
 
 def mlp_int4_stacked_ref(x, gup_packed, gup_scales, dn_packed, dn_scales, layer,
@@ -154,7 +221,7 @@ def mlp_int4_stacked_cuda(x, gup_packed, gup_scales, dn_packed, dn_scales, layer
         _cuda.require_shape(name, dn_r, (L, F))
         if not dn_r.is_contiguous():
             raise ValueError(f"{name}: dn_r must be contiguous")
-    if Kp != K or chunk is None or chunk % group or F % chunk or 256 % (chunk // 8) or dh % 8:
+    if Kp != K or chunk is None or chunk % group or F % chunk:
         raise ValueError(f"{name}: unsupported geometry K={K} F={F} D/2={dh} chunk={chunk}")
     if not all(t.is_contiguous() for t in (gup_packed, gup_scales, dn_packed, dn_scales)):
         raise ValueError(f"{name}: the slabs must be contiguous")
@@ -162,20 +229,24 @@ def mlp_int4_stacked_cuda(x, gup_packed, gup_scales, dn_packed, dn_scales, layer
     M = x2.shape[0]
     if M > MAX_M:
         raise ValueError(f"{name}: decode only (M <= {MAX_M}), got M={M}")
-    smem = 4 * (4 * K + 4096 * 4 + 4 * chunk)
-    if smem > 227 * 1024:
-        raise ValueError(f"{name}: K={K} exceeds the shared-memory budget")
+    if not all(_cuda.aligned16(t) for t in (x2, gup_packed, gup_scales, dn_packed, dn_scales)):
+        raise ValueError(f"{name}: x, the slabs and the scales must be 16-byte aligned")
+    plan = mlp_plan(max(M, 1), K, F, dh, group)
+    if plan is None:
+        raise ValueError(f"{name}: no launch for K={K} F={F} D/2={dh} group={group}")
     li = int(layer)
     if not 0 <= li < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
     out = torch.empty((M, 2 * dh), dtype=x.dtype, device=x.device)
-    ws = torch.empty((F // chunk, M, 2 * dh), dtype=torch.float32, device=x.device)
-    cnt = _cuda.counters(x.device, 1)
+    act = torch.empty((M, F), dtype=x.dtype, device=x.device)
+    ws = torch.empty((plan.n_kc, M, 2 * dh), dtype=torch.float32, device=x.device)
+    cnt = _cuda.counters(x.device, plan.counters)
     err = _cuda.library().al_mlp_int4(
         x2.data_ptr(), M, K, gup_packed[li].data_ptr(), gup_scales[li].data_ptr(),
         dn_packed[li].data_ptr(), dn_scales[li].data_ptr(),
-        None if dn_r is None else dn_r[li].data_ptr(), F, dh, chunk, code, group,
-        out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), _cuda.stream_handle(x),
+        None if dn_r is None else dn_r[li].data_ptr(), F, dh, code, group, plan.C,
+        plan.n_kc, act.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        cnt.data_ptr(), _cuda.stream_handle(x),
     )
     _cuda.check(err, name)
     if dn_r is None:

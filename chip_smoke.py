@@ -17,8 +17,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (CUDA events: a plain version launches thousands of kernels, and a
      process's CUPTI loses records once it has traced some 10^5 of them),
      one library call as a yardstick where one exists
-     (never used by the port) and the least time the card could take
-     (bound); the megakernel also with its grid barriers alone;
+     (never used by the port; the int4 decode products' on dequantized
+     weights rotated past the L2, `library_ms_hot` on one) and the least
+     time the card could take (bound); the megakernel also with its grid
+     barriers alone; the int4 decode kernels' planted faults include a
+     block's rows left out of the cluster sum, a stale ring stage, and the
+     MLP's activations read from the next tile and a down K chunk left out;
   3. bf16 main path: `inference.generate.generate` at the full published
      widths (Llama-3.2-3B decoder, Whisper-large-v3-turbo encoder, LoRA rank
      64) with seeded random weights: a 30 s log-mel clip and a 24-token
@@ -194,6 +198,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -762,6 +767,84 @@ def prefill_faults(got, want, frac, run, packed, li) -> dict:
     }
 
 
+L2_BYTES = 50e6  # the H100's L2
+
+
+def cold_layers(layer_bytes: float) -> int:
+    """Layers a rotated yardstick cycles through so that together they
+    exceed the L2 (each call then streams its weight from device memory, as
+    the kernels' own calls rotating over the 28 layers do)."""
+    return 1 + int(math.ceil(L2_BYTES / layer_bytes))
+
+
+def rotated_ms(fn, n: int, iters: int = 56) -> "Ms":
+    """time_ms of fn(i), i cycling over range(n)."""
+    turn = itertools.count()
+    return time_ms(lambda: fn(next(turn) % n), iters=iters)
+
+
+DECODE_STAGE = 64  # rows of a stage of the decode kernels' ring (int4_common.cuh)
+
+
+def decode_faults(got, want, frac, run, packed, li, x, plan, plain) -> dict:
+    """The W4A16 decode kernel's planted faults, each of which must fail the
+    bar that `got` (its output at a decode shape, one [M, N] row) passed:
+    block rank 1's rows (K / C of them, `plan`) left out of the cluster's
+    sum (the plain version of x with those rows zero); a stale ring stage
+    (block 0's stage 1, rows 64-127, computed with stage 0's packed bytes).
+    plain(xx, p) is the plain version."""
+    name = "int4_matmul_stacked"
+    kn = x.shape[-1] // plan.C
+    dropped = x.clone()
+    dropped[:, kn:2 * kn] = 0
+    stale = packed.clone()
+    stale[li, DECODE_STAGE:2 * DECODE_STAGE] = packed[li, :DECODE_STAGE]
+    return {
+        "decode: block rank 1's rows left out of the cluster sum": must_reject(
+            name, "a block's rows left out", got, plain(dropped, packed), frac),
+        "decode: a stale ring stage (rows 64-127 with rows 0-63's bytes)": must_reject(
+            name, "stale ring stage", run(p=stale), want, frac),
+    }
+
+
+def mlp_faults(got, want, frac, x, gup, gus, dn, dns, li, group, plain) -> dict:
+    """The fused MLP's planted faults, each of which must fail the bar that
+    `got` passed, planted on the plain version's inputs: gate|up tile 0's
+    activations read from tile 1 (its packed columns and scales copied from
+    tile 1's); a gate|up block's rows (rank 1's) left out (x's rows zero); a
+    down K chunk (chunk 1) left out of the workspace sum (its scale rows
+    zero); a stale ring stage of the gate|up slab (rows 64-127 with rows
+    0-63's bytes). plain(x, gup, gus, dns) is the plain version."""
+    from audio_llama_tpu_torch.ops import int4_matmul as i4
+    from audio_llama_tpu_torch.ops import mlp_int4 as mlp4
+
+    name = "mlp_int4_stacked"
+    K, F, dh = gup.shape[1], gup.shape[2], dn.shape[2]
+    plan = mlp4.mlp_plan(x.shape[0], K, F, dh, group)
+    tw, kn = i4.TILE, K // plan.C
+    moved_p, moved_s = gup.clone(), gus.clone()
+    moved_p[li, :, :tw] = gup[li, :, tw:2 * tw]
+    moved_s[li, :, :tw] = gus[li, :, tw:2 * tw]
+    moved_s[li, :, F:F + tw] = gus[li, :, F + tw:F + 2 * tw]
+    dropped = x.clone()
+    dropped[:, kn:2 * kn] = 0
+    kcr = F // plan.n_kc
+    no_chunk = dns.clone()
+    no_chunk[li, kcr // group:2 * kcr // group] = 0
+    stale = gup.clone()
+    stale[li, DECODE_STAGE:2 * DECODE_STAGE] = gup[li, :DECODE_STAGE]
+    return {
+        "tile 0's activations read from tile 1": must_reject(
+            name, "activations of the next tile", got, plain(x, moved_p, moved_s, dns), frac),
+        "gate|up block rank 1's rows left out": must_reject(
+            name, "a gate|up block's rows left out", got, plain(dropped, gup, gus, dns), frac),
+        "down K chunk 1 left out of the workspace sum": must_reject(
+            name, "a down K chunk left out", got, plain(x, gup, gus, no_chunk), frac),
+        "a stale gate|up ring stage (rows 64-127 with rows 0-63's bytes)": must_reject(
+            name, "stale ring stage", got, plain(x, stale, gus, dns), frac),
+    }
+
+
 def int4_kernel_checks(dev, gen):
     """The four kernels of the int4 path at its shapes (B = 4): mel power,
     the W4A16 matmul (decode and prefill shapes, both pack formats), the
@@ -869,6 +952,10 @@ def int4_kernel_checks(dev, gen):
                 "int4_matmul_stacked", "obin decoded as pair", run(f="pair"), want, frac)
         if label == f"prefill q|k|v M {B * prefix}":
             faults.update(prefill_faults(got, want, frac, run, packed, li))
+        if label == "decode q|k|v":
+            faults.update(decode_faults(
+                got, want, frac, run, packed, li, x, i4.decode_plan(M, K, N // 2),
+                lambda xx, p: i4.int4_matmul_stacked_plain(xx, p, scales, li, fmt=fmt)))
         del got
         w_deq = i4.dequantize_ref(packed[li], scales[li], fmt=fmt).to(bf)
         flops = 2.0 * M * K * N
@@ -883,6 +970,13 @@ def int4_kernel_checks(dev, gen):
             plain_ms=events_ms(plain, iters=10 if M <= 64 else 3),
             library_ms=time_ms(lambda: x @ w_deq, iters=56 if M <= 64 else 10),
             bound_ms=bms, bound_by=bby)
+        if M <= 64:  # the yardstick from device memory too; the hot one beside it
+            n = cold_layers(2.0 * K * N)
+            w_rot = [i4.dequantize_ref(packed[i], scales[i], fmt=fmt).to(bf) for i in range(n)]
+            shape_row["library_ms_hot"] = shape_row["library_ms"]
+            shape_row["library_ms"] = rotated_ms(lambda i: x @ w_rot[i], n)
+            shape_row["library_layers"] = n
+            del w_rot
         by_shape.append(shape_row)
         log(f"kernel int4_matmul_stacked {label} ok: {json.dumps(shape_row)}")
         del packed, scales, x, want, w_deq
@@ -895,7 +989,10 @@ def int4_kernel_checks(dev, gen):
         tol=tol_entry(frac), tol_ratio=worst[0], planted_fault_ratios=faults,
         ms=first["ms"], plain_ms=first["plain_ms"], library_ms=first["library_ms"],
         bound_ms=first["bound_ms"], bound_by=first["bound_by"], launches=None,
+        library_ms_hot=first["library_ms_hot"],
         shapes="the row's times are the decode q|k|v call; by_shape has every shape",
+        notes="library_ms at M <= 64: x @ the dequantized bf16 layer, rotated over layers "
+              "that exceed the L2 (library_ms_hot: one layer)",
         by_shape=by_shape, sm90=w4_sm90_report(),
     ))
     log(f"kernel int4_matmul_stacked ok: planted faults rejected: {faults}")
@@ -913,11 +1010,26 @@ def int4_kernel_checks(dev, gen):
                              want, frac)
     dropped = gus.clone()
     dropped[li, :, Fd - chunk:Fd] = 0  # the last chunk's gate: a = 0, as if dropped
+    got = mlp4.mlp_int4_stacked_cuda(x, gup, gus, dn, dns, li, chunk=chunk)
     faults = {"last F-chunk dropped": must_reject(
         "mlp_int4_stacked", "last F-chunk dropped",
         mlp4.mlp_int4_stacked_cuda(x, gup, dropped, dn, dns, li, chunk=chunk), want, frac)}
+    faults.update(mlp_faults(
+        got, want, frac, x, gup, gus, dn, dns, li, 128,
+        lambda xx, gp, gs, ds: mlp4.mlp_int4_stacked_plain(xx, gp, gs, dn, ds, li, chunk=chunk)))
+    del got
     wg = i4.dequantize_ref(gup[li], gus[li]).to(bf)
     wd = i4.dequantize_ref(dn[li], dns[li]).to(bf)
+    # the yardstick from device memory: dequantized layers, rotated
+    n_rot = cold_layers(2.0 * D * 3 * Fd)
+    w_rot = [(i4.dequantize_ref(gup[i], gus[i]).to(bf), i4.dequantize_ref(dn[i], dns[i]).to(bf))
+             for i in range(n_rot)]
+
+    def mlp_library(i, r=None):
+        g, d = w_rot[i]
+        a = F.silu(x @ g[:, :Fd]) * (x @ g[:, Fd:])
+        return (a if r is None else a * r) @ d
+
     nbytes = D * Fd + (D / 128) * 2 * Fd * 4 + Fd * dh + (Fd / 128) * D * 4 + 2.0 * B * 2 * D
     flops = 2.0 * B * D * 2 * Fd + 2.0 * B * Fd * D
     bms, bby = bound(flops, nbytes)
@@ -930,13 +1042,20 @@ def int4_kernel_checks(dev, gen):
                                                       chunk=chunk), iters=56),
         plain_ms=events_ms(lambda: mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, li,
                                                              chunk=chunk), iters=5),
-        library_ms=time_ms(lambda: (F.silu(x @ wg[:, :Fd]) * (x @ wg[:, Fd:])) @ wd, iters=56),
-        # the same kernel at the TPU kernel's chunk (16 blocks at F = 8192)
+        library_ms=rotated_ms(mlp_library, n_rot),
+        library_ms_hot=time_ms(lambda: (F.silu(x @ wg[:, :Fd]) * (x @ wg[:, Fd:])) @ wd,
+                               iters=56),
+        library_layers=n_rot,
+        # the same kernel at the TPU kernel's chunk (the activations do not
+        # depend on it; only the plain version's order of the down sum does)
         ms_at_tpu_chunk=time_ms(lambda: mlp4.mlp_int4_stacked_cuda(
             x, gup, gus, dn, dns, next(turn) % L, chunk=mlp4.pick_chunk(Fd)), iters=56),
         launches=None, bound_ms=bms, bound_by=bby,
         shapes=f"x[{B},{D}] bf16, gate|up [{L},{D},{Fd}], down [{L},{Fd},{dh}] int8, "
                f"chunk {chunk}",
+        notes="library_ms: three matmuls and SiLU on dequantized bf16 layers, rotated over "
+              "layers that exceed the L2 (library_ms_hot: one layer)",
+        sm90=mlp4_sm90_report(),
     ))
     log(f"kernel mlp_int4_stacked ok: max_abs_err={err:.3e} tol_ratio={ratio:.3f} "
         f"planted faults rejected: {faults}")
@@ -974,15 +1093,17 @@ def int4_kernel_checks(dev, gen):
                                                       chunk=chunk, dn_r=dn_r), iters=56),
         plain_ms=events_ms(lambda: mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, li,
                                                              chunk=chunk, dn_r=dn_r), iters=5),
-        library_ms=time_ms(lambda: (F.silu(x @ wg[:, :Fd]) * (x @ wg[:, Fd:]) * r_bf) @ wd,
-                           iters=56),
+        library_ms=rotated_ms(lambda i: mlp_library(i, r_bf), n_rot),
+        library_ms_hot=time_ms(lambda: (F.silu(x @ wg[:, :Fd]) * (x @ wg[:, Fd:]) * r_bf) @ wd,
+                               iters=56),
+        library_layers=n_rot,
         launches=None, bound_ms=bms, bound_by=bby,
         shapes=f"x[{B},{D}] bf16, gate|up [{L},{D},{Fd}], down [{L},{Fd},{dh}] int8, "
                f"dn_r [{L},{Fd}] f32, chunk {chunk}",
     ))
     log(f"kernel mlp_int4_stacked[dn_r] ok: max_abs_err={err:.3e} tol_ratio={ratio:.3f} "
         f"planted faults rejected: {faults}")
-    del gup, gus, dn, dns, wg, wd, dropped, dn_r, r_bf
+    del gup, gus, dn, dns, wg, wd, dropped, dn_r, r_bf, w_rot
 
     # 8. int4-KV decode attention: the last decode step of the int4 path
     Hkv, Hq, hd = lc.num_kv_heads, lc.num_heads, lc.head_dim
@@ -4997,18 +5118,41 @@ def enc_sm90_report(kind: str) -> dict:
     return dict(kernel=kind, **sm90_checked(kind, ENC_SM90[kind], ea.sm90_kernel_info(kind, 64)))
 
 
+DECODE_REPORT_M = (4, 16, 32, 64)  # one M of each decode instance (NT)
+
+
 def w4_sm90_report() -> dict:
     """Every instance of the W4A16 prefill kernel (int4_matmul.cu: groups
-    16-256, whole K and K-split), by `sm90_checked`."""
+    16-256, whole K and K-split) and of its decode kernel (one M an instance,
+    at q|k|v's plan), by `sm90_checked`."""
     from audio_llama_tpu_torch.ops import int4_matmul as i4
 
     out = {}
+    for M in DECODE_REPORT_M:
+        plan = i4.decode_plan(M, 3072, 2560)
+        label = f"int4_matmul_decode M {M}"
+        out[label] = sm90_checked(label, f"w4_decode_kernelILi{plan.nt}EE",
+                                  i4.decode_kernel_info(M, 3072 // plan.C, 128))
     for kind, code in i4.SM90_KINDS.items():
         for group in (16, 32, 64, 128, 256):
             entry = (f"w4_wgmma_kernelINS_7PrefillILb{code - 5}ELi{max(1, 128 // group)}"
                      f"ELb{int(group > 128)}E")
             out[f"{kind} group {group}"] = sm90_checked(
                 f"{kind} group {group}", entry, i4.sm90_kernel_info(kind, group))
+    return out
+
+
+def mlp4_sm90_report() -> dict:
+    """Every instance of the fused MLP kernel (one M an instance, at the 3B
+    widths' plan), by `sm90_checked`."""
+    from audio_llama_tpu_torch.ops import mlp_int4 as mlp4
+
+    out = {}
+    for M in DECODE_REPORT_M:
+        plan = mlp4.mlp_plan(M, 3072, 8192, 1536)
+        label = f"mlp_int4_stacked M {M}"
+        out[label] = sm90_checked(label, f"mlp4_kernelILi{plan.nt}EE",
+                                  mlp4.kernel_info(M, 3072, 8192, plan))
     return out
 
 
@@ -5340,6 +5484,13 @@ def ksplit_kernel_checks(dev, gen):
                     raise AssertionError(f"{name} {label}: planes differ from the row output")
                 err, ratio = check_close(f"{name} {label} {fmt} bk {bk}", got, want, frac)
                 worst = max(worst, (ratio, err))
+                if fmt == "pair" and M <= 64:
+                    faults.update({f"{label} bk {bk}: {k}": v for k, v in decode_faults(
+                        got, want, frac,
+                        lambda p: i4.int4_matmul_stacked_cuda(x, p, scales, li, block_k=bk),
+                        packed, li, x, i4.decode_plan(M, K, N // 2, 128, bk),
+                        lambda xx, p: i4.int4_matmul_stacked_ksplit_plain(
+                            xx, p, scales, li, bk)).items()})
                 if fmt == "pair":
                     nb, gpb = K // bk, bk // 128
                     dropped = x.clone()
@@ -5370,6 +5521,12 @@ def ksplit_kernel_checks(dev, gen):
         shape_row["plain_ms"] = events_ms(lambda: i4.int4_matmul_stacked_ksplit_plain(
             x, packed, scales, li, 768), iters=10 if M <= 64 else 3)
         shape_row["library_ms"] = time_ms(lambda: x @ w_deq, iters=iters)
+        if M <= 64:  # the yardstick from device memory too; the hot one beside it
+            n = cold_layers(2.0 * K * N)
+            w_rot = [i4.dequantize_ref(packed[i], scales[i]).to(bf) for i in range(n)]
+            shape_row["library_ms_hot"] = shape_row["library_ms"]
+            shape_row["library_ms"] = rotated_ms(lambda i: x @ w_rot[i], n)
+            del w_rot
         by_shape.append(shape_row)
         log(f"kernel {name} {label} ok: {json.dumps(shape_row)}")
         del packed, scales, x, w_deq
@@ -5395,10 +5552,11 @@ def ksplit_kernel_checks(dev, gen):
         tol=tol_entry(frac), tol_ratio=worst[0], planted_fault_ratios=faults,
         geometry_fallback=fallback, ms=first["ms_bk768"], ms_whole_k=first["ms_whole_k"],
         plain_ms=first["plain_ms"], library_ms=first["library_ms"], bound_ms=first["bound_ms"],
-        bound_by=first["bound_by"], launches=None,
+        bound_by=first["bound_by"], launches=None, library_ms_hot=first["library_ms_hot"],
         shapes="the row's times are decode q|k|v (M 4) at block_k 768; by_shape has bk 1536, "
                "the prefill's q|k|v, o and gate|up and the whole-K launch beside each",
-        notes="library_ms: x @ the dequantized bf16 weight (cuBLAS)", by_shape=by_shape)
+        notes="library_ms: x @ the dequantized bf16 weight (cuBLAS); at M <= 64 rotated over "
+              "layers that exceed the L2 (library_ms_hot: one layer)", by_shape=by_shape)
     log(f"kernel {name} ok: planted faults rejected: {faults}")
     return [row]
 
@@ -5656,19 +5814,31 @@ def int4_2d_checks(dev, gen):
                 del got, want
             del x
         w_deq = i4.dequantize_ref(packed, scales).to(bf)
+        # a decode step streams each weight from device memory: the M 4 rows
+        # rotate the kernel over copies of the weight, and the yardstick over
+        # copies of its dequantized bf16, each set past the L2 (ms_hot,
+        # library_ms_hot: one weight)
+        n_p, n_w = cold_layers(K * N / 2 + (K / 128) * N * 4), cold_layers(2.0 * K * N)
+        copies = [(packed.clone(), scales.clone()) for _ in range(n_p)]
+        w_rot = [w_deq.clone() for _ in range(n_w)]
         for M in (len(INT4_PROMPTS), M1, M_pre):
             x = torch.randn((M, K), generator=gen, device=dev).to(bf)
             bms, bby = bound(2.0 * M * K * N, K * N / 2 + (K / 128) * N * 4 + 2.0 * M * (K + N))
             iters = 56 if M <= 64 else 10
-            by_shape.append(dict(
+            entry = dict(
                 shape=label, M=M, K=K, N=N, bound_ms=bms, bound_by=bby,
                 ms=time_ms(lambda: i4.int4_matmul_cuda(x, packed, scales), iters=iters),
                 plain_ms=events_ms(lambda: i4.int4_matmul_plain(x, packed, scales),
                                    iters=10 if M <= 64 else 3),
-                library_ms=time_ms(lambda: x @ w_deq, iters=iters)))
+                library_ms=time_ms(lambda: x @ w_deq, iters=iters))
+            if M <= 64:
+                entry["ms_hot"], entry["library_ms_hot"] = entry["ms"], entry["library_ms"]
+                entry["ms"] = rotated_ms(lambda i: i4.int4_matmul_cuda(x, *copies[i]), n_p)
+                entry["library_ms"] = rotated_ms(lambda i: x @ w_rot[i], n_w)
+            by_shape.append(entry)
             log(f"kernel {name} {label} ok: {json.dumps(by_shape[-1])}")
             del x
-        del w_deq
+        del w_deq, copies, w_rot
     # its path: _linear's w_p branch, plain and smoothed, decode and prefill rows
     zero_counters()
     linear_checks, n_calls = {}, 0
@@ -5724,9 +5894,12 @@ def int4_2d_checks(dev, gen):
         planted_fault_ratios=faults, linear_checks=linear_checks, ms=first["ms"],
         plain_ms=first["plain_ms"], library_ms=first["library_ms"],
         bound_ms=first["bound_ms"], bound_by=first["bound_by"], launches=None,
+        ms_hot=first["ms_hot"], library_ms_hot=first["library_ms_hot"],
         shapes="the row's times are q_proj at M 4; by_shape has M 1526 and 6104 and "
                "down_proj",
-        notes="library_ms: x @ the dequantized bf16 weight (cuBLAS)", by_shape=by_shape)
+        notes="library_ms: x @ the dequantized bf16 weight (cuBLAS); at M 4 the kernel and "
+              "the yardstick rotate over copies of their weights that exceed the L2 (ms_hot, "
+              "library_ms_hot: one weight)", by_shape=by_shape)
     log(f"kernel {name} ok: planted faults rejected: {faults}")
     del weights
     torch.cuda.empty_cache()
@@ -5781,8 +5954,11 @@ def group_kernel_checks(dev, gen, rows) -> None:
     def rand_scales(*shape):
         return torch.rand(shape, generator=gen, device=dev) * 0.02 + 0.002
 
-    def entry(name, label, group, run, plain, fault, library, flops, nbytes, iters, turn=None):
-        """Check run() against plain(), fault() outside; time all three."""
+    def entry(name, label, group, run, plain, fault, library, flops, nbytes, iters, turn=None,
+              cold=None):
+        """Check run() against plain(), fault() outside; time all three.
+        cold: (fn(i), n), the yardstick rotated over n weights past the L2
+        (then library_ms; library() is kept as library_ms_hot)."""
         frac = ATOL_ROW_RMS_FRAC[name.replace("[dn_r]", "")]
         want = plain()
         err, ratio = check_close(f"{name} group {group} {label}", run(), want, frac)
@@ -5795,6 +5971,8 @@ def group_kernel_checks(dev, gen, rows) -> None:
                  ms=time_ms(turn or run, iters=iters),
                  plain_ms=events_ms(plain, iters=1, warmup=0),
                  library_ms=time_ms(library, iters=iters), bound_ms=bms, bound_by=bby)
+        if cold is not None:
+            e["library_ms_hot"], e["library_ms"] = e["library_ms"], rotated_ms(*cold, iters=iters)
         log(f"kernel {name} group {group} {label} ok: {json.dumps(e)}")
         return e
 
@@ -5807,6 +5985,9 @@ def group_kernel_checks(dev, gen, rows) -> None:
             w_deq = i4.dequantize_ref(packed[li], scales[li], group).to(bf)
             nbytes = K * N / 2 + (K / group) * N * 4 + 2.0 * M * (K + N)
             iters = 56 if M <= 64 else 10
+            n = cold_layers(2.0 * K * N)
+            w_rot = [i4.dequantize_ref(packed[i], scales[i], group).to(bf)
+                     for i in range(n)] if M <= 64 else None
             for name, bk in (("int4_matmul_stacked", 0), ("int4_matmul_stacked_ksplit", 768)):
                 turn = itertools.count()
 
@@ -5819,23 +6000,32 @@ def group_kernel_checks(dev, gen, rows) -> None:
                     lambda bk=bk: i4.int4_matmul_stacked_plain(x, packed, scales, li, group,
                                                                block_k=bk),
                     lambda run=run: run(s=rolled), lambda: x @ w_deq, 2.0 * M * K * N, nbytes,
-                    iters, turn=lambda run=run, turn=turn: run(layer=next(turn) % L))
-            del packed, scales, rolled, x, w_deq
+                    iters, turn=lambda run=run, turn=turn: run(layer=next(turn) % L),
+                    cold=None if w_rot is None else (lambda i: x @ w_rot[i], n))
+            del packed, scales, rolled, x, w_deq, w_rot
             torch.cuda.empty_cache()
         # row 31: the unstacked W4A16 at q_proj, decode and prefill rows
         packed, scales = rand_bytes(D, Nq // 2), rand_scales(D // group, Nq)
         rolled = torch.roll(scales, -1, dims=0).contiguous()
         w_deq = i4.dequantize_ref(packed, scales, group).to(bf)
+        # the M 4 row rotates the kernel and the yardstick over copies past the L2
+        n_p, n_w = cold_layers(D * Nq / 2 + (D / group) * Nq * 4), cold_layers(2.0 * D * Nq)
+        copies = [(packed.clone(), scales.clone()) for _ in range(n_p)]
+        w_rot = [w_deq.clone() for _ in range(n_w)]
         for M in (B, M_pre):
             x = torch.randn((M, D), generator=gen, device=dev).to(bf)
+            turn = itertools.count()
             by_row["int4_matmul"][f"{group} q_proj M={M}"] = entry(
                 "int4_matmul", f"q_proj M={M}", group,
                 lambda: i4.int4_matmul_cuda(x, packed, scales, group),
                 lambda: i4.int4_matmul_plain(x, packed, scales, group),
                 lambda: i4.int4_matmul_cuda(x, packed, rolled, group), lambda: x @ w_deq,
                 2.0 * M * D * Nq, D * Nq / 2 + (D / group) * Nq * 4 + 2.0 * M * (D + Nq),
-                56 if M <= 64 else 10)
-        del packed, scales, rolled, w_deq, x
+                56 if M <= 64 else 10,
+                turn=(lambda: i4.int4_matmul_cuda(x, *copies[next(turn) % n_p], group))
+                if M <= 64 else None,
+                cold=(lambda i: x @ w_rot[i], n_w) if M <= 64 else None)
+        del packed, scales, rolled, w_deq, x, copies, w_rot
         # rows 7 and 7r: the fused MLP at M = B, without and with dn_r
         dh = D // 2
         gup, gus = rand_bytes(L, D, Fd), rand_scales(L, D // group, 2 * Fd)
@@ -5848,6 +6038,9 @@ def group_kernel_checks(dev, gen, rows) -> None:
         dn_r = _equalize_rows(w)[1].expand(L, Fd).contiguous()
         wg = i4.dequantize_ref(gup[li], gus[li], group).to(bf)
         wd = i4.dequantize_ref(dn[li], dns[li], group).to(bf)
+        n_rot = cold_layers(2.0 * D * 3 * Fd)
+        w_rot = [(i4.dequantize_ref(gup[i], gus[i], group).to(bf),
+                  i4.dequantize_ref(dn[i], dns[i], group).to(bf)) for i in range(n_rot)]
         nbytes = D * Fd + (D / group) * 2 * Fd * 4 + Fd * dh + (Fd / group) * D * 4 + 4.0 * B * D
         flops = 2.0 * B * D * 2 * Fd + 2.0 * B * Fd * D
         for name, r in (("mlp_int4_stacked", None), ("mlp_int4_stacked[dn_r]", dn_r)):
@@ -5858,9 +6051,9 @@ def group_kernel_checks(dev, gen, rows) -> None:
                 return mlp4.mlp_int4_stacked_cuda(x, gup, gs, dn, dns, layer, group, chunk,
                                                   dn_r=r)
 
-            def library(r_bf=r_bf):
-                a = F.silu(x @ wg[:, :Fd]) * (x @ wg[:, Fd:])
-                return (a if r_bf is None else a * r_bf) @ wd
+            def library(r_bf=r_bf, w=(wg, wd)):
+                a = F.silu(x @ w[0][:, :Fd]) * (x @ w[0][:, Fd:])
+                return (a if r_bf is None else a * r_bf) @ w[1]
 
             by_row[name][f"{group} decode"] = entry(
                 name, f"x[{B},{D}], chunk {chunk}", group, run,
@@ -5868,8 +6061,9 @@ def group_kernel_checks(dev, gen, rows) -> None:
                                                         dn_r=r),
                 lambda run=run: run(gs=gus_rolled), library,
                 flops, nbytes + (0.0 if r is None else 4.0 * Fd), 56,
-                turn=lambda run=run, turn=turn: run(layer=next(turn) % L))
-        del gup, gus, dn, dns, gus_rolled, x, w, dn_r, wg, wd
+                turn=lambda run=run, turn=turn: run(layer=next(turn) % L),
+                cold=(lambda i, library=library: library(w=w_rot[i]), n_rot))
+        del gup, gus, dn, dns, gus_rolled, x, w, dn_r, wg, wd, w_rot
         torch.cuda.empty_cache()
     for row in rows:
         if row["name"] in by_row:
@@ -6126,7 +6320,7 @@ def serve_path(dev, tmp) -> dict:
         agree = sum(x == y for x, y in zip(tokens[i], ref_toks))
         per_request.append(dict(
             request=i, prefill_rel_l2=rel_pre, first_step_rel_l2=rel_step,
-            greedy_tokens_equal_generate=f"{agree}/{len(tokens[i])}",
+            greedy_tokens_equal_generate=f"{agree}/{len(tokens[i])}", greedy_tokens=tokens[i],
             http_seconds=results[i][2]))
     stats_out = dict(
         label="serving pool, int4w+kv4 (LoRA merged), HTTP", rows=SERVE_ROWS,

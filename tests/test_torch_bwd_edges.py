@@ -28,6 +28,7 @@ from audio_llama_tpu.ops import causal_attention as j_ca  # noqa: E402
 from audio_llama_tpu_torch.ops import causal_attention as ca  # noqa: E402
 from chip_smoke import (ATOL_ROW_RMS_FRAC, BWD_FAULTS, GRAD_RMS_DIMS,  # noqa: E402
                         bwd_fault_reference, tol_ratio)
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 OUTS = ("dq", "dk", "dv")
 BARS = ("causal_attention_dq", "causal_attention_dkv", "causal_attention_dkv")

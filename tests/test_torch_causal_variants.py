@@ -33,6 +33,7 @@ torch.set_num_threads(2)
 from audio_llama_tpu.ops import causal_attention as j_ca  # noqa: E402
 from audio_llama_tpu.ops.attention import causal_bias, mha  # noqa: E402
 from audio_llama_tpu_torch.ops import causal_attention as ca  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 B, T, HQ, HKV, HD, PAD_FROM = 2, 256, 4, 2, 32, 200
 VARIANTS = [(f, s) for f in ("blocks", "blocks_cond", "dma", "dma2")

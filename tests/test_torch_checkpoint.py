@@ -31,6 +31,7 @@ from audio_llama_tpu_torch.device import make_generator  # noqa: E402
 from audio_llama_tpu_torch.models import allm  # noqa: E402
 from audio_llama_tpu_torch.training import checkpoint as ckpt  # noqa: E402
 from audio_llama_tpu_torch.training import msgpack_io, optim  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 JCFG, CFG = JCfg.tiny(), AudioLLMConfig.tiny()
 

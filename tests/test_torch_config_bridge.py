@@ -20,6 +20,7 @@ from audio_llama_tpu_torch import bridge, config as t_config  # noqa: E402
 from audio_llama_tpu_torch.device import make_generator, resolve_device  # noqa: E402
 from audio_llama_tpu_torch.inference import generate as t_gen  # noqa: E402
 from audio_llama_tpu_torch.models import allm  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 CONFIGS = ["AudioLLMConfig", "LlamaConfig", "WhisperConfig", "MelConfig",

@@ -22,7 +22,8 @@ import torch
 torch.set_num_threads(2)
 
 from chip_smoke import (ATOL_ROW_RMS_FRAC, BWD_FAULTS, GRAD_RMS_DIMS,  # noqa: E402
-                        bwd_fault_reference, prefill_faults, tol_ratio, variant_reference)
+                        bwd_fault_reference, decode_faults, mlp_faults, prefill_faults,
+                        tol_ratio, variant_reference)
 from audio_llama_tpu_torch.ops import causal_attention as ca  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_attention_mono as dm  # noqa: E402
 from audio_llama_tpu_torch.ops import enc_attention as ea  # noqa: E402
@@ -1781,3 +1782,110 @@ def test_int4_kernels_refuse_group_48(dev):
         with pytest.raises(ValueError, match="multiple of 16 that divides 128"):
             call()
     assert (i4.launches, i4.launches_ksplit, i4.launches_2d, mlp4.launches) == before
+
+
+# -- the int4 decode kernels on the weight-streaming core (int4_common.cuh) ----
+
+DECODE_M = (1, 2, 4, 8, 9, 16, 33, 64)  # every instance and its edges
+
+
+@pytest.mark.parametrize("fmt", ["pair", "obin"])
+@pytest.mark.parametrize("group", [32, 64, 128, 256])
+@pytest.mark.parametrize("M", DECODE_M)
+def test_int4_decode_kernel_at_every_row_count(dev, M, group, fmt):
+    """The W4A16's decode shape at q|k|v's widths (K 3072, N 5120): whole K,
+    the K-split at block_k 768 and 1536, and the 2-D launch at q_proj's
+    (N 3072), each within the bar of its plain version, two launches giving
+    the same bits, one launch counted a call."""
+    K, Nh, L = 3072, 2560, 2
+    packed, scales = _bytes(dev, L, K, Nh), _scales(dev, L, K // group, 2 * Nh, seed=1)
+    x = _randn(dev, M, K, seed=2)
+    for bk in (0, 768, 1536):
+        want = i4.int4_matmul_stacked_plain(x, packed, scales, 1, group, fmt=fmt, block_k=bk)
+        before = (i4.launches, i4.launches_ksplit)
+        got = i4.int4_matmul_stacked(x, packed, scales, 1, group, fmt=fmt, block_k=bk)
+        again = i4.int4_matmul_stacked(x, packed, scales, 1, group, fmt=fmt, block_k=bk)
+        torch.cuda.synchronize()
+        assert (i4.launches, i4.launches_ksplit) == \
+            (before[0] + 2 * (not bk), before[1] + 2 * bool(bk))
+        assert torch.equal(got, again)
+        assert _ratio(got, want, "int4_matmul_stacked") <= 1
+    p2, s2 = packed[0, :, :1536].contiguous(), scales[0, :, :3072].contiguous()
+    before = i4.launches_2d
+    got = i4.int4_matmul(x, p2, s2, group, fmt=fmt)
+    assert torch.equal(got, i4.int4_matmul(x, p2, s2, group, fmt=fmt))
+    assert i4.launches_2d == before + 2
+    assert _ratio(got, i4.int4_matmul_plain(x, p2, s2, group, fmt=fmt), "int4_matmul") <= 1
+
+
+@pytest.mark.parametrize("dnr", [False, True])
+@pytest.mark.parametrize("group", [32, 128, 256])
+@pytest.mark.parametrize("M", DECODE_M)
+@pytest.mark.parametrize("K,F,D", [(3072, 8192, 3072), (256, 1024, 256)])
+def test_mlp_int4_kernel_at_every_row_count(dev, K, F, D, M, group, dnr):
+    """The fused MLP in both modes at the 3B widths and toy widths: within
+    the bar of its plain version, two launches giving the same bits, one
+    launch counted a call in its mode's counter."""
+    L = 2
+    gup, gus = _bytes(dev, L, K, F), _scales(dev, L, K // group, 2 * F, seed=1)
+    dn, dns = _bytes(dev, L, F, D // 2, seed=2), _scales(dev, L, F // group, D, seed=3)
+    x = _randn(dev, M, K, seed=4) * 0.5
+    dn_r = _dnr(dev, L, F, D) if dnr else None
+    chunk = mlp4.kernel_chunk(F, D // 2, group)
+    want = mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, 1, group, chunk, dn_r=dn_r)
+    before = (mlp4.launches, mlp4.launches_dnr)
+    got = mlp4.mlp_int4_stacked(x, gup, gus, dn, dns, 1, group, chunk, dn_r=dn_r)
+    again = mlp4.mlp_int4_stacked(x, gup, gus, dn, dns, 1, group, chunk, dn_r=dn_r)
+    torch.cuda.synchronize()
+    assert (mlp4.launches, mlp4.launches_dnr) == \
+        (before[0] + 2 * (not dnr), before[1] + 2 * dnr)
+    assert torch.equal(got, again)
+    assert _ratio(got, want, "mlp_int4_stacked") <= 1
+
+
+@pytest.mark.parametrize("M", [1, 4, 64])
+def test_int4_decode_checks_reject_the_new_mechanisms_faults(dev, M):
+    """chip_smoke's planted faults of the decode core: a K slice left out of
+    the cluster sum, a stale batch; the MLP's activations read from the next
+    tile, a gate|up slice and a down K chunk left out, a stale batch."""
+    K, Nh, L = 3072, 2560, 2
+    packed, scales = _bytes(dev, L, K, Nh), _scales(dev, L, K // 128, 2 * Nh, seed=1)
+    x = _randn(dev, M, K, seed=2)
+
+    def run(p=packed):
+        return i4.int4_matmul_stacked(x, p, scales, 1)
+
+    want = i4.int4_matmul_stacked_plain(x, packed, scales, 1)
+    got = run()
+    frac = ATOL_ROW_RMS_FRAC["int4_matmul_stacked"]
+    faults = decode_faults(got, want, frac, run, packed, 1, x, i4.decode_plan(M, K, Nh),
+                           lambda xx, p: i4.int4_matmul_stacked_plain(xx, p, scales, 1))
+    assert len(faults) == 2 and min(faults.values()) > 1, faults
+    F, D = 8192, 3072
+    gup, gus = _bytes(dev, L, K, F), _scales(dev, L, K // 128, 2 * F, seed=1)
+    dn, dns = _bytes(dev, L, F, D // 2, seed=2), _scales(dev, L, F // 128, D, seed=3)
+    chunk = mlp4.kernel_chunk(F, D // 2)
+    want = mlp4.mlp_int4_stacked_plain(x, gup, gus, dn, dns, 1, chunk=chunk)
+    got = mlp4.mlp_int4_stacked(x, gup, gus, dn, dns, 1, chunk=chunk)
+    faults = mlp_faults(got, want, ATOL_ROW_RMS_FRAC["mlp_int4_stacked"], x, gup, gus, dn, dns,
+                        1, 128, lambda xx, gp, gs, ds: mlp4.mlp_int4_stacked_plain(
+                            xx, gp, gs, dn, ds, 1, chunk=chunk))
+    assert len(faults) == 4 and min(faults.values()) > 1, faults
+
+
+@pytest.mark.parametrize("M", [4, 16, 32, 64])
+def test_int4_decode_kernel_info(dev, M):
+    """Each decode instance of both kernels at the 3B plans (groups 32 and
+    128; whole K, the K-split at 768 and K 8192): no local memory, at least
+    one block an SM, and the shared memory its launch asks for (the C side's
+    `unit_smem`) equal to the plan's (the planners' copy)."""
+    for group in (32, 128):
+        for K, Nh, bk in ((3072, 2560, 0), (3072, 2560, 768), (8192, 1536, 0)):
+            plan = i4.decode_plan(M, K, Nh, group, bk)
+            info = i4.decode_kernel_info(M, K // plan.C, group)
+            assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, (K, bk, info)
+            assert info["smem_bytes"] == plan.smem, (K, bk, plan, info)
+        mlp = mlp4.mlp_plan(M, 3072, 8192, 1536, group)
+        info = mlp4.kernel_info(M, 3072, 8192, mlp, group)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, info
+        assert info["smem_bytes"] == mlp.smem, (mlp, info)

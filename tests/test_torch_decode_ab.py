@@ -60,6 +60,7 @@ from audio_llama_tpu_torch.models import llama  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_attention_db as db  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_attention_packed as pk  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_megakernel as mk  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2

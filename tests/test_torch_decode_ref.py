@@ -36,6 +36,7 @@ from audio_llama_tpu.ops import int4_matmul as j_i4  # noqa: E402
 from audio_llama_tpu_torch.models import llama  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_attention as da  # noqa: E402
 from audio_llama_tpu_torch.ops import int4_matmul as i4  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 L, B, S = 3, 2, 64
 LAYER = 1

@@ -31,6 +31,7 @@ from audio_llama_tpu.ops import enc_attention as j_ea  # noqa: E402
 from audio_llama_tpu.ops.attention import mha, padding_bias  # noqa: E402
 from audio_llama_tpu_torch.bridge import to_tensor  # noqa: E402
 from audio_llama_tpu_torch.ops import enc_attention as t_ea  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 B, T, H, HD = 2, 256, 4, 64
 TOL = 2e-5

@@ -43,6 +43,7 @@ from audio_llama_tpu_torch.eval import kl as t_kl  # noqa: E402
 from audio_llama_tpu_torch.eval import wer as t_wer  # noqa: E402
 from audio_llama_tpu_torch.inference import generate as t_gen  # noqa: E402
 from audio_llama_tpu_torch.models import allm  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 KL_ATOL, KL_RTOL = 1e-5, 1e-3
 MEL_BAR = dict(atol=2e-3, rtol=2e-3)

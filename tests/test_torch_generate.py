@@ -27,6 +27,7 @@ from audio_llama_tpu_torch.config import AudioLLMConfig  # noqa: E402
 from audio_llama_tpu_torch.inference import generate as t_gen  # noqa: E402
 from audio_llama_tpu_torch.models import llama as t_llama  # noqa: E402
 from audio_llama_tpu_torch.ops import sampling as t_samp  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 JCFG = JCfg.tiny()
 CFG = AudioLLMConfig.tiny()

@@ -39,6 +39,7 @@ from audio_llama_tpu_torch import bridge  # noqa: E402
 from audio_llama_tpu_torch.config import LlamaConfig  # noqa: E402
 from audio_llama_tpu_torch.models import llama, llama_gptq, llama_int4  # noqa: E402
 from audio_llama_tpu_torch.ops import int4_matmul as i4  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 DIMS = dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2, num_heads=4,
             num_kv_heads=2, head_dim=32, max_position_embeddings=2048, rope_scaling=None,

@@ -13,7 +13,7 @@ Bars, as that module's:
     with clip on and off, smoothed, GPTQ): full forward and two decode steps
     at f32 within 2e-4; greedy `generate` with an int4 KV cache at f32:
     tokens equal to JAX's, token for token;
-  - the card kernels' geometry in Python (`check_group`, `decode_split`,
+  - the card kernels' geometry in Python (`check_group`, `decode_plan`,
     `kernel_chunk`): exact.
 """
 
@@ -43,6 +43,7 @@ from audio_llama_tpu_torch.models import llama  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_megakernel as mk  # noqa: E402
 from audio_llama_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from audio_llama_tpu_torch.ops import mlp_int4 as mlp4  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 DIMS = dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2, num_heads=4,
             num_kv_heads=2, head_dim=32, max_position_embeddings=2048, rope_scaling=None,
@@ -148,14 +149,12 @@ def test_group_check_and_geometry():
         i4.check_group("k", 384, 256)  # 256 does not divide K
     with pytest.raises(ValueError, match="K a multiple of 128"):
         i4.check_group("k", 96, 32)  # the kernels stage 128-row tiles
-    # the decode shape: a group below 128 keeps group 128's blocks and rows
+    # the decode shape: at every group a launch of whole-group slices that
+    # covers K (tests/test_torch_int4_plan.py checks the plans in full)
     for M, K, Nh in ((4, 3072, 2560), (1, 8192, 1536), (8, 3072, 1536), (37, 512, 256)):
-        base = i4.decode_split(M, K, Nh, 128)
-        assert i4.decode_split(M, K, Nh, 32) == base == i4.decode_split(M, K, Nh, 64)
-        mc, kr, ksplit = base
-        assert kr % 128 == 0 and ksplit == -(-K // kr)
-        mc, kr, ksplit = i4.decode_split(M, K, Nh, 256)
-        assert kr % 256 == 0 and ksplit == -(-K // kr) and kr <= 1024
+        for g in (32, 64, 128, 256):
+            plan = i4.decode_plan(M, K, Nh, g)
+            assert K % plan.C == 0 and (K // plan.C) % g == 0 and (K // plan.C) % 64 == 0
     # the fused MLP's chunk: 128 columns up to group 128, the group above it
     assert mlp4.kernel_chunk(8192, 1536, 32) == mlp4.kernel_chunk(8192, 1536, 128) == 128
     assert mlp4.kernel_chunk(8192, 1536, 256) == 256

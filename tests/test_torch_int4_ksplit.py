@@ -21,6 +21,7 @@ torch.set_num_threads(2)
 from audio_llama_tpu.ops import int4_matmul as j_i4  # noqa: E402
 from audio_llama_tpu_torch import bridge  # noqa: E402
 from audio_llama_tpu_torch.ops import int4_matmul as i4  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 L, K, N, BK = 2, 512, 512, 256
 

@@ -35,6 +35,7 @@ from audio_llama_tpu_torch.config import AudioLLMConfig, LlamaConfig  # noqa: E4
 from audio_llama_tpu_torch.inference import generate as t_gen  # noqa: E402
 from audio_llama_tpu_torch.models import llama  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_attention_mono as dm  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 
 def _np(x):

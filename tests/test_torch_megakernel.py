@@ -38,6 +38,7 @@ from audio_llama_tpu_torch import bridge  # noqa: E402
 from audio_llama_tpu_torch.config import LlamaConfig  # noqa: E402
 from audio_llama_tpu_torch.models import llama  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_megakernel as mk  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 DIMS = dict(vocab_size=512, hidden_size=256, intermediate_size=256, num_layers=2, num_heads=2,
             num_kv_heads=1, head_dim=128, rms_norm_eps=1e-5)

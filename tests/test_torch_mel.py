@@ -23,6 +23,7 @@ from audio_llama_tpu_torch import bridge  # noqa: E402
 from audio_llama_tpu_torch.config import AudioLLMConfig, MelConfig  # noqa: E402
 from audio_llama_tpu_torch.models import allm  # noqa: E402
 from audio_llama_tpu_torch.ops import mel, mel_power  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 BAR = dict(atol=2e-3, rtol=2e-3)
 

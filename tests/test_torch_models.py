@@ -25,6 +25,7 @@ from audio_llama_tpu_torch import bridge  # noqa: E402
 from audio_llama_tpu_torch.config import AudioLLMConfig  # noqa: E402
 from audio_llama_tpu_torch.models import allm, llama, lora, projector, whisper  # noqa: E402
 from audio_llama_tpu_torch.ops import mel_power  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 JCFG = JCfg.tiny()
 CFG = AudioLLMConfig.tiny()

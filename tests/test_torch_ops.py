@@ -29,6 +29,7 @@ from audio_llama_tpu_torch.ops import layer_norm as t_ln  # noqa: E402
 from audio_llama_tpu_torch.ops import norms as t_norms  # noqa: E402
 from audio_llama_tpu_torch.ops import rope as t_rope  # noqa: E402
 from audio_llama_tpu_torch.ops import sampling as t_samp  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 TOL = 2e-5
 

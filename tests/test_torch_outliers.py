@@ -35,6 +35,7 @@ from audio_llama_tpu_torch.device import make_generator  # noqa: E402
 from audio_llama_tpu_torch.inference import cli  # noqa: E402
 from audio_llama_tpu_torch.models import allm, outliers  # noqa: E402
 from audio_llama_tpu_torch.training.train import build_frozen, parse_args, train  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 
 def _to_port(tree):

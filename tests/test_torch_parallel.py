@@ -46,12 +46,12 @@ from audio_llama_tpu_torch.config import AudioLLMConfig  # noqa: E402
 from audio_llama_tpu_torch.models import llama_int4 as t_l4  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_attention_db as db  # noqa: E402
 from audio_llama_tpu_torch.ops import decode_attention_mono as dm  # noqa: E402
-from audio_llama_tpu_torch.parallel import distributed  # noqa: E402
 from audio_llama_tpu_torch.parallel import mesh as t_mesh  # noqa: E402
 from audio_llama_tpu_torch.parallel import sharding as t_shd  # noqa: E402
 from audio_llama_tpu_torch.parallel.seq_parallel import make_sp_encode  # noqa: E402
 
 import test_torch_world as ranks  # noqa: E402  (the rank side; no JAX)
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 JCFG = JCfg.tiny()
 CFG = AudioLLMConfig.tiny()
@@ -353,12 +353,14 @@ def _encode_inputs():
     return frozen, audio
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
 def world():
+    """The 4-rank world, started with the module's first test (autouse) so
+    that it runs beside the module's other tests."""
     frozen, audio = _encode_inputs()
-    return distributed.spawn(ranks.parallel_cases, 4,
-                             args=(jax.tree.map(np.asarray, frozen), audio), threads=1,
-                             timeout=240)
+    return ranks.Spawned(ranks.parallel_cases, 4,
+                         args=(jax.tree.map(np.asarray, frozen), audio), threads=1,
+                         timeout=240)
 
 
 @pytest.mark.parametrize("n", [2, 4])

@@ -30,9 +30,10 @@ torch.set_num_threads(2)
 from audio_llama_tpu.ops import causal_attention as j_ca  # noqa: E402
 from audio_llama_tpu.parallel.ring_attention import ring_attention_sharded  # noqa: E402
 from audio_llama_tpu_torch.ops import causal_attention as ca  # noqa: E402
-from audio_llama_tpu_torch.parallel import distributed  # noqa: E402
 
 import test_torch_shard_world as ranks  # noqa: E402  (the rank side; no JAX)
+from test_torch_world import Spawned  # noqa: E402  (a world run beside the JAX references)
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 TOL = dict(atol=5e-5, rtol=5e-5)
 
@@ -112,15 +113,26 @@ def test_never_backward_plain_matches_the_jax_kernels():
 CASE = _case()
 
 
+class _RingWorld:
+    """A world of n ranks running the ring cases in a thread (`Spawned`):
+    `n` at once, `got` (each arm's o, dq, dk, dv gathered over the ranks)
+    once the world is done, so a test computes its JAX reference first."""
+
+    def __init__(self, n):
+        q, k, v, mask, w = CASE
+        self.n = n
+        self._world = Spawned(ranks.ring_cases, n, args=([(q, k, v, mask, w, "float32")],),
+                              threads=1, timeout=ranks.WORLD_TIMEOUT)
+
+    @functools.cached_property
+    def got(self):
+        return {name: [np.concatenate([r[0][name][i].numpy() for r in self._world], axis=1)
+                       for i in range(4)] for name in ("plain", "kernel")}
+
+
 @pytest.fixture(scope="module", params=[2, 4], ids=["sp2", "sp4"])
 def world(request):
-    n = request.param
-    q, k, v, mask, w = CASE
-    out = distributed.spawn(ranks.ring_cases, n, args=([(q, k, v, mask, w, "float32")],),
-                            threads=1, timeout=ranks.WORLD_TIMEOUT)
-    got = {name: [np.concatenate([r[0][name][i].numpy() for r in out], axis=1)
-                  for i in range(4)] for name in ("plain", "kernel")}
-    return n, got
+    return _RingWorld(request.param)
 
 
 def _loss(fn, w):
@@ -166,11 +178,10 @@ def _compare(got, want):
 
 @pytest.mark.parametrize("ring", ["plain", "kernel"])
 def test_ring_matches_the_jax_ring(world, ring):
-    n, got = world
-    _compare(got[ring], _jax_ring(n))
+    want = _jax_ring(world.n)  # while the world runs
+    _compare(world.got[ring], want)
 
 
 @pytest.mark.parametrize("ring", ["plain", "kernel"])
 def test_ring_matches_single_device_causal_attention(world, jax_single, ring):
-    _, got = world
-    _compare(got[ring], jax_single)
+    _compare(world.got[ring], jax_single)

@@ -28,6 +28,7 @@ from audio_llama_tpu.models import lora as j_lora  # noqa: E402
 from audio_llama_tpu_torch import bridge  # noqa: E402
 from audio_llama_tpu_torch.config import LlamaConfig  # noqa: E402
 from audio_llama_tpu_torch.models import llama, llama_rotate  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 JCFG, CFG = JLlamaCfg.tiny(), LlamaConfig.tiny()
 

@@ -48,12 +48,14 @@ from audio_llama_tpu_torch.data.audio_io import write_wav  # noqa: E402
 from audio_llama_tpu_torch.data.dataset import AudioLLMDataset, DatasetConfig, collate  # noqa: E402
 from audio_llama_tpu_torch.data.loader import DataLoader  # noqa: E402
 from audio_llama_tpu_torch.data.tokenizer import ByteTokenizer  # noqa: E402
-from audio_llama_tpu_torch.parallel import distributed, sharded_train  # noqa: E402
+from audio_llama_tpu_torch.parallel import sharded_train  # noqa: E402
 from audio_llama_tpu_torch.parallel import mesh as t_mesh  # noqa: E402
 from audio_llama_tpu_torch.training import msgpack_io  # noqa: E402
 from audio_llama_tpu_torch.training.train import parse_args, train  # noqa: E402
 
 import test_torch_shard_world as ranks  # noqa: E402  (the rank side; no JAX)
+from test_torch_world import Spawned  # noqa: E402  (a world run beside the JAX references)
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 JCFG, CFG = JCfg.tiny(), AudioLLMConfig.tiny()
 SID, EID = JCFG.llama.vocab_size, JCFG.llama.vocab_size + 1
@@ -149,14 +151,13 @@ def world2(trees, corpus):
                              SCHEDULE, SID, EID))]
     items += [("train_cli", (_argv(corpus, root / f"run_{name}", flags),))
               for name, flags in CLI_MESHES.items()]
-    return distributed.spawn(ranks.jobs, 2, args=(items,), threads=1,
-                             timeout=ranks.WORLD_TIMEOUT)
+    return Spawned(ranks.jobs, 2, args=(items,), threads=1, timeout=ranks.WORLD_TIMEOUT)
 
 
 @pytest.fixture(scope="module")
 def world4(trees):
     fz, tr = trees
-    return distributed.spawn(ranks.train_arms, 4, args=(
+    return Spawned(ranks.train_arms, 4, args=(
         CFG.to_dict(), fz, tr, BATCHES, [(n, m, 1) for n, m in ARMS4], SCHEDULE, SID, EID),
         threads=1, timeout=ranks.WORLD_TIMEOUT)
 

@@ -26,11 +26,11 @@ from audio_llama_tpu.models import allm as j_allm  # noqa: E402
 from audio_llama_tpu.parallel.seq_parallel import make_sp_generate as j_make_sp  # noqa: E402
 from audio_llama_tpu_torch.config import AudioLLMConfig  # noqa: E402
 from audio_llama_tpu_torch.models import llama as t_llama  # noqa: E402
-from audio_llama_tpu_torch.parallel import distributed  # noqa: E402
 from audio_llama_tpu_torch.parallel import mesh as t_mesh  # noqa: E402
 from audio_llama_tpu_torch.parallel.seq_parallel import make_sp_generate  # noqa: E402
 
 import test_torch_world as ranks  # noqa: E402  (the rank side; no JAX)
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 JCFG = JCfg.tiny()
 CFG = AudioLLMConfig.tiny()
@@ -119,8 +119,8 @@ def jax_tokens(model):
 def world(model):
     trees = {"f32": tuple(jax.tree.map(np.asarray, t) for t in model)}
     cases = [{k: v for k, v in c.items() if k != "jax_impl"} for c in CASES]
-    return distributed.spawn(ranks.generate_cases, 4, args=(trees, cases), threads=1,
-                             timeout=240)
+    return ranks.Spawned(ranks.generate_cases, 4, args=(trees, cases), threads=1,
+                         timeout=240)
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in CASES])

@@ -37,6 +37,7 @@ from audio_llama_tpu_torch.parallel import mesh as t_mesh  # noqa: E402
 from audio_llama_tpu_torch.parallel import sharding as t_shd  # noqa: E402
 
 import test_torch_world as ranks  # noqa: E402  (the rank side; no JAX)
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 JCFG = JCfg.tiny()
 CFG = AudioLLMConfig.tiny()
@@ -105,8 +106,8 @@ def jax_tokens(trees):
 @pytest.fixture(scope="module")
 def world(trees):
     trees_np = {k: tuple(jax.tree.map(np.asarray, t) for t in v) for k, v in trees.items()}
-    return distributed.spawn(ranks.generate_cases, 4, args=(trees_np, CASES), threads=1,
-                             timeout=240)
+    return ranks.Spawned(ranks.generate_cases, 4, args=(trees_np, CASES), threads=1,
+                         timeout=240)
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in CASES])

@@ -44,6 +44,7 @@ from audio_llama_tpu_torch.training import checkpoint as ckpt  # noqa: E402
 from audio_llama_tpu_torch.training import msgpack_io, optim, train_step  # noqa: E402
 from audio_llama_tpu_torch.training.train import (  # noqa: E402
     _to_batch, group_by_modality, parse_args, train)
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 JCFG, CFG = JCfg.tiny(), AudioLLMConfig.tiny()
 SID, EID = JCFG.llama.vocab_size, JCFG.llama.vocab_size + 1  # rows added by the resize

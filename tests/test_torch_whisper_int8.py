@@ -56,6 +56,7 @@ from audio_llama_tpu_torch import bridge  # noqa: E402
 from audio_llama_tpu_torch.config import AudioLLMConfig, LlamaConfig, WhisperConfig  # noqa: E402
 from audio_llama_tpu_torch.inference import generate as t_gen  # noqa: E402
 from audio_llama_tpu_torch.models import allm, whisper, whisper_int8 as w8  # noqa: E402
+from test_torch_jax_cache import jax_compile_cache  # noqa: E402,F401  (autouse)
 
 JWC, WC = JWCfg.tiny(), WhisperConfig.tiny()
 W_Q_FLIPS = 1e-3  # share of the int8 weights allowed one level apart (smoothed)

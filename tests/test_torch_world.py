@@ -96,6 +96,44 @@ def test_spawn_fails_the_world_when_a_rank_raises():
         distributed.spawn(_fails_on_rank_1, 2, backend="nccl", device="cpu")
 
 
+class Spawned:
+    """`distributed.spawn(*args, **kw)` started in a thread: a module's world
+    runs while the module computes its JAX references. Indexing or iterating
+    joins the thread and gives the world's results, or raises the world's
+    error."""
+
+    def __init__(self, *args, **kw):
+        self._out, self._err = None, None
+        self._thread = threading.Thread(target=self._run, args=args, kwargs=kw, daemon=True)
+        self._thread.start()
+
+    def _run(self, *args, **kw):
+        try:
+            self._out = distributed.spawn(*args, **kw)
+        except BaseException as err:  # raised in the caller's thread on first use
+            self._err = err
+
+    def result(self) -> list:
+        self._thread.join()
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+    def __getitem__(self, rank):
+        return self.result()[rank]
+
+    def __iter__(self):
+        return iter(self.result())
+
+
+def test_spawned_world_gives_its_results_or_its_error_on_first_use():
+    world = Spawned(_world_sum, 2, args=(5,), threads=1, timeout=120)
+    assert world[1] == 10.0 and list(world) == [10.0, 10.0]
+    failed = Spawned(_fails_on_rank_1, 2, threads=1, timeout=120)
+    with pytest.raises(Exception, match="rank 1 gives up"):
+        failed[0]
+
+
 # ---------------------------------------------------------------------------
 # rank side of test_torch_parallel.py
 # ---------------------------------------------------------------------------
