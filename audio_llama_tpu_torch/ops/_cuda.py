@@ -3,7 +3,8 @@
 The sources under `audio_llama_tpu_torch/csrc/` are compiled with `nvcc` for
 `sm_90a` into one shared library with a plain C interface, loaded with
 `ctypes`. Each `.cu` file compiles to an object in its own `nvcc` process,
-all started together, then one link makes the library. The library is built
+all started together, then one link makes the library; the log gives each
+process's seconds (`build_seconds` reads them). The library is built
 at first use into `csrc/build/` (listed in `.gitignore`), named by a hash of
 the sources and flags, so a changed source rebuilds and an unchanged one
 loads at once. Nothing here runs when the package is imported: a host
@@ -15,9 +16,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -28,8 +31,9 @@ SOURCES = ("layer_norm.cu", "enc_attention.cu", "causal_attention.cu", "decode_a
            "mel_power.cu", "int4_matmul.cu", "mlp_int4.cu", "decode_attention_q4.cu",
            "decode_megakernel.cu", "causal_attention_bwd.cu", "decode_attention_db.cu",
            "decode_attention_packed.cu", "enc_attention_v3q.cu", "causal_attention_fixed.cu",
-           "decode_attention_single.cu", "causal_attention_dma2.cu")
-HEADERS = ("common.cuh", "attention_fwd.cuh", "int4_common.cuh", "decode_rows.cuh", "sm90.cuh")
+           "decode_attention_norm.cu", "causal_attention_dma2.cu")
+HEADERS = ("common.cuh", "attention_fwd.cuh", "int4_common.cuh", "decode_rows.cuh", "sm90.cuh",
+           "decode_timeline.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -62,10 +66,11 @@ SIGNATURES = {
     "al_megakernel_blocks_per_sm": [_I, _I],
     "al_causal_attention_dq": [_P] * 9 + [_I] * 6 + [_P],
     "al_causal_attention_dkv": [_P] * 10 + [_I] * 6 + [_P],
-    "al_decode_db_stats": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F] + [_P] * 4,
-    "al_decode_db": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F] + [_P] * 2,
+    "al_decode_db_stats": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F] + [_P] * 3 + [_I] * 2 + [_P],
+    "al_decode_db": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F, _P, _I, _I, _P],
+    "al_decode_timeline_info": [_I] * 8 + [_P],
     "al_decode_packed": [_I, _I] + [_P] * 10 + [_I] * 9 + [_F] + [_P] * 7,
-    "al_decode_attention_single": [_I, _I] + [_P] * 11 + [_I] * 6 + [_F, _P, _P],
+    "al_decode_attention_single": [_I, _I] + [_P] * 11 + [_I] * 6 + [_F, _P, _I, _I, _P],
     "al_sm90_kernel_info": [_I, _I, _P],
 }
 
@@ -107,28 +112,36 @@ def build() -> Path:
     nvcc = nvcc_path()
     log_path = BUILD_DIR / f"{key}.log"
     tag = f"{os.getpid()}"
-    procs = []
-    for src in SOURCES:
-        obj = BUILD_DIR / f"{Path(src).stem}_{key}_{tag}.o"
-        cmd = [nvcc, *ARCH, *FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    objs = {src: BUILD_DIR / f"{Path(src).stem}_{key}_{tag}.o" for src in SOURCES}
+    done = {}
+
+    def compile_one(src):  # a thread a source: each process's seconds as it ends
+        t0 = time.perf_counter()
+        run = subprocess.run([nvcc, *ARCH, *FLAGS, "-c", str(CSRC / src), "-o", str(objs[src])],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        done[src] = (run.returncode, run.stdout, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=compile_one, args=(src,)) for src in SOURCES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     logs, failed = [], []
-    for src, obj, proc in procs:
-        out, _ = proc.communicate()
-        logs.append(f"== {src} (rc {proc.returncode})\n{out}")
-        if proc.returncode != 0:
+    for src in SOURCES:
+        rc, out, secs = done[src]
+        logs.append(f"== {src} (rc {rc}, {secs:.1f} s)\n{out}")
+        if rc != 0:
             failed.append(src)
     if not failed:
         tmp = BUILD_DIR / f"{lib_path.name}.{tag}.tmp"
-        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp)] + [str(o) for _, o, _ in procs]
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp)] + [str(o) for o in objs.values()]
         link = subprocess.run(cmd, capture_output=True, text=True)
         logs.append(f"== link (rc {link.returncode})\n{link.stdout}{link.stderr}")
         if link.returncode != 0:
             failed.append("link")
         else:
             os.replace(tmp, lib_path)
-    for _, obj, _ in procs:
+    for obj in objs.values():
         obj.unlink(missing_ok=True)
     log_path.write_text("\n".join(logs))
     if failed:
@@ -137,6 +150,15 @@ def build() -> Path:
             + "\n".join(logs)[-4000:]
         )
     return lib_path
+
+
+def build_seconds() -> dict:
+    """{source: seconds its nvcc process took} from this build's log, the
+    slowest first."""
+    text = (BUILD_DIR / f"{_digest()}.log").read_text()
+    secs = {m[1]: float(m[2]) for m in re.finditer(r"^== (\S+) \(rc -?\d+, ([\d.]+) s\)$",
+                                                   text, re.M)}
+    return dict(sorted(secs.items(), key=lambda kv: -kv[1]))
 
 
 def library() -> ctypes.CDLL:
@@ -209,3 +231,10 @@ def require_shape(name: str, t: torch.Tensor, shape: tuple) -> None:
 
 def aligned16(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
+
+
+def contiguous16(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned (a copy where it is not): what a
+    bulk copy or a 16-byte load reads."""
+    t = t.contiguous()
+    return t if aligned16(t) else t.clone()

@@ -3,12 +3,18 @@ then attend one token per batch row over the whole cache timeline.
 
 `decode_attention` replaces `audio_llama_tpu/ops/decode_attention.py::_kernel`
 and `decode_attention_quantized` replaces `::_kernel_quantized` (the int8
-cache with per-slot f32 scales); their CUDA kernel is
-`csrc/decode_attention_single.cu` (bf16, f32 and int8 instances) and
+cache with per-slot f32 scales); their CUDA kernel is the timeline decode
+core's normalized mode (`csrc/decode_timeline.cuh`, bf16, f32 and int8
+instances, shared with `ops/decode_attention_db.py`'s `decode_attention_db`
+and `decode_attention_quantized_db`) through the entry
+`al_decode_attention_single` (`csrc/decode_attention_norm.cu`), and
 `decode_attention_plain` / `decode_attention_quantized_plain` are the same
 arithmetic in PyTorch. No entry point of either package runs them: they are
 the readable references beside the mono kernels the decoder runs
-(`ops/decode_attention_mono.py`).
+(`ops/decode_attention_mono.py`). The core runs a thread-block cluster along
+the timeline per (batch row, KV head), launched at
+`ops/decode_timeline.py::timeline_plan`; a timeline no plan fits raises
+ValueError.
 
 Contract, as in the JAX package: q [B, Hq, hd]; k_new/v_new [B, Hkv, hd];
 cache_k/cache_v [L, B, Hkv, max_len, hd] with max_len % 32 == 0 (else
@@ -29,12 +35,11 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .decode_timeline import cache_fmt, timeline_plan
 
 launches = 0  # kernel launches through `decode_attention`
 launches_q8 = 0  # kernel launches through `decode_attention_quantized`
 DEAD = -1e30  # the logit of a slot that is not attended, as in the TPU kernel
-SMEM_MAX = 227 * 1024  # shared memory a block can use on the H100
-THREADS = 512  # the kernel's block size
 
 
 def _check_len(max_len: int, name: str) -> None:
@@ -131,24 +136,21 @@ def _launch(name, quant, q, k_new, v_new, cache_k, cache_v, scales, layer, offse
     if row_bytes % 16 or 32 % (row_bytes // 16) or not _cuda.aligned16(cache_k) \
             or not _cuda.aligned16(cache_v):
         raise ValueError(f"{name}: cache rows must be 16-byte vectors, at most 32 per row")
-    G = Hq // Hkv
-    smem = 4 * (G * hd + G * max_len + (THREADS // 32) * G * hd)
-    if smem > SMEM_MAX:
-        raise ValueError(f"{name}: the [G, max_len] logits of max_len {max_len} need {smem} "
-                         f"bytes of shared memory, past the {SMEM_MAX} a block can use")
+    plan = timeline_plan(B, Hkv, max_len, Hq // Hkv, hd,
+                         cache_fmt("int8" if quant else q.dtype))
     off = torch.as_tensor(offset, dtype=torch.int32, device=q.device).reshape(1)
-    valid = valid.to(torch.int32).contiguous()
+    valid = _cuda.contiguous16(valid.to(torch.int32))
     q = q.contiguous()
-    k_new = k_new.to(cache_k.dtype).contiguous()
-    v_new = v_new.to(cache_v.dtype).contiguous()
-    scales = [s.to(torch.float32).contiguous() for s in scales]
+    k_new = _cuda.contiguous16(k_new.to(cache_k.dtype))
+    v_new = _cuda.contiguous16(v_new.to(cache_v.dtype))
+    scales = [_cuda.contiguous16(s.to(torch.float32)) for s in scales]
     ptrs = [s.data_ptr() for s in scales] if quant else [None] * 4
     out = torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device)
     err = _cuda.library().al_decode_attention_single(
         code, int(quant), q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         cache_k.data_ptr(), cache_v.data_ptr(), *ptrs, off.data_ptr(), valid.data_ptr(),
-        int(layer), B, Hq, Hkv, max_len, hd, float(scale), out.data_ptr(),
-        _cuda.stream_handle(q),
+        int(layer), B, Hq, Hkv, max_len, hd, float(scale), out.data_ptr(), plan.C,
+        plan.stages, _cuda.stream_handle(q),
     )
     _cuda.check(err, name)
     return out

@@ -12,12 +12,18 @@ Counterpart of `audio_llama_tpu/ops/decode_attention_db.py`:
   - `decode_attention_db_stats`, `decode_attention_quantized_db_stats` and
     `decode_attention_quantized4_db_stats` replace the same three with
     stats=True: every decode step under `sp_axis`.
-Their CUDA kernels are the two modes and three cache formats of
-`csrc/decode_attention_db.cu`; `db_plain`, `db_q8_plain`, `db_q4_plain` and
+Their CUDA kernels are the two modes and three cache formats of the
+timeline decode core's kernel, `db_kernel` (the stats mode's instances and
+entry in `csrc/decode_attention_db.cu`, the normalized mode's in
+`csrc/decode_attention_norm.cu`); `db_plain`, `db_q8_plain`, `db_q4_plain` and
 `db_stats_plain`, `db_stats_q8_plain`, `db_stats_q4_plain` are the same
-arithmetic in PyTorch, which the wrappers run on CPU tensors. The TPU
-kernels' double-buffered slab DMAs (DEPTH) have no counterpart: a CUDA block
-reads its slab rows directly.
+arithmetic in PyTorch, which the wrappers run on CPU tensors. The kernels
+run on the timeline decode core (`csrc/decode_timeline.cuh`): a
+thread-block cluster along the timeline per (batch row, KV head), each
+block streaming its range of the slab through a ring of bulk copies (the TPU
+kernels' double-buffered slab DMAs), launched at
+`ops/decode_timeline.py::timeline_plan`; a timeline no plan fits raises
+ValueError.
 
 Contract, as in the JAX package: q [B, Hq, hd]; the fresh rows [B, Hkv, hd];
 the caches [L, B, Hkv, S, hd] (S % 32 == 0); the offset (a Python int: the
@@ -49,6 +55,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .decode_timeline import cache_fmt, timeline_plan
 
 launches = 0  # kernel launches through `decode_attention_db_stats`
 launches_q8 = 0  # through `decode_attention_quantized_db_stats`
@@ -260,25 +267,27 @@ def _launch(name, fmt, normalized, q, k_new, v_new, ck, cv, quant_args, layer, o
     code = check_args(name, q, k_new, v_new, ck, cv, valid, layer, quant_args)
     L, B, Hkv, S, hd = ck.shape
     Hq = q.shape[1]
-    G = Hq // Hkv
-    if 4 * (G * hd + G * S + 32 * G * hd) > 227 * 1024:
-        raise ValueError(f"{name}: {S} slots exceed the shared-memory budget")
-    q, valid = q.contiguous(), valid.to(torch.int32).contiguous()
+    plan = timeline_plan(B, Hkv, S, Hq // Hkv, hd,
+                         cache_fmt(q.dtype) if fmt == FMT_CACHE else ("int8", "int4")[fmt - 1])
+    q, valid = q.contiguous(), _cuda.contiguous16(valid.to(torch.int32))
     k_new, v_new = k_new.contiguous(), v_new.contiguous()
+    if quant_args is not None and not all(_cuda.aligned16(t) for t in quant_args[:2]):
+        raise ValueError(f"{name}: the scale slabs must be 16-byte aligned")
     ptrs, scale_layer = quant_pointers(quant_args, layer)
     head = (fmt, code, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), ptrs[0], ptrs[1],
             ck.data_ptr(), cv.data_ptr(), ptrs[2], ptrs[3], valid.data_ptr(), int(layer),
             scale_layer, off, B, Hq, Hkv, S, hd, float(scale))
+    tail = (plan.C, plan.stages, _cuda.stream_handle(q))
     lib = _cuda.library()
     if normalized:
         out = torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device)
-        _cuda.check(lib.al_decode_db(*head, out.data_ptr(), _cuda.stream_handle(q)), name)
+        _cuda.check(lib.al_decode_db(*head, out.data_ptr(), *tail), name)
         return out
     m = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
     l = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
     acc = torch.empty((B, Hq, hd), dtype=torch.float32, device=q.device)
     _cuda.check(lib.al_decode_db_stats(*head, m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-                                       _cuda.stream_handle(q)), name)
+                                       *tail), name)
     return m, l, acc
 
 

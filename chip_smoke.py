@@ -3464,6 +3464,54 @@ def db_reject(name, fault, got, want, frac) -> dict:
     return ratios
 
 
+TIMELINE_FMT = {16: "bf16", 8: "int8", 4: "int4"}  # cache bits -> the planner's format
+
+
+def timeline_plan(B, S, bits) -> dict:
+    """The timeline decode kernels' launch plan (csrc/decode_timeline.cuh) at
+    the decoder's geometry: blocks a cluster, slots a block, ring stages,
+    blocks on the card, shared memory a block."""
+    from audio_llama_tpu_torch.ops import decode_timeline as dtl
+
+    lc = full_config().llama
+    p = dtl.timeline_plan(B, lc.num_kv_heads, S, lc.num_heads // lc.num_kv_heads, lc.head_dim,
+                          TIMELINE_FMT[bits])
+    return dict(B=B, S=S, C=p.C, slots_a_block=p.slots, stages=p.stages, blocks=p.blocks,
+                smem_bytes=p.smem)
+
+
+def timeline_report(kind, bits, B, S) -> dict:
+    """The bf16-q instance of `kind` ('db' the normalized mode, which the
+    single kernel's calls share, or 'db_stats') on a `bits` cache at the
+    decoder's G, by `sm90_checked`: ptxas's registers and spills beside the
+    runtime's registers, local bytes, shared memory and resident clusters of
+    the plan at (B, S)."""
+    from audio_llama_tpu_torch.ops import decode_timeline as dtl
+
+    lc = full_config().llama
+    G, fmt = lc.num_heads // lc.num_kv_heads, TIMELINE_FMT[bits]
+    plan = dtl.timeline_plan(B, lc.num_kv_heads, S, G, lc.head_dim, fmt)
+    code = {16: 0, 8: 1, 4: 2}[bits]
+    entry = f"db_kernelI13__nv_bfloat16Li{code}ELi{G}ELb{int(kind == 'db')}EE"
+    info = dtl.kernel_info(kind, fmt, 1, G, S, lc.head_dim, plan)
+    return dict(kernel=f"{kind} {fmt}", **sm90_checked(f"{kind} {fmt}", entry, info))
+
+
+def rank_dropped(case, bits, li, S, B, rank=1):
+    """A copy of the case whose V rows of block `rank`'s range at layer li
+    (the plan at (B, S)) are zero: a kernel's output on it is what a merge
+    that dropped that rank's P V partial gives on the case."""
+    from audio_llama_tpu_torch.ops import decode_timeline as dtl
+
+    s, e = dtl.block_range(S, timeline_plan(B, S, bits)["C"], rank)
+    caches = [c.clone() for c in case["caches"]]
+    if bits == 4:  # V is the combined byte's high nibble
+        caches[0][li, :, :, s:e] &= 0x0F
+    else:
+        caches[1][li, :, :, s:e] = 0
+    return dict(case, caches=caches)
+
+
 def db_case(dev, gen, bits, B, S, L, Hkv, Hq, hd):
     """Random inputs of one stats-kernel call: (q, fresh rows, caches,
     scales, fresh scales); int8/int4 caches as random bytes and scales."""
@@ -3581,7 +3629,7 @@ def db_kernel_checks(dev, gen):
     kpos = torch.arange(S, device=dev)[None, :]
     rows = []
     for name, (bits, replaces) in DB_ROWS.items():
-        results, faults = {}, {}
+        results, faults, plans, twice = {}, {}, {}, {}
         for B in (1, 4):
             case = db_case(dev, gen, bits, B, S, L, Hkv, Hq, hd)
             valid = (kpos <= own).to(torch.int32).repeat(B, 1)
@@ -3609,8 +3657,21 @@ def db_kernel_checks(dev, gen):
                     raise AssertionError(f"{label}: want (-5e29, 0, 0)")
                 results[f"B={B} {kind}"] = dict(acc_max_abs_err=err, acc_tol_ratio=ratio,
                                                 m_ratio=rm, l_ratio=rl)
+                if kind == "owner":  # a second call on the same inputs: the same bits
+                    again = db_call(case, bits, li, off, vmask, scale)
+                    same = all(torch.equal(a, b) for a, b in zip((m, l, acc, *caches),
+                                                                 (*again[:3], *again[3])))
+                    if not same:
+                        raise AssertionError(f"{label}: two calls differ")
+                    twice[f"B={B}"] = same
+            plans[f"B={B}"] = timeline_plan(B, S, bits)
             # planted faults, at B = 4 against the plain version's right answer
             if B == 4:
+                want = db_call(case, bits, li, own, valid, scale, cuda=False)
+                faults["rank 1's partial dropped"] = db_reject(
+                    name, "rank 1's partial dropped",
+                    db_call(rank_dropped(case, bits, li, S, B), bits, li, own, valid, scale),
+                    want, frac)
                 want = db_call(case, bits, li, S + 16, past, scale, cuda=False)
                 wrong = db_call(case, bits, li, S // 2, past, scale)  # a non-owner appends
                 faults["non-owner appends"] = db_reject(name, "non-owner appends", wrong,
@@ -3686,7 +3747,9 @@ def db_kernel_checks(dev, gen):
             tol={**tol_entry(frac), "m_l_rel": STATS_REL},
             tol_ratio=max(r["acc_tol_ratio"] for r in results.values()),
             checks=results, merge_of_2_half_slabs_vs_mono=merge,
-            planted_fault_ratios=faults, ms=ms, ms_events=ms_events, plain_ms=plain_ms,
+            planted_fault_ratios=faults, plan=plans, two_calls_bit_equal=twice,
+            sm90=timeline_report("db_stats", bits, 1, S),
+            ms=ms, ms_events=ms_events, plain_ms=plain_ms,
             library_ms=library_ms,
             library_note="SDPA over the same slab (K/V bf16, dequantized and repeated per query "
                          "head ahead of time); SDPA normalizes its output, the kernel returns "
@@ -3706,11 +3769,11 @@ def db_kernel_checks(dev, gen):
 
 AB_ROWS = {  # kernel row -> (cache bits of its instances, TPU kernel it replaces, source)
     "decode_attention_db": ((16,), "audio_llama_tpu/ops/decode_attention_db.py:29",
-                            "audio_llama_tpu_torch/csrc/decode_attention_db.cu"),
+                            "audio_llama_tpu_torch/csrc/decode_attention_norm.cu"),
     "decode_attention_quantized_db": ((8,), "audio_llama_tpu/ops/decode_attention_db.py:151",
-                                      "audio_llama_tpu_torch/csrc/decode_attention_db.cu"),
+                                      "audio_llama_tpu_torch/csrc/decode_attention_norm.cu"),
     "decode_attention_quantized4_db": ((4,), "audio_llama_tpu/ops/decode_attention_db.py:535",
-                                       "audio_llama_tpu_torch/csrc/decode_attention_db.cu"),
+                                       "audio_llama_tpu_torch/csrc/decode_attention_norm.cu"),
     "decode_attention_packed": ((16, 8), "audio_llama_tpu/ops/decode_attention_packed.py:69",
                                 "audio_llama_tpu_torch/csrc/decode_attention_packed.cu"),
 }
@@ -3773,7 +3836,8 @@ def ab_kernel_checks(dev, gen):
     rows = []
     for name, (instances, replaces, source) in AB_ROWS.items():
         frac = ATOL_ROW_RMS_FRAC[name]
-        results, faults, times = {}, {}, {}
+        results, faults, times, plans, twice = {}, {}, {}, {}, {}
+        timeline = name != "decode_attention_packed"
         for bits, S, B in itertools.product(instances, timelines, (1, 4)):
             case = db_case(dev, gen, bits, B, S, L, Hkv, Hq, hd)
             kpos = torch.arange(S, device=dev)[None, :]
@@ -3788,8 +3852,19 @@ def ab_kernel_checks(dev, gen):
             err, ratio = check_close(label, got, want, frac)
             check_append(label, gc, wc, case["caches"], case["rows"], li, off)
             results[label] = dict(max_abs_err=err, tol_ratio=ratio)
+            if timeline:
+                plans[label] = timeline_plan(B, S, bits)
+                twice[label] = torch.equal(got, ab_call(name, case, bits, li, off, valid,
+                                                        scale)[0])
+                if not twice[label]:
+                    raise AssertionError(f"{label}: two calls differ")
             if B == 4 and S == timelines[1]:
                 # planted faults, each against the plain version's right answer
+                if timeline:
+                    faults[f"{bits}-bit: rank 1's partial dropped"] = must_reject(
+                        name, "rank 1's partial dropped",
+                        ab_call(name, rank_dropped(case, bits, li, S, B), bits, li, off, valid,
+                                scale)[0], want, frac)
                 if name == "decode_attention_packed":
                     drop = valid.clone()  # the kernel forgets the second chunk
                     CH = pk.pick_chunk(S, pk.DEFAULT_CHUNK)
@@ -3849,6 +3924,8 @@ def ab_kernel_checks(dev, gen):
             launches=None, bound_ms=t["bound"][0], bound_by=t["bound"][1],
             times_by_cache_bits={b: {k: v for k, v in tt.items() if k != "bound"}
                                  for b, tt in times.items()},
+            **(dict(plan=plans, two_calls_bit_equal=twice,
+                    sm90=timeline_report("db", main_bits, 1, S)) if timeline else {}),
             shapes=f"caches [{L},B,{Hkv},S,{hd}], q [B,{Hq},{hd}] bf16, S {timelines}, B 1 "
                    f"and 4, {'/'.join(f'{b}-bit' for b in instances)} caches; timed at B=1, "
                    f"S={S}, {n_valid} valid slots, the {main_bits}-bit cache",
@@ -3906,6 +3983,9 @@ def decode_ab_path(ctx, arms) -> dict:
             first_step_logits_rel_l2_vs_auto=rel, tol_rel_l2=HOST_TOL,
             first_step_argmax_agree=(arm.argmax(-1) == auto.argmax(-1)).float().mean().item(),
             tokens=toks.tolist(), launches=launches)
+        if impl == "decode_kernel":  # the timeline kernels' plan at the request's cache
+            S = _rounded_len(cfg.audio_seq_len + 2 + ids.shape[1] + N_NEW)
+            stats["timeline_plan"] = timeline_plan(B, S, {False: 16, True: 8}.get(kv, kv))
         log(json.dumps({"decode_ab_path": stats}))
         out[key] = launches
     return out
@@ -5674,7 +5754,7 @@ def single_decode_checks(dev, gen):
     rows, cases = [], {}
     for name, (bits, replaces) in SINGLE_ROWS.items():
         frac = ATOL_ROW_RMS_FRAC[name]
-        results, faults = {}, {}
+        results, faults, plans, twice = {}, {}, {}, {}
         for S, B in itertools.product(timelines, (1, 4)):
             case = db_case(dev, gen, bits, B, S, L, Hkv, Hq, hd)
             kpos = torch.arange(S, device=dev)[None, :]
@@ -5692,7 +5772,15 @@ def single_decode_checks(dev, gen):
             if any(not torch.equal(a, b) for a, b in zip(case["scales"] or (), scales0)):
                 raise AssertionError(f"{label}: the kernel wrote the scale arrays")
             results[label] = dict(max_abs_err=err, tol_ratio=ratio)
+            plans[label] = timeline_plan(B, S, bits)
+            twice[label] = torch.equal(got, single_call(case, bits, li, off, valid, scale)[0])
+            if not twice[label]:
+                raise AssertionError(f"{label}: two calls differ")
             if B == 4 and S == timelines[1]:
+                faults["rank 1's partial dropped"] = must_reject(
+                    name, "rank 1's partial dropped",
+                    single_call(rank_dropped(case, bits, li, S, B), bits, li, off, valid,
+                                scale)[0], want, frac)
                 acc = db_call(case, bits, li, off, valid, scale)[2]
                 faults["p not normalized"] = must_reject(name, "p not normalized",
                                                          acc.to(want.dtype), want, frac)
@@ -5727,10 +5815,11 @@ def single_decode_checks(dev, gen):
         nbytes = Hkv * n_valid * row_bytes + 2.0 * Hq * hd * 2 + 4.0 * S + Hkv * row_bytes
         bms, bby = bound(4.0 * Hq * n_valid * hd, nbytes)
         row = dict(
-            name=name, route="cuda", source="audio_llama_tpu_torch/csrc/decode_attention_single.cu",
+            name=name, route="cuda", source="audio_llama_tpu_torch/csrc/decode_attention_norm.cu",
             replaces=replaces, max_abs_err=max(r["max_abs_err"] for r in results.values()),
             tol=tol_entry(frac), tol_ratio=max(r["tol_ratio"] for r in results.values()),
-            checks=results, planted_fault_ratios=faults,
+            checks=results, planted_fault_ratios=faults, plan=plans, two_calls_bit_equal=twice,
+            sm90=timeline_report("db", bits, 1, S),
             ms=time_ms(lambda: kernel(True), iters=56),
             plain_ms=events_ms(lambda: kernel(False), iters=8),
             library_ms=time_ms(sdpa_slab(case, bits, valid, scale, turn), iters=112),
@@ -6480,7 +6569,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lib_path = _cuda.build()
     _cuda.library()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib_path}")
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib_path}; nvcc seconds a "
+        f"source: {json.dumps(_cuda.build_seconds())}")
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions and host checks
     torch.backends.cudnn.allow_tf32 = False

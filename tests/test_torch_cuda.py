@@ -1624,10 +1624,137 @@ def test_single_decode_check_rejects_planted_faults(dev, quant):
 
 
 def test_single_decode_refuses_a_timeline_past_shared_memory(dev):
-    case = _single_case(dev, False, 1, 20000)
-    valid = torch.ones((1, 20000), dtype=torch.int32, device=dev)
+    """One slot group past the timeline planner's cap (ops/decode_timeline.py:
+    the largest range of 8 blocks no longer fits a block's shared memory)."""
+    from audio_llama_tpu_torch.ops import decode_timeline as dtl
+
+    S = dtl.max_slots(3, 128, "bf16") + 32
+    case = _single_case(dev, False, 1, S, L=2)
+    valid = torch.ones((1, S), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         _single_call(case, 5, valid, cuda=True)
+
+
+# ---- the timeline decode core (csrc/decode_timeline.cuh): the single kernel
+# (rows 29, 30) and the db kernels (rows 13-18) on clusters along the timeline
+
+TIMELINE_KERNELS = [("single", 16), ("single", 8), ("db", 16), ("db", 8), ("db", 4),
+                    ("stats", 16), ("stats", 8), ("stats", 4)]
+TIMELINE_NAMES = {("single", 16): "decode_attention", ("single", 8): "decode_attention_quantized",
+                  ("db", 16): "decode_attention_db", ("db", 8): "decode_attention_quantized_db",
+                  ("db", 4): "decode_attention_quantized4_db"}
+
+
+def _timeline_call(kind, case, bits, off, valid, cuda, li=1):
+    """-> (out, or (m, l, acc), caches after) of one kernel or plain call."""
+    from chip_smoke import ab_call, db_call, single_call
+
+    scale = case["q"].shape[-1] ** -0.5
+    if kind == "single":
+        return single_call(case, bits, li, off, valid, scale, cuda=cuda)
+    if kind == "db":
+        return ab_call(TIMELINE_NAMES[kind, bits], case, bits, li, off, valid, scale, cuda=cuda)
+    m, l, acc, caches = db_call(case, bits, li, off, valid, scale, cuda=cuda)
+    return (m, l, acc), caches
+
+
+def _timeline_check(kind, bits, case, off, valid, li=1):
+    from chip_smoke import check_append, stats_ratio
+
+    got, gc = _timeline_call(kind, case, bits, off, valid, True, li)
+    want, wc = _timeline_call(kind, case, bits, off, valid, False, li)
+    torch.cuda.synchronize()
+    if kind == "stats":
+        assert stats_ratio(got[0], want[0]) <= 1 and stats_ratio(got[1], want[1]) <= 1
+        assert tol_ratio(got[2], want[2], ATOL_ROW_RMS_FRAC["decode_attention_db_stats"]) <= 1
+        for g, w in zip(gc, wc):
+            assert torch.equal(g, w)
+    else:
+        name = TIMELINE_NAMES[kind, bits]
+        assert tol_ratio(got, want, ATOL_ROW_RMS_FRAC[name]) <= 1
+        check_append(name, gc, wc, case["caches"], case["rows"], li, off)
+    return got
+
+
+@pytest.mark.parametrize("kind,bits", TIMELINE_KERNELS)
+@pytest.mark.parametrize("B,S", [(1, 3040), (4, 3040), (1, 1568), (4, 1568)])
+def test_timeline_kernels_at_the_plans_clusters(dev, kind, bits, B, S):
+    """Each kernel against its plain version at the plan's C for B 1 (8
+    blocks a cluster) and B 4 (4), the offset on the first slot of rank 2's
+    range and on the last of rank 1's."""
+    from chip_smoke import db_case
+    from audio_llama_tpu_torch.ops import decode_timeline as dtl
+
+    case = db_case(dev, torch.Generator(device=dev).manual_seed(B + bits), bits, B, S, 2, 8,
+                   24, 128)
+    plan = dtl.timeline_plan(B, 8, S, 3, 128, "bf16" if bits == 16 else f"int{bits}")
+    assert plan.C == (8 if B == 1 else 4)
+    edge = plan.ranges(S)[2][0]
+    for off in (edge, edge - 1):
+        valid = (torch.arange(S, device=dev)[None, :] <= off).to(torch.int32).repeat(B, 1)
+        valid[-1, 3:9] = 0
+        _timeline_check(kind, bits, case, off, valid)
+
+
+@pytest.mark.parametrize("kind,bits", TIMELINE_KERNELS)
+@pytest.mark.parametrize("G,hd", [(1, 128), (2, 64), (4, 128), (6, 64), (8, 128), (3, 32)])
+def test_timeline_kernels_at_every_g(dev, kind, bits, G, hd):
+    """Every query-head group the kernels take (the logits' tensor-core tile
+    has G <= 8 columns), at hd 128, 64 and 32 (hd 32: int8 / int4 keys on
+    the CUDA-core path), B 2, 3 blocks a cluster's worth of 96 slots."""
+    from chip_smoke import db_case
+
+    S, B = 96, 2
+    case = db_case(dev, torch.Generator(device=dev).manual_seed(G + hd + bits), bits, B, S, 2,
+                   2, 2 * G, hd)
+    valid = (torch.arange(S, device=dev)[None, :] <= 70).to(torch.int32).repeat(B, 1)
+    valid[1, 33:40] = 0
+    _timeline_check(kind, bits, case, 70, valid)
+
+
+@pytest.mark.parametrize("kind,bits", TIMELINE_KERNELS)
+def test_timeline_kernels_past_the_one_block_cap(dev, kind, bits):
+    """24000 slots: past the one-block kernels' [G, S] logits in 227 KB."""
+    from chip_smoke import db_case
+
+    S = 24000
+    case = db_case(dev, torch.Generator(device=dev).manual_seed(bits), bits, 1, S, 2, 8, 24,
+                   128)
+    valid = (torch.arange(S, device=dev)[None, :] <= S - 7).to(torch.int32)
+    valid[0, 1000:1400] = 0
+    _timeline_check(kind, bits, case, S - 7, valid)
+
+
+@pytest.mark.parametrize("kind,bits", TIMELINE_KERNELS)
+def test_timeline_kernels_give_the_same_bits_twice(dev, kind, bits):
+    from chip_smoke import db_case
+
+    S, B = 3040, 2
+    case = db_case(dev, torch.Generator(device=dev).manual_seed(3 + bits), bits, B, S, 2, 8, 24,
+                   128)
+    valid = (torch.arange(S, device=dev)[None, :] <= 2000).to(torch.int32).repeat(B, 1)
+    first = _timeline_call(kind, case, bits, 2000, valid, True)
+    again = _timeline_call(kind, case, bits, 2000, valid, True)
+    for a, b in zip(first[0] if kind == "stats" else [first[0]],
+                    again[0] if kind == "stats" else [again[0]]):
+        assert torch.equal(a, b)
+    for a, b in zip(first[1], again[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind,fmt", [("db", "bf16"), ("db", "int8"), ("db", "int4"),
+                                      ("db_stats", "bf16"), ("db_stats", "int8"),
+                                      ("db_stats", "int4")])
+@pytest.mark.parametrize("B,S", [(1, 3040), (4, 1568), (1, 24000)])
+def test_timeline_kernel_info(dev, kind, fmt, B, S):
+    """The launch's shared memory equals the planner's; no spill; the plan's
+    clusters can be resident."""
+    from audio_llama_tpu_torch.ops import decode_timeline as dtl
+
+    plan = dtl.timeline_plan(B, 8, S, 3, 128, fmt)
+    info = dtl.kernel_info(kind, fmt, 1, 3, S, 128, plan)
+    assert info["smem_bytes"] == plan.smem
+    assert info["local_bytes"] == 0 and info["clusters_resident"] >= 1
 
 
 @pytest.mark.parametrize("fmt", ["pair", "obin"])
