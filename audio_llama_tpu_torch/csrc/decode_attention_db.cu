@@ -1,13 +1,13 @@
 // Single-token decode attention over one (batch row, KV head) slab of the
 // KV-cache timeline, appending the fresh row in place, in two modes of one
-// template (kNorm):
-//   stats (kNorm = false): the unnormalized flash statistics of one rank's
+// template (the core's Mode):
+//   stats (kStats): the unnormalized flash statistics of one rank's
 //     slab, for timeline-sharded decode. Replaces
 //     audio_llama_tpu/ops/decode_attention_db.py::_kernel (stats=True,
 //     decode_attention_db_stats), ::_kernel_quantized (stats=True,
 //     decode_attention_quantized_db_stats) and ::_kernel_quantized4
 //     (stats=True, decode_attention_quantized4_db_stats);
-//   normalized (kNorm = true): the attention output of single-device decode
+//   normalized (kNorm): the attention output of single-device decode
 //     (`attn_impl='decode_kernel'`). Replaces the same three functions with
 //     stats=False (decode_attention_db, decode_attention_quantized_db,
 //     decode_attention_quantized4_db).
@@ -54,7 +54,7 @@ namespace tl {
 
 cudaError_t dispatch_stats(int fmt, int dtype, int G, const Params& p, int C, bool info_only,
                            int* out, cudaStream_t stream) {
-  return dispatch<false>(fmt, dtype, G, p, C, info_only, out, stream);
+  return dispatch<kStats>(fmt, dtype, G, p, C, info_only, out, stream);
 }
 
 }  // namespace tl
@@ -90,16 +90,20 @@ AL_EXPORT int al_decode_db_stats(int fmt, int dtype, const void* q, const void* 
 
 // Registers, local bytes, shared memory and resident clusters of an
 // instance at its plan (out[4]): kind 0 the stats mode, 1 the normalized
-// mode (fmt, dtype as above; the single-buffered kernel's calls are the
-// normalized mode's fmt 0 and 1).
+// mode (the single-buffered kernel's calls are its fmt 0 and 1), 2 the mono
+// mode (fmt 0), 3 the chunk mode (fmt 0 and 1; `unit` the chunk, else 32).
+// fmt, dtype as above.
 AL_EXPORT int al_decode_timeline_info(int kind, int fmt, int dtype, int G, int S, int hd, int C,
-                                      int stages, void* out) {
+                                      int stages, int unit, void* out) {
   al::tl::Params p{};
   p.S = S;
   p.hd = hd;
   p.stages = stages;
+  p.unit = unit;
   int* o = static_cast<int*>(out);
   if (kind == 0) return al::tl::dispatch_stats(fmt, dtype, G, p, C, true, o, nullptr);
   if (kind == 1) return al::tl::dispatch_normalized(fmt, dtype, G, p, C, true, o, nullptr);
+  if (kind == 2) return al::tl::dispatch_mono(fmt, dtype, G, p, C, true, o, nullptr);
+  if (kind == 3) return al::tl::dispatch_chunk(fmt, dtype, G, p, C, true, o, nullptr);
   return cudaErrorInvalidValue;
 }

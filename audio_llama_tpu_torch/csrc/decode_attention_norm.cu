@@ -1,5 +1,5 @@
 // The normalized mode of the timeline decode core's kernel (db_kernel in
-// decode_timeline.cuh, kNorm = true): single-token decode attention over
+// decode_timeline.cuh, M = kNorm): single-token decode attention over
 // one (batch row, KV head) slab, appending the fresh row in place, the
 // output normalized. Two entries share its instances:
 //
@@ -36,7 +36,7 @@ namespace tl {
 
 cudaError_t dispatch_normalized(int fmt, int dtype, int G, const Params& p, int C,
                                 bool info_only, int* out, cudaStream_t stream) {
-  return dispatch<true>(fmt, dtype, G, p, C, info_only, out, stream);
+  return dispatch<kNorm>(fmt, dtype, G, p, C, info_only, out, stream);
 }
 
 }  // namespace tl

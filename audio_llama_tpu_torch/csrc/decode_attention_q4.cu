@@ -27,7 +27,7 @@
 // Bound on the H100: bytes. The valid rows of one layer's slab are read
 // once, hd bytes a row (int4) or 2 hd (int8), plus 8 bytes of scales: ~1.7
 // MB (int4) or ~3.3 MB (int8) per batch row at 8 KV heads, S = 1568 (0.5 /
-// 1.0 us at 3.35 TB/s). Design: decode_attention.cu's, one block of 1024
+// 1.0 us at 3.35 TB/s). Design: one block of 1024
 // threads per (batch row, KV head) with its G query heads, so each row is
 // read once for all G heads: one thread per key row with 16-byte loads for
 // the logits, then a branch-free PV pass in which each thread owns 16 bytes

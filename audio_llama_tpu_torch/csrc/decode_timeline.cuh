@@ -1,12 +1,20 @@
 // The timeline decode core: single-token decode attention over one (batch
 // row, KV head) slab of the KV-cache timeline, split along the timeline over
 // a thread-block cluster, appending the fresh row in place. Its one kernel,
-// db_kernel (below), runs the db kernels' stats mode (rows 13-15; entry and
-// instances in decode_attention_db.cu) and their normalized mode on
-// bf16/f32, int8 and int4 caches (rows 16-18), which the single-buffered
-// decode attention's entry shares (rows 29, 30; both entries and the
-// instances in decode_attention_norm.cu); their notes say which TPU kernels
-// they replace.
+// db_kernel (below), has four output modes (`Mode`), each compiled in a unit
+// of its own so the units build in parallel:
+//   kStats  the db kernels' stats mode (rows 13-15; decode_attention_db.cu);
+//   kNorm   their normalized mode on bf16/f32, int8 and int4 caches (rows
+//           16-18), which the single-buffered decode attention's entry
+//           shares (rows 29, 30; decode_attention_norm.cu);
+//   kMono   the bf16 main path's decode attention (row 4,
+//           decode_attention.cu): the stats mode's p, divided after P V,
+//           with a per-row offset on the device;
+//   kChunk  the timeline-chunked packed kernel (row 19,
+//           decode_attention_packed.cu): the TPU kernel's online softmax
+//           over chunks of the timeline, each block a whole number of
+//           chunks.
+// Their notes say which TPU kernels they replace.
 //
 // Bound on the H100: bytes. A call reads the slab's K and V rows once (at B
 // 1, 3040 slots, 8 KV heads, hd 128 bf16: 12.4 MB, 3.7 us at 3.35 TB/s).
@@ -23,7 +31,7 @@
 // land once, first. 256 threads a block. The logits of a bf16 q go on the
 // tensor cores (mma.sync m16n8k16: a warp's 16 rows as A, q^T as B, the G <=
 // 8 heads its columns; int8 / int4 keys made exact bf16 pairs in
-// registers), of an f32 q on CUDA cores (a row's 16-byte chunks over up to
+// registers), of an f32 q and of the chunk mode on CUDA cores (a row's 16-byte chunks over up to
 // 8 lanes, q in registers, folded by shuffles). P V is on CUDA cores: each
 // thread a 16-byte column of every (256 / chunks)-th row of a stage, folded
 // by shuffles and then over warps.
@@ -37,14 +45,39 @@
 // The softmax keeps the TPU kernels' arithmetic, across the cluster:
 //   1. logits = (q . k) * scale (int8/int4: * k_scale * scale), -1e30 on
 //      an invalid slot; the cluster max M is the max of the blocks' maxes
-//      (stats mode: max(M, -5e29));
-//   2. p = exp(logit - M) (stats mode: 0 on an invalid slot); the cluster
-//      sum l is the blocks' sums added in rank order;
+//      (stats and mono modes: max(M, -5e29));
+//   2. p = exp(logit - M) (stats and mono modes: 0 on an invalid slot); the
+//      cluster sum l is the blocks' sums added in rank order;
 //   3. normalized: p / l, then (int8/int4) * v_scale, rounded to the
-//      compute dtype; stats: p (* v_scale) rounded, not divided;
+//      compute dtype; stats and mono: p (* v_scale) rounded, not divided;
 //   4. the blocks' f32 P V partials added in rank order; rank r writes
 //      outputs [r G hd / C, (r + 1) G hd / C): the normalized output in q's
-//      dtype, or acc (f32) and, on rank 0, m = M and l.
+//      dtype, acc / l in q's dtype (mono: 0 where l = 0), or acc (f32) and,
+//      on rank 0, m = M and l (stats).
+// The mono mode is the contract of decode_attention_plain (-inf on a masked
+// slot, the row max, or 0 when every slot is masked): with one valid slot
+// its logit is far above -5e29, so M is the plain version's max and every
+// valid p is the same; masked slots give p = 0 on both sides; a fully masked
+// slab gives l = 0 and the output 0 on both sides.
+//
+// The chunk mode keeps the packed TPU kernel's recurrence over the chunks of
+// CH = `unit` slots in timeline order (m starts at -1e30):
+//   m_c = max(m_{c-1}, the chunk's max), alpha_c = exp(m_{c-1} - m_c);
+//   p = valid ? exp(round_cdt(logit - m_c)) rounded to cdt : 0 (cdt: q's
+//   dtype); l = alpha_c l + sum p; acc = alpha_c acc + sum p' V with p' = p,
+//   or round_cdt(p * v_scale) quantized; out = acc / l in q's dtype.
+// A block's range is a whole number of chunks. The K pass gives the block
+// its chunks' maxima; the max exchange gives it M_pre, the max over the
+// ranks before it (-1e30 on rank 0), which is m_{c-1} at its first chunk
+// exactly (a max has no rounding). The block walks its chunks from M_pre:
+// each chunk's running max m_c and alpha_c, then w_c, the product of the
+// alphas of its later chunks, and A_r, the product of all of them. p is
+// rounded against m_c as on the TPU; the V pass takes w_c p' and the
+// block's sum is that of w_c p, so the block's (l_r, acc_r) are the chain
+// over its chunks from zero. The sum exchange carries l_r and A_r, and the
+// merge chains the ranks in order: l <- A_r l + l_r, acc <- A_r acc + acc_r.
+// The result differs from the chain chunk by chunk only in the order of the
+// f32 sums and products.
 // The exchanges go through distributed shared memory: each block writes its
 // values into the inboxes of the blocks that need them, one cluster barrier,
 // then each reads its own inbox (three barriers a call). The flash-decoding
@@ -83,8 +116,11 @@ constexpr int kMaxG = 8;
 constexpr int kHead = 1024;      // barriers, the reduction scratch, the exchange inboxes
 constexpr size_t kSmemMax = 227 * 1024;
 constexpr float kDead = -1e30f;  // an invalid slot's logit
-constexpr float kFloor = -5e29f; // the stats mode's clamp of the max
+constexpr float kFloor = -5e29f; // the stats and mono modes' clamp of the max
 static_assert(512 + 2 * kMaxCluster * kMaxG * 4 <= kHead, "the exchange inboxes fit the head");
+
+// The output modes (module note).
+enum Mode { kStats = 0, kNorm = 1, kMono = 2, kChunk = 3 };
 
 // Blocks an SM holds at once, by register budget: two (128 registers a
 // thread) up to G 4, so clusters of a B 4 launch pack their GPCs; one past
@@ -103,7 +139,11 @@ struct Params {
   const float* vs;
   const int* valid;               // [B, S]
   const int* off_dev;             // the offset on the device, or null: `off`
+  int off_stride;                 // row b's offset is off_dev[b * off_stride]
   int layer, scale_layer, off, B, Hkv, S, hd, stages;
+  int unit;                       // slots of a range's unit: kGroup, or the chunk
+  int skip_rank;                  // chunk mode, a planted fault: the later ranks'
+                                  // M_pre leaves this rank out (-1: none)
   float scale;
   float* m_out;                   // stats: [B, Hq] f32
   float* l_out;
@@ -119,14 +159,16 @@ __host__ __device__ __forceinline__ int stage_rows(int row_bytes) {
   return rows < kGroup ? kGroup : rows > 256 ? 256 : rows;
 }
 
-// Byte offsets of a block's dynamic shared memory over at most n slots
+// Byte offsets of a block's dynamic shared memory over at most n slots and
+// nch chunks (the chunk mode, else 0): the chunk mode's region holds the
+// blocks' A_r inbox and each head's chunk maxima and weights
 // (ops/decode_timeline.py::block_smem is the planner's copy of `total`).
 struct Layout {
-  size_t ring, qs, lg, vld, ks, vs, total;
+  size_t ring, qs, lg, vld, ks, vs, ch, total;
 };
 
 __host__ __device__ __forceinline__ Layout layout(int row_bytes, bool quant, int G, int hd, int n,
-                                                  int stages) {
+                                                  int stages, int nch) {
   const size_t ring = (size_t)stages * stage_rows(row_bytes) * row_bytes;
   const size_t part = (size_t)kWarps * G * hd * 4;  // the warps' P V partials, later
   Layout L;
@@ -136,18 +178,19 @@ __host__ __device__ __forceinline__ Layout layout(int row_bytes, bool quant, int
   L.vld = L.lg + (size_t)G * n * 4;
   L.ks = L.vld + (size_t)n * 4;
   L.vs = L.ks + (quant ? (size_t)n * 4 : 0);
-  L.total = L.vs + (quant ? (size_t)n * 4 : 0);
+  L.ch = L.vs + (quant ? (size_t)n * 4 : 0);
+  L.total = L.ch + (nch ? ((size_t)kMaxCluster * kMaxG + 2 * (size_t)G * nch) * 4 : 0);
   return L;
 }
 
-// The most slots a block of C takes.
-__host__ __device__ __forceinline__ int range_slots(int S, int C) {
-  return (S / kGroup + C - 1) / C * kGroup;
+// The most slots a block of C takes, in units of `unit` slots.
+__host__ __device__ __forceinline__ int range_slots(int S, int C, int unit) {
+  return (S / unit + C - 1) / C * unit;
 }
 
-__host__ __forceinline__ bool plan_ok(int S, int C, int stages) {
-  return S > 0 && S % kGroup == 0 && C >= 1 && C <= kMaxCluster && C <= S / kGroup &&
-         stages >= 2 && stages <= kMaxStages;
+__host__ __forceinline__ bool plan_ok(int S, int C, int stages, int unit) {
+  return S > 0 && unit >= kGroup && unit % kGroup == 0 && S % unit == 0 && C >= 1 &&
+         C <= kMaxCluster && C <= S / unit && stages >= 2 && stages <= kMaxStages;
 }
 
 // `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
@@ -217,9 +260,8 @@ __device__ __forceinline__ void key_pairs(uint32_t w, uint32_t& lo, uint32_t& hi
 }
 
 // The attention of one block of the calling cluster (module note). T: q's
-// dtype and the compute dtype; F: the cache format; kNorm: normalized or
-// stats mode.
-template <typename T, int F, int G, bool kNorm>
+// dtype and the compute dtype; F: the cache format; M: the output mode.
+template <typename T, int F, int G, int M>
 __device__ __forceinline__ void attend(const Params& p) {
   using E = typename CacheElem<T, F>::type;
   constexpr int N = Vec16<E>::N;
@@ -230,17 +272,19 @@ __device__ __forceinline__ void attend(const Params& p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.y, b = bh / p.Hkv, kvh = bh % p.Hkv;
   const int hd = p.hd, nvec = hd / N, row_bytes = hd * (int)sizeof(E);
-  const int ng = p.S / kGroup, R = p.stages, SR = stage_rows(row_bytes);
-  const int g0 = rank * ng / C, start = g0 * kGroup;
-  const int n = ((rank + 1) * ng / C - g0) * kGroup, nmax = range_slots(p.S, C);
+  const int unit = p.unit, ng = p.S / unit, R = p.stages, SR = stage_rows(row_bytes);
+  const int g0 = rank * ng / C, start = g0 * unit;
+  const int n = ((rank + 1) * ng / C - g0) * unit, nmax = range_slots(p.S, C, unit);
   const int ns = (n + SR - 1) / SR;  // stages a pass
-  const Layout lay = layout(row_bytes, kQuant, G, hd, nmax, R);
+  const int nch = M == kChunk ? nmax / unit : 0, nc = M == kChunk ? n / unit : 0;
+  const Layout lay = layout(row_bytes, kQuant, G, hd, nmax, R, nch);
 
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [R] ring slots, then the range's flags
   uint64_t* meta = full + kMaxStages;
   float* red = reinterpret_cast<float*>(smem + 128);   // [kWarps][kMaxG]
   float* Mg = red + kWarps * kMaxG;                     // [G] the cluster max
   float* Lg = Mg + kMaxG;                               // [G] the cluster sum
+  float* Ag = Lg + kMaxG;                               // chunk mode: [G] the block's A_r
   float* in_max = reinterpret_cast<float*>(smem + 512);  // [rank][kMaxG] the blocks' maxes
   float* in_sum = in_max + kMaxCluster * kMaxG;          // [rank][kMaxG] the blocks' sums
   unsigned char* ring = smem + lay.ring;
@@ -249,6 +293,9 @@ __device__ __forceinline__ void attend(const Params& p) {
   int* vld = reinterpret_cast<int*>(smem + lay.vld);
   float* kss = reinterpret_cast<float*>(smem + lay.ks);
   float* vss = reinterpret_cast<float*>(smem + lay.vs);
+  float* in_a = reinterpret_cast<float*>(smem + lay.ch);  // chunk mode: [rank][kMaxG] A_r
+  float* cm = in_a + kMaxCluster * kMaxG;  // [G][nch] the chunks' maxima, then m_c
+  float* cw = cm + G * nch;                // [G][nch] alpha_c, then w_c
 
   const size_t row0 = ((size_t)p.layer * p.B * p.Hkv + bh) * (size_t)p.S;
   E* kslab = static_cast<E*>(p.ck) + row0 * hd;
@@ -256,7 +303,7 @@ __device__ __forceinline__ void attend(const Params& p) {
   const E* kfresh = static_cast<const E*>(p.k_new) + (size_t)bh * hd;
   const E* vfresh = static_cast<const E*>(p.v_new) + (size_t)bh * hd;
   const size_t srow = ((size_t)p.scale_layer * p.B * p.Hkv + bh) * (size_t)p.S;
-  const int off = p.off_dev ? *p.off_dev : p.off;
+  const int off = p.off_dev ? p.off_dev[b * p.off_stride] : p.off;
   const int loc = off - start;  // the fresh row's slot in the range, when in [0, n)
   const size_t stage_bytes = (size_t)SR * row_bytes;
   const int nst = 2 * ns;  // K stages, then V stages
@@ -305,7 +352,12 @@ __device__ __forceinline__ void attend(const Params& p) {
   // cores: the lpr consecutive lanes of a row each take cpl of its nvec
   // chunks (c0 + j lpr), at most 16 elements a lane, q in registers, kU rows
   // a thread at once, the lanes' sums folded by log2(lpr) shuffles.
-  constexpr bool kTC = std::is_same<T, __nv_bfloat16>::value;
+  // The chunk mode rounds logit - m_c to bf16, an absolute rounding (a
+  // step of 2^-6 at 3): a logit a few ulps off flips it and moves that p by
+  // percents, and mma.sync's f32 sums are a few ulps off a rounded sum. Its
+  // logits take the CUDA-core path's fmaf chains, as the first packed kernel
+  // did.
+  constexpr bool kTC = std::is_same<T, __nv_bfloat16>::value && M != kChunk;
   constexpr int kpg = N / 4;       // k-steps a 16-byte chunk holds
   constexpr int kMaxGroups = 64 / N;  // groups of 4 chunks in a row of hd <= 256
   const bool tc = kTC && hd % (4 * N) == 0 && hd <= 256;
@@ -444,7 +496,8 @@ __device__ __forceinline__ void attend(const Params& p) {
     }
   }
 
-  // 1. the cluster max
+  // 1. the cluster max (chunk mode: each chunk's max too, a warp a (head,
+  // chunk))
   float v[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) v[g] = -INFINITY;
@@ -456,6 +509,15 @@ __device__ __forceinline__ void attend(const Params& p) {
   for (int g = 0; g < G; ++g) {
     v[g] = warp_max(v[g]);
     if (lane == 0) red[warp * kMaxG + g] = v[g];
+  }
+  if constexpr (M == kChunk) {
+    for (int t = warp; t < G * nc; t += kWarps) {
+      const int g = t / nc, j = t % nc;
+      float m = -INFINITY;
+      for (int i = lane; i < unit; i += 32) m = fmaxf(m, lg[g * nmax + j * unit + i]);
+      m = warp_max(m);
+      if (lane == 0) cm[g * nch + j] = m;
+    }
   }
   __syncthreads();
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
@@ -469,22 +531,60 @@ __device__ __forceinline__ void attend(const Params& p) {
   }
   cluster.sync();
   if (tid < G) {
-    float m = -INFINITY;
-    for (int r = 0; r < C; ++r) m = fmaxf(m, in_max[r * kMaxG + tid]);
-    Mg[tid] = kNorm ? m : fmaxf(m, kFloor);
+    if constexpr (M == kChunk) {
+      // walk the block's chunks from M_pre: m_c and alpha_c, then w_c (the
+      // product of the later chunks' alphas) and A_r
+      float m = kDead;
+      for (int r = 0; r < rank; ++r)
+        if (r != p.skip_rank) m = fmaxf(m, in_max[r * kMaxG + tid]);
+      float* cmg = cm + tid * nch;
+      float* cwg = cw + tid * nch;
+      for (int j = 0; j < nc; ++j) {
+        const float m_new = fmaxf(m, cmg[j]);
+        cwg[j] = expf(m - m_new);
+        cmg[j] = m_new;
+        m = m_new;
+      }
+      float w = 1.f;
+      for (int j = nc - 1; j >= 0; --j) {
+        const float alpha = cwg[j];
+        cwg[j] = w;
+        w *= alpha;
+      }
+      Ag[tid] = w;
+    } else {
+      float m = -INFINITY;
+      for (int r = 0; r < C; ++r) m = fmaxf(m, in_max[r * kMaxG + tid]);
+      Mg[tid] = M == kNorm ? m : fmaxf(m, kFloor);
+    }
   }
   __syncthreads();
 
-  // 2. p = exp(logit - M) and the cluster sum, in rank order
+  // 2. p = exp(logit - M) and the cluster sum, in rank order (chunk mode:
+  // p against its chunk's m_c, rounded, and w_c p' as P V takes it)
 #pragma unroll
   for (int g = 0; g < G; ++g) v[g] = 0.f;
   for (int i = tid; i < n; i += kThreads) {
     const bool ok = vld[i] > 0;
+    if constexpr (M == kChunk) {
+      const int j = i / unit;
+      float vsc = 1.f;
+      if constexpr (kQuant) vsc = i == loc ? p.vs_new[bh] : vss[i];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float e = (kNorm || ok) ? expf(lg[g * nmax + i] - Mg[g]) : 0.f;
-      lg[g * nmax + i] = e;
-      v[g] += e;
+      for (int g = 0; g < G; ++g) {
+        const float e =
+            ok ? round_to<T>(expf(round_to<T>(lg[g * nmax + i] - cm[g * nch + j]))) : 0.f;
+        const float w = cw[g * nch + j];
+        lg[g * nmax + i] = w * (kQuant ? round_to<T>(e * vsc) : e);
+        v[g] += w * e;
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float e = (M == kNorm || ok) ? expf(lg[g * nmax + i] - Mg[g]) : 0.f;
+        lg[g * nmax + i] = e;
+        v[g] += e;
+      }
     }
   }
 #pragma unroll
@@ -498,27 +598,34 @@ __device__ __forceinline__ void attend(const Params& p) {
     float s = 0.f;
     for (int w = 0; w < kWarps; ++w) s += red[w * kMaxG + g];
     cluster.map_shared_rank(in_sum, tid / G)[rank * kMaxG + g] = s;
+    if constexpr (M == kChunk) cluster.map_shared_rank(in_a, tid / G)[rank * kMaxG + g] = Ag[g];
   }
   cluster.sync();
   if (tid < G) {
     float s = 0.f;
-    for (int r = 0; r < C; ++r) s += in_sum[r * kMaxG + tid];  // in rank order
+    for (int r = 0; r < C; ++r) {  // in rank order (chunk mode: chained)
+      if constexpr (M == kChunk) s = in_a[r * kMaxG + tid] * s + in_sum[r * kMaxG + tid];
+      else s += in_sum[r * kMaxG + tid];
+    }
     Lg[tid] = s;
   }
   __syncthreads();
 
-  // 3. p as P V takes it: normalized, times the V scale, rounded to T
-  for (int i = tid; i < n; i += kThreads) {
-    float vsc = 1.f;
-    if constexpr (kQuant) vsc = i == loc ? p.vs_new[bh] : vss[i];
+  // 3. p as P V takes it: normalized, times the V scale, rounded to T (the
+  // chunk mode did this in step 2)
+  if constexpr (M != kChunk) {
+    for (int i = tid; i < n; i += kThreads) {
+      float vsc = 1.f;
+      if constexpr (kQuant) vsc = i == loc ? p.vs_new[bh] : vss[i];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float pv = lg[g * nmax + i];
-      if constexpr (kNorm) pv = pv / Lg[g];
-      lg[g * nmax + i] = round_to<T>(pv * vsc);
+      for (int g = 0; g < G; ++g) {
+        float pv = lg[g * nmax + i];
+        if constexpr (M == kNorm) pv = pv / Lg[g];
+        lg[g * nmax + i] = round_to<T>(pv * vsc);
+      }
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   // V pass: thread (row r0 of every `rows`, chunk c) of each stage
   const int c = tid % nvec, rows = kThreads / nvec, r0 = tid / nvec;
@@ -593,12 +700,19 @@ __device__ __forceinline__ void attend(const Params& p) {
   cluster.sync();
   const int e0 = rank * GH / C, e1 = (rank + 1) * GH / C;
   for (int e = e0 + tid; e < e1; e += kThreads) {
+    const int g = e / hd;
     float s = 0.f;
-    for (int r = 0; r < C; ++r) s += qs[r * share + e - e0];
-    if constexpr (kNorm) static_cast<T*>(p.out)[head0 * hd + e] = from_f32<T>(s);
+    for (int r = 0; r < C; ++r) {
+      if constexpr (M == kChunk) s = in_a[r * kMaxG + g] * s + qs[r * share + e - e0];
+      else s += qs[r * share + e - e0];
+    }
+    T* out = static_cast<T*>(p.out) + head0 * hd + e;
+    if constexpr (M == kNorm) *out = from_f32<T>(s);
+    else if constexpr (M == kMono) *out = from_f32<T>(Lg[g] > 0.f ? s / Lg[g] : 0.f);
+    else if constexpr (M == kChunk) *out = from_f32<T>(s / Lg[g]);
     else static_cast<float*>(p.out)[head0 * hd + e] = s;
   }
-  if constexpr (!kNorm) {
+  if constexpr (M == kStats) {
     if (rank == 0 && tid < G) {
       p.m_out[head0 + tid] = Mg[tid];
       p.l_out[head0 + tid] = Lg[tid];
@@ -672,48 +786,57 @@ cudaError_t with_g(int G, Fn&& f) {
 }
 
 // The core's one kernel: T q's dtype and the compute dtype, F the cache
-// format, G the query heads a KV head, kNorm the mode. The stats mode's
-// instances compile in decode_attention_db.cu, the normalized mode's in
-// decode_attention_norm.cu, so the two build in parallel.
-template <typename T, int F, int G, bool kNorm>
+// format, G the query heads a KV head, M the mode. Each mode's instances
+// compile in a unit of their own (module note), so the units build in
+// parallel.
+template <typename T, int F, int G, int M>
 __global__ void __launch_bounds__(kThreads, min_blocks(G)) db_kernel(const Params p) {
-  attend<T, F, G, kNorm>(p);
+  attend<T, F, G, M>(p);
 }
 
-template <typename T, int F, bool kNorm>
+template <typename T, int F, int M>
 cudaError_t run(int G, const Params& p, int C, bool info_only, int* out, cudaStream_t stream) {
   const int elem = F == kCacheT ? (int)sizeof(T) : 1;
-  const size_t smem =
-      layout(p.hd * elem, F != kCacheT, G, p.hd, range_slots(p.S, C), p.stages).total;
+  const int nmax = range_slots(p.S, C, p.unit);
+  const size_t smem = layout(p.hd * elem, F != kCacheT, G, p.hd, nmax, p.stages,
+                             M == kChunk ? nmax / p.unit : 0).total;
   return with_g(G, [&](auto g) {
-    auto kernel = db_kernel<T, F, decltype(g)::value, kNorm>;
+    auto kernel = db_kernel<T, F, decltype(g)::value, M>;
     return info_only ? info(kernel, C, smem, out) : launch(kernel, p, C, smem, stream);
   });
 }
 
-template <typename T, bool kNorm>
+// The cache formats a mode takes: mono only q's dtype, chunk also int8.
+template <typename T, int M>
 cudaError_t run_fmt(int fmt, int G, const Params& p, int C, bool info_only, int* out,
                     cudaStream_t stream) {
-  if (fmt == kCacheT) return run<T, kCacheT, kNorm>(G, p, C, info_only, out, stream);
-  if (fmt == kInt8) return run<T, kInt8, kNorm>(G, p, C, info_only, out, stream);
-  if (fmt == kInt4) return run<T, kInt4, kNorm>(G, p, C, info_only, out, stream);
+  if (fmt == kCacheT) return run<T, kCacheT, M>(G, p, C, info_only, out, stream);
+  if constexpr (M != kMono) {
+    if (fmt == kInt8) return run<T, kInt8, M>(G, p, C, info_only, out, stream);
+  }
+  if constexpr (M == kStats || M == kNorm) {
+    if (fmt == kInt4) return run<T, kInt4, M>(G, p, C, info_only, out, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
 // Launch the mode's instance for q's dtype code, the cache format (0 q's
-// dtype, 1 int8, 2 int4) and G at the plan (C blocks a cluster,
-// p.stages), or with info_only report it (out[4], as `info`).
-template <bool kNorm>
+// dtype, 1 int8, 2 int4) and G at the plan (C blocks a cluster, p.stages,
+// ranges in units of p.unit slots), or with info_only report it (out[4], as
+// `info`).
+template <int M>
 cudaError_t dispatch(int fmt, int dtype, int G, const Params& p, int C, bool info_only,
                      int* out, cudaStream_t stream) {
-  if (!plan_ok(p.S, C, p.stages)) return cudaErrorInvalidValue;
-  if (dtype == kBF16) return run_fmt<__nv_bfloat16, kNorm>(fmt, G, p, C, info_only, out, stream);
-  if (dtype == kF32) return run_fmt<float, kNorm>(fmt, G, p, C, info_only, out, stream);
+  if (!plan_ok(p.S, C, p.stages, p.unit)) return cudaErrorInvalidValue;
+  if (M != kChunk && p.unit != kGroup) return cudaErrorInvalidValue;
+  if (dtype == kBF16) return run_fmt<__nv_bfloat16, M>(fmt, G, p, C, info_only, out, stream);
+  if (dtype == kF32) return run_fmt<float, M>(fmt, G, p, C, info_only, out, stream);
   return cudaErrorInvalidValue;
 }
 
-// The Params of a call whose offset is the host's `off` (the db entries;
-// the single-buffered entry sets off_dev and scale_layer 0 after).
+// The Params of a call whose offset is the host's `off`, ranges in 32-slot
+// groups (the db entries; the single-buffered and mono entries set off_dev
+// after, the packed entry the chunk as the unit).
 inline Params db_params(const void* q, const void* k_new, const void* v_new,
                         const void* ks_new, const void* vs_new, void* ck, void* cv,
                         const void* ks, const void* vs, const void* valid, int layer,
@@ -731,6 +854,9 @@ inline Params db_params(const void* q, const void* k_new, const void* v_new,
   p.vs = static_cast<const float*>(vs);
   p.valid = static_cast<const int*>(valid);
   p.off_dev = nullptr;
+  p.off_stride = 0;
+  p.unit = kGroup;
+  p.skip_rank = -1;
   p.layer = layer;
   p.scale_layer = scale_layer;
   p.off = off;
@@ -746,12 +872,18 @@ inline Params db_params(const void* q, const void* k_new, const void* v_new,
   return p;
 }
 
-// dispatch<false>, defined in decode_attention_db.cu, and dispatch<true>,
-// in decode_attention_norm.cu: each mode is instantiated in one place.
+// dispatch<kStats>, defined in decode_attention_db.cu, dispatch<kNorm> in
+// decode_attention_norm.cu, dispatch<kMono> in decode_attention.cu and
+// dispatch<kChunk> in decode_attention_packed.cu: each mode is instantiated
+// in one place.
 cudaError_t dispatch_stats(int fmt, int dtype, int G, const Params& p, int C, bool info_only,
                            int* out, cudaStream_t stream);
 cudaError_t dispatch_normalized(int fmt, int dtype, int G, const Params& p, int C,
                                 bool info_only, int* out, cudaStream_t stream);
+cudaError_t dispatch_mono(int fmt, int dtype, int G, const Params& p, int C, bool info_only,
+                          int* out, cudaStream_t stream);
+cudaError_t dispatch_chunk(int fmt, int dtype, int G, const Params& p, int C, bool info_only,
+                           int* out, cudaStream_t stream);
 
 }  // namespace tl
 }  // namespace al

@@ -53,7 +53,7 @@ SIGNATURES = {
     "al_causal_attention": [_P] * 7 + [_I] * 5 + _STRIDES + [_I, _P],
     "al_causal_attention_fixed": [_P] * 8 + [_I] * 5 + _STRIDES + [_I] * 3 + [_P],
     "al_causal_attention_dma": [_P] * 8 + [_I] * 5 + _STRIDES + [_I, _P],
-    "al_decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P, _P],
+    "al_decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P, _I, _I, _P],
     "al_mel_power": [_P, _I, _L, _I, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P],
     "al_int4_matmul": [_P, _I, _I, _P, _I, _P, _I, _P, _L, _L] + [_I] * 4 + [_P],
     "al_int4_matmul_2d": [_P, _I, _I, _P, _I, _P, _I, _P] + [_I] * 2 + [_P],
@@ -68,8 +68,8 @@ SIGNATURES = {
     "al_causal_attention_dkv": [_P] * 10 + [_I] * 6 + [_P],
     "al_decode_db_stats": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F] + [_P] * 3 + [_I] * 2 + [_P],
     "al_decode_db": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F, _P, _I, _I, _P],
-    "al_decode_timeline_info": [_I] * 8 + [_P],
-    "al_decode_packed": [_I, _I] + [_P] * 10 + [_I] * 9 + [_F] + [_P] * 7,
+    "al_decode_timeline_info": [_I] * 9 + [_P],
+    "al_decode_packed": [_I, _I] + [_P] * 10 + [_I] * 9 + [_F, _P, _I, _I, _I, _P],
     "al_decode_attention_single": [_I, _I] + [_P] * 11 + [_I] * 6 + [_F, _P, _I, _I, _P],
     "al_sm90_kernel_info": [_I, _I, _P],
 }
@@ -177,9 +177,8 @@ def library() -> ctypes.CDLL:
 
 def counters(device: torch.device, n: int) -> torch.Tensor:
     """n int32 zeros on `device` for the kernels that count in device memory
-    (ops/mlp_int4.py: its ticket, ready and arrival counts;
-    ops/decode_attention_packed.py): each kernel leaves them zero, so one
-    buffer serves every launch on the stream."""
+    (ops/mlp_int4.py: its ticket, ready and arrival counts): each kernel
+    leaves them zero, so one buffer serves every launch on the stream."""
     with _lock:
         buf = _counters.get(device)
         if buf is None or buf.numel() < n:

@@ -3,9 +3,12 @@ bf16/f32 KV cache, on an int8 KV cache and on the K/V-combined int4 cache.
 
 `decode_attention_mono` replaces
 `audio_llama_tpu/ops/decode_attention_mono.py::_kernel_mono_full`; its CUDA
-kernel is `csrc/decode_attention.cu` and `decode_attention_plain` is the
-same arithmetic in PyTorch. `decode_attention_quantized4_mono` replaces
-`_kernel_mono4`; its CUDA kernel is `csrc/decode_attention_q4.cu` and
+kernel is the mono mode of the timeline decode core
+(`csrc/decode_timeline.cuh`, instances in `csrc/decode_attention.cu`: a
+thread-block cluster along the timeline per (batch row, KV head), launched
+at `ops/decode_timeline.py::timeline_plan`, whose ValueError caps max_len)
+and `decode_attention_plain` is the same arithmetic in PyTorch.
+`decode_attention_quantized4_mono` replaces `_kernel_mono4`; its CUDA kernel is `csrc/decode_attention_q4.cu` and
 `decode_attention_q4_plain` its arithmetic in PyTorch.
 `decode_attention_quantized_mono` replaces `_kernel_mono_q8`; its CUDA kernel
 is the int8 instance of the same template in `csrc/decode_attention_q4.cu`
@@ -33,6 +36,7 @@ from typing import Union
 import torch
 
 from . import _cuda
+from .decode_timeline import cache_fmt, timeline_plan
 
 launches = 0  # kernel launches through `decode_attention_mono`
 launches_q4 = 0  # kernel launches through `decode_attention_quantized4_mono`
@@ -110,21 +114,18 @@ def decode_attention_cuda(q, k_new, v_new, cache_k, cache_v, layer, offset, vali
     if row_bytes % 16 or 32 % (row_bytes // 16) or not _cuda.aligned16(cache_k) \
             or not _cuda.aligned16(cache_v):
         raise ValueError(f"{name}: cache rows must be 16-byte vectors, at most 32 per row")
-    G = Hq // Hkv
-    smem = 4 * (G * hd + G * max_len + 32 * G * hd)
-    if smem > 227 * 1024:
-        raise ValueError(f"{name}: max_len {max_len} exceeds the shared-memory budget")
+    plan = timeline_plan(B, Hkv, max_len, Hq // Hkv, hd, cache_fmt(cache_k.dtype))
     off = _offsets(offset, B, q.device)
-    valid = valid.to(torch.int32).contiguous()
+    valid = _cuda.contiguous16(valid.to(torch.int32))
     q = q.contiguous()
-    k_new = k_new.to(cache_k.dtype).contiguous()
-    v_new = v_new.to(cache_v.dtype).contiguous()
+    k_new = _cuda.contiguous16(k_new.to(cache_k.dtype))
+    v_new = _cuda.contiguous16(v_new.to(cache_v.dtype))
     out = torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device)
     err = _cuda.library().al_decode_attention(
         code, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         cache_k.data_ptr(), cache_v.data_ptr(), off.data_ptr(), valid.data_ptr(),
-        int(layer), B, Hq, Hkv, max_len, hd, float(scale), out.data_ptr(),
-        _cuda.stream_handle(q),
+        int(layer), B, Hq, Hkv, max_len, hd, float(scale), out.data_ptr(), plan.C,
+        plan.stages, _cuda.stream_handle(q),
     )
     _cuda.check(err, name)
     launches += 1

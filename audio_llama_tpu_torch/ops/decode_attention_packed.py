@@ -5,9 +5,13 @@ Counterpart of `audio_llama_tpu/ops/decode_attention_packed.py`:
 `decode_attention_packed` (bf16/f32 caches) and
 `decode_attention_quantized_packed` (int8 caches with per-row f32 scales)
 replace `_kernel`, `llama_forward`'s `attn_impl='decode_packed'` (it has no
-int4-KV variant). Their CUDA kernel is `csrc/decode_attention_packed.cu`,
-two launches a call; `packed_plain` is the TPU kernel's arithmetic in
-PyTorch, chunk by chunk, which the wrappers run on CPU tensors. The TPU
+int4-KV variant). Their CUDA kernel is the chunk mode of the timeline decode
+core (`csrc/decode_timeline.cuh`, instances in
+`csrc/decode_attention_packed.cu`), one launch a call: a thread-block
+cluster along the timeline per (batch row, KV head), each block a whole
+number of chunks (`ops/decode_timeline.py::timeline_plan` with the chunk as
+the range unit); `packed_plain` is the TPU kernel's arithmetic in PyTorch,
+chunk by chunk, which the wrappers run on CPU tensors. The TPU
 kernel's slab DMA pipeline (PACKED_DEPTH) has no counterpart; its chunk
 length is the JAX package's default (PACKED_CHUNK unset), and the same
 `pick_chunk` cuts the timeline, since the chunk length changes the result.
@@ -38,9 +42,10 @@ from . import _cuda
 from .decode_attention_db import (DEAD, FMT_CACHE, FMT_INT8, append_row, check_args,
                                   check_len, check_offset, layer_scales, quant_pointers,
                                   with_fresh)
+from .decode_timeline import cache_fmt, timeline_plan
 
-launches = 0  # kernel launches through `decode_attention_packed` (two a call)
-launches_q8 = 0  # through `decode_attention_quantized_packed` (two a call)
+launches = 0  # kernel launches through `decode_attention_packed` (one a call)
+launches_q8 = 0  # through `decode_attention_quantized_packed` (one a call)
 DEFAULT_CHUNK = 512  # the JAX package's default timeline chunk
 
 
@@ -97,8 +102,10 @@ def packed_plain(q, k_new, v_new, cache_k, cache_v, layer, offset, valid, scale,
 
 
 def packed_cuda(q, k_new, v_new, cache_k, cache_v, layer, offset, valid, scale,
-                chunk: int = DEFAULT_CHUNK, quant_args=None):
-    """Launch the kernel (the plain version's arguments); two launches."""
+                chunk: int = DEFAULT_CHUNK, quant_args=None, skip_rank: int = -1):
+    """Launch the kernel (the plain version's arguments); one launch.
+    skip_rank >= 0 plants a fault for the checks: the blocks after that rank
+    start their running max without its chunks."""
     global launches, launches_q8
     name = "decode_attention_packed" if quant_args is None else \
         "decode_attention_quantized_packed"
@@ -108,29 +115,26 @@ def packed_cuda(q, k_new, v_new, cache_k, cache_v, layer, offset, valid, scale,
     _, B, Hkv, S, hd = cache_k.shape
     Hq = q.shape[1]
     CH = pick_chunk(S, chunk)
-    NC = S // CH
-    q, valid = q.contiguous(), valid.to(torch.int32).contiguous()
+    plan = timeline_plan(B, Hkv, S, Hq // Hkv, hd,
+                         cache_fmt(q.dtype) if quant_args is None else "int8", chunk=CH)
+    q, valid = q.contiguous(), _cuda.contiguous16(valid.to(torch.int32))
     k_new, v_new = k_new.contiguous(), v_new.contiguous()
+    if quant_args is not None and not all(_cuda.aligned16(t) for t in quant_args[:2]):
+        raise ValueError(f"{name}: the scale slabs must be 16-byte aligned")
     ptrs, scale_layer = quant_pointers(quant_args, layer)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    s_ws = torch.empty((B, Hq, S), **f32)
-    cmax = torch.empty((B, Hq, NC), **f32)
-    wl = torch.empty((B, Hq, NC), **f32)
-    wacc = torch.empty((B, Hq, NC, hd), **f32)
-    counters = _cuda.counters(q.device, B * Hkv)
     out = torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device)
     err = _cuda.library().al_decode_packed(
         FMT_CACHE if quant_args is None else FMT_INT8, code, q.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), ptrs[0], ptrs[1], cache_k.data_ptr(), cache_v.data_ptr(), ptrs[2],
         ptrs[3], valid.data_ptr(), int(layer), scale_layer, off, B, Hq, Hkv, S, hd, CH,
-        float(scale), s_ws.data_ptr(), cmax.data_ptr(), wl.data_ptr(), wacc.data_ptr(),
-        counters.data_ptr(), out.data_ptr(), _cuda.stream_handle(q),
+        float(scale), out.data_ptr(), plan.C, plan.stages, int(skip_rank),
+        _cuda.stream_handle(q),
     )
     _cuda.check(err, name)
     if quant_args is None:
-        launches += 2
+        launches += 1
     else:
-        launches_q8 += 2
+        launches_q8 += 1
     return out, cache_k, cache_v
 
 

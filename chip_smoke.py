@@ -105,8 +105,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kernels on bf16, int8 and int4 caches; the timeline-chunked packed
      kernel on bf16 and int8 caches) at the decoder's geometry, the bf16
      path's timeline and 3040 slots, B 1 and 4, against their plain
-     versions (the caches bit-equal), on planted faults (p not normalized,
-     a chunk dropped, the stale row read at the offset), timed beside the
+     versions (the caches bit-equal, two calls bit-equal), on planted
+     faults (p not normalized, a rank's partial dropped, a chunk dropped,
+     the packed kernel's rank 1 left out of the later ranks' running max,
+     the stale row read at the offset), timed beside the
      plain version and SDPA (run after phase 12's kernels); then, at the
      end of phases 3, 6 and 7 on their models (`decode_ab_path`):
      decode_kernel with bf16 KV at B = 1, with the int4 tree and int4 KV at
@@ -637,6 +639,12 @@ def kernel_checks(dev, gen):
             want, frac)
         for fault, (k_row, v_row, fvalid) in planted.items()
     }
+    twice = torch.equal(got, dm.decode_attention_cuda(q, kn, vn, ck2.clone(), cv2.clone(), li,
+                                                      offset, valid, scale)[0])
+    if not twice:
+        raise AssertionError("decode_attention: two calls differ")
+    b4 = mono_b4_checks(dev, gen, frac)
+    faults.update(b4.pop("faults"))
     n_valid = off + 1
     nbytes = (2.0 * 2 * B * Hkv * n_valid * hd + 2.0 * 2 * B * Hq * hd
               + 2.0 * 2 * B * Hkv * hd + 4.0 * B * (S + 1))
@@ -664,12 +672,56 @@ def kernel_checks(dev, gen):
         plain_ms=events_ms(lambda: dm.decode_attention_plain(
             q, kn, vn, ck2, cv2, next(turn) % L, offset, valid, scale), iters=28),
         library_ms=time_ms(lambda: library(next(turn) % L), iters=112),
-        launches=None, bound_ms=bms, bound_by=bby,
+        launches=None, bound_ms=bms, bound_by=bby, two_calls_bit_equal=twice, b4=b4,
+        plan=timeline_plan(B, S, 16), sm90=timeline_report("mono", 16, B, S),
         shapes=f"cache[{L},{B},{Hkv},{S},{hd}] bf16, q[{B},{Hq},{hd}], {n_valid} valid",
     ))
     log(f"kernel decode_attention_mono ok: max_abs_err={err:.3e} tol_ratio={ratio:.3f} "
         f"planted faults rejected: {faults}")
     return rows
+
+
+def mono_b4_checks(dev, gen, frac) -> dict:
+    """Row 4 at B = 4 on the bf16 path's timeline (1568 slots, the serving
+    pool's case): four rows at four offsets on the device (one on a block's
+    range boundary, one early in the timeline), against the plain version,
+    the caches bit-equal, two calls bit-equal; the planted fault: row 1's
+    offset read for row 0 (the fresh row appended and attended at the wrong
+    slot, row 0's own slot left stale)."""
+    from audio_llama_tpu_torch.ops import decode_attention_mono as dm
+    from audio_llama_tpu_torch.ops import decode_timeline as dtl
+
+    L, B, Hkv, S, hd, Hq, li = 4, 4, 8, 1568, 128, 24, 2
+    start = dtl.block_range(S, timeline_plan(B, S, 16)["C"], 2)[0]
+    offs = torch.tensor([40, start, 1100, 1557], dtype=torch.int32, device=dev)
+    ck, cv = (torch.randn((L, B, Hkv, S, hd), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    q, kn, vn = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                 for shape in ((B, Hq, hd), (B, Hkv, hd), (B, Hkv, hd)))
+    valid = (torch.arange(S, device=dev)[None, :] <= offs[:, None]).to(torch.int32)
+    valid[3, 500:520] = 0
+    scale = hd ** -0.5
+
+    def call(kernel, off):
+        caches = [ck.clone(), cv.clone()]
+        fn = dm.decode_attention_cuda if kernel else dm.decode_attention_plain
+        out = fn(q, kn, vn, *caches, li, off, valid, scale)[0]
+        return out, caches
+
+    got, gc = call(True, offs)
+    want, wc = call(False, offs)
+    err, ratio = check_close("decode_attention B=4", got, want, frac)
+    if not all(torch.equal(g, w) for g, w in zip(gc, wc)):
+        raise AssertionError("decode_attention B=4: the caches differ from the plain version's")
+    if not torch.equal(got, call(True, offs)[0]):
+        raise AssertionError("decode_attention B=4: two calls differ")
+    wrong = offs.clone()
+    wrong[0] = offs[1]
+    fault = must_reject("decode_attention", "row 1's offset read for row 0",
+                        call(True, wrong)[0], want, frac)
+    return dict(offsets=offs.tolist(), max_abs_err=err, tol_ratio=ratio,
+                plan=timeline_plan(B, S, 16), two_calls_bit_equal=True,
+                faults={"B=4: row 1's offset read for row 0": fault})
 
 
 # kernel name -> (module of audio_llama_tpu_torch.ops, its launch counter)
@@ -2039,7 +2091,7 @@ def int8_path(dev, profile: bool = False):
         dict(model=(cfg, frozen, trainable), ids=ids, mask=mask, audio=wav, kv_quant=True,
              config=stats["config"]),
         [("ab_packed_int8", "decode_packed, int8w+kv8, B=4", "decode_packed",
-          {"decode_attention_quantized_packed": 2 * L * (N_NEW - 1),
+          {"decode_attention_quantized_packed": L * (N_NEW - 1),
            "decode_attention_packed": 0, "decode_attention_quantized_mono": 0}),
          ("ab_db_int8", "decode_kernel, int8w+kv8, B=4", "decode_kernel",
           {"decode_attention_quantized_db": L * (N_NEW - 1),
@@ -2407,8 +2459,7 @@ KERNEL_GROUPS = (  # substring of the device kernel's name -> group, first match
     ("online_kernel", "causal_attention kernel"), ("fixed_kernel", "causal_attention kernel"),
     ("dma2_kernel", "causal_attention kernel"),
     ("dq_kernel", "causal_attention_dq kernel"), ("dkv_kernel", "causal_attention_dkv kernel"),
-    ("decode_kernel", "decode_attention kernel"),
-    ("db_kernel", "decode_attention_db kernel"), ("packed_", "decode_attention_packed kernel"),
+    ("db_kernel", "decode_attention_db kernel"),  # its mono and chunk modes: TIMELINE_GROUPS
     ("layer_norm_kernel", "layer_norm kernel"),
     ("nvjet", "matmul (cuBLAS)"), ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
     ("xmma", "matmul (cuBLAS)"),
@@ -2417,13 +2468,27 @@ KERNEL_GROUPS = (  # substring of the device kernel's name -> group, first match
 )
 
 
+# the timeline core's db_kernel<T, F, G, M> by its mode M (decode_timeline.cuh's Mode)
+TIMELINE_GROUPS = {2: "decode_attention kernel", 3: "decode_attention_packed kernel"}
+
+
+def kernel_group(name: str) -> str:
+    """The group of a device kernel's name (KERNEL_GROUPS, TIMELINE_GROUPS)."""
+    import re
+
+    mode = re.search(r"db_kernel<[^>]*,\s*(\d+)>", name)
+    if mode and int(mode.group(1)) in TIMELINE_GROUPS:
+        return TIMELINE_GROUPS[int(mode.group(1))]
+    return next((g for key, g in KERNEL_GROUPS if key in name), "other elementwise/reduce")
+
+
 def device_profile(fn) -> dict:
     """One call's wall time, summed device time, device busy share, and
     device time by kernel group and by top kernel name."""
     wall_ms, by_name, n_kernels = traced(fn)
     by_group = {}
     for name, ms in by_name.items():
-        group = next((g for key, g in KERNEL_GROUPS if key in name), "other elementwise/reduce")
+        group = kernel_group(name)
         by_group[group] = by_group.get(group, 0.0) + ms
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
@@ -3467,43 +3532,47 @@ def db_reject(name, fault, got, want, frac) -> dict:
 TIMELINE_FMT = {16: "bf16", 8: "int8", 4: "int4"}  # cache bits -> the planner's format
 
 
-def timeline_plan(B, S, bits) -> dict:
+def timeline_plan(B, S, bits, chunk=0) -> dict:
     """The timeline decode kernels' launch plan (csrc/decode_timeline.cuh) at
     the decoder's geometry: blocks a cluster, slots a block, ring stages,
-    blocks on the card, shared memory a block."""
+    blocks on the card, shared memory a block, and the range's unit (32
+    slots, or the chunk mode's chunk)."""
     from audio_llama_tpu_torch.ops import decode_timeline as dtl
 
     lc = full_config().llama
     p = dtl.timeline_plan(B, lc.num_kv_heads, S, lc.num_heads // lc.num_kv_heads, lc.head_dim,
-                          TIMELINE_FMT[bits])
+                          TIMELINE_FMT[bits], chunk=chunk)
     return dict(B=B, S=S, C=p.C, slots_a_block=p.slots, stages=p.stages, blocks=p.blocks,
-                smem_bytes=p.smem)
+                smem_bytes=p.smem, unit=p.unit)
 
 
-def timeline_report(kind, bits, B, S) -> dict:
-    """The bf16-q instance of `kind` ('db' the normalized mode, which the
-    single kernel's calls share, or 'db_stats') on a `bits` cache at the
-    decoder's G, by `sm90_checked`: ptxas's registers and spills beside the
-    runtime's registers, local bytes, shared memory and resident clusters of
-    the plan at (B, S)."""
+def timeline_report(kind, bits, B, S, chunk=0) -> dict:
+    """The bf16-q instance of `kind` (decode_timeline.KINDS: 'db' the
+    normalized mode, which the single kernel's calls share, 'db_stats',
+    'mono' row 4's mode, 'packed' the chunk mode at `chunk`) on a `bits`
+    cache at the decoder's G, by `sm90_checked`: ptxas's registers and
+    spills beside the runtime's registers, local bytes, shared memory and
+    resident clusters of the plan at (B, S)."""
     from audio_llama_tpu_torch.ops import decode_timeline as dtl
 
     lc = full_config().llama
     G, fmt = lc.num_heads // lc.num_kv_heads, TIMELINE_FMT[bits]
-    plan = dtl.timeline_plan(B, lc.num_kv_heads, S, G, lc.head_dim, fmt)
+    plan = dtl.timeline_plan(B, lc.num_kv_heads, S, G, lc.head_dim, fmt, chunk=chunk)
     code = {16: 0, 8: 1, 4: 2}[bits]
-    entry = f"db_kernelI13__nv_bfloat16Li{code}ELi{G}ELb{int(kind == 'db')}EE"
+    entry = f"db_kernelI13__nv_bfloat16Li{code}ELi{G}ELi{dtl.KINDS.index(kind)}EE"
     info = dtl.kernel_info(kind, fmt, 1, G, S, lc.head_dim, plan)
     return dict(kernel=f"{kind} {fmt}", **sm90_checked(f"{kind} {fmt}", entry, info))
 
 
-def rank_dropped(case, bits, li, S, B, rank=1):
+def rank_dropped(case, bits, li, S, B, rank=1, chunk=0):
     """A copy of the case whose V rows of block `rank`'s range at layer li
-    (the plan at (B, S)) are zero: a kernel's output on it is what a merge
-    that dropped that rank's P V partial gives on the case."""
+    (the plan at (B, S), ranges of whole chunks where chunk > 0) are zero: a
+    kernel's output on it is what a merge that dropped that rank's P V
+    partial gives on the case."""
     from audio_llama_tpu_torch.ops import decode_timeline as dtl
 
-    s, e = dtl.block_range(S, timeline_plan(B, S, bits)["C"], rank)
+    plan = timeline_plan(B, S, bits, chunk)
+    s, e = dtl.block_range(S, plan["C"], rank, plan["unit"])
     caches = [c.clone() for c in case["caches"]]
     if bits == 4:  # V is the combined byte's high nibble
         caches[0][li, :, :, s:e] &= 0x0F
@@ -3781,21 +3850,25 @@ AB_FAULT_OFFSET = 40  # a request's early step: one slot of 41 carries the fresh
 
 
 def ab_call(name, case, bits, li, off, valid, scale, cuda=True, rows=None, fresh=None,
-            copy=True):
+            copy=True, skip_rank=-1):
     """One call of a --decode_impl kernel (or its plain version) on copies of
     the case's caches (on the caches themselves with copy=False) -> (out,
     caches after). rows / fresh: the fresh rows and their scales to pass (a
-    fault plants others)."""
+    fault plants others); skip_rank: the packed kernel's planted fault (that
+    rank left out of the later ranks' running max)."""
     from audio_llama_tpu_torch.ops import decode_attention_db as db
     from audio_llama_tpu_torch.ops import decode_attention_packed as pk
 
     caches = [c.clone() for c in case["caches"]] if copy else case["caches"]
     q, rows, fresh = case["q"], rows or case["rows"], fresh or case["fresh"]
     if name == "decode_attention_packed":
-        fn = pk.packed_cuda if cuda else pk.packed_plain
         quant = None if bits == 16 else (*case["scales"], *fresh)
-        return fn(q, rows[0], rows[1], caches[0], caches[1], li, off, valid, scale,
-                  quant_args=quant)[0], caches
+        if not cuda:
+            return pk.packed_plain(q, rows[0], rows[1], caches[0], caches[1], li, off, valid,
+                                   scale, quant_args=quant)[0], caches
+        fault = dict(skip_rank=skip_rank) if skip_rank >= 0 else {}
+        return pk.packed_cuda(q, rows[0], rows[1], caches[0], caches[1], li, off, valid, scale,
+                              quant_args=quant, **fault)[0], caches
     if bits == 16:
         fn = db.db_cuda if cuda else db.db_plain
         return fn(q, rows[0], rows[1], caches[0], caches[1], li, off, valid, scale)[0], caches
@@ -3837,8 +3910,9 @@ def ab_kernel_checks(dev, gen):
     for name, (instances, replaces, source) in AB_ROWS.items():
         frac = ATOL_ROW_RMS_FRAC[name]
         results, faults, times, plans, twice = {}, {}, {}, {}, {}
-        timeline = name != "decode_attention_packed"
+        packed = name == "decode_attention_packed"
         for bits, S, B in itertools.product(instances, timelines, (1, 4)):
+            chunk = pk.pick_chunk(S, pk.DEFAULT_CHUNK) if packed else 0
             case = db_case(dev, gen, bits, B, S, L, Hkv, Hq, hd)
             kpos = torch.arange(S, device=dev)[None, :]
             off = S - 24  # a decode step's slot, slots still ahead of it
@@ -3852,26 +3926,26 @@ def ab_kernel_checks(dev, gen):
             err, ratio = check_close(label, got, want, frac)
             check_append(label, gc, wc, case["caches"], case["rows"], li, off)
             results[label] = dict(max_abs_err=err, tol_ratio=ratio)
-            if timeline:
-                plans[label] = timeline_plan(B, S, bits)
-                twice[label] = torch.equal(got, ab_call(name, case, bits, li, off, valid,
-                                                        scale)[0])
-                if not twice[label]:
-                    raise AssertionError(f"{label}: two calls differ")
+            plans[label] = timeline_plan(B, S, bits, chunk)
+            twice[label] = torch.equal(got, ab_call(name, case, bits, li, off, valid, scale)[0])
+            if not twice[label]:
+                raise AssertionError(f"{label}: two calls differ")
             if B == 4 and S == timelines[1]:
                 # planted faults, each against the plain version's right answer
-                if timeline:
-                    faults[f"{bits}-bit: rank 1's partial dropped"] = must_reject(
-                        name, "rank 1's partial dropped",
-                        ab_call(name, rank_dropped(case, bits, li, S, B), bits, li, off, valid,
-                                scale)[0], want, frac)
-                if name == "decode_attention_packed":
+                faults[f"{bits}-bit: rank 1's partial dropped"] = must_reject(
+                    name, "rank 1's partial dropped",
+                    ab_call(name, rank_dropped(case, bits, li, S, B, chunk=chunk), bits, li,
+                            off, valid, scale)[0], want, frac)
+                if packed:
                     drop = valid.clone()  # the kernel forgets the second chunk
-                    CH = pk.pick_chunk(S, pk.DEFAULT_CHUNK)
-                    drop[:, CH:2 * CH] = 0
+                    drop[:, chunk:2 * chunk] = 0
                     faults[f"{bits}-bit: a chunk dropped"] = must_reject(
                         name, "a chunk dropped", ab_call(name, case, bits, li, off, drop,
                                                          scale)[0], want, frac)
+                    faults[f"{bits}-bit: rank 1 left out of the running max"] = must_reject(
+                        name, "rank 1 left out of the running max",
+                        ab_call(name, case, bits, li, off, valid, scale, skip_rank=1)[0], want,
+                        frac)
                 else:  # the stats kernel's acc is this kernel without the division by l
                     acc = db_call(case, bits, li, off, valid, scale)[2]
                     faults[f"{bits}-bit: p not normalized"] = must_reject(
@@ -3922,10 +3996,12 @@ def ab_kernel_checks(dev, gen):
             library_note="SDPA over the same slab (K/V bf16, dequantized and repeated per query "
                          "head ahead of time)",
             launches=None, bound_ms=t["bound"][0], bound_by=t["bound"][1],
-            times_by_cache_bits={b: {k: v for k, v in tt.items() if k != "bound"}
-                                 for b, tt in times.items()},
-            **(dict(plan=plans, two_calls_bit_equal=twice,
-                    sm90=timeline_report("db", main_bits, 1, S)) if timeline else {}),
+            times_by_cache_bits={b: {**{k: v for k, v in tt.items() if k != "bound"},
+                                     "bound_ms": tt["bound"][0]} for b, tt in times.items()},
+            plan=plans, two_calls_bit_equal=twice,
+            sm90=({f"{b}-bit": timeline_report("packed", b, 1, S,
+                                               pk.pick_chunk(S, pk.DEFAULT_CHUNK))
+                   for b in instances} if packed else timeline_report("db", main_bits, 1, S)),
             shapes=f"caches [{L},B,{Hkv},S,{hd}], q [B,{Hq},{hd}] bf16, S {timelines}, B 1 "
                    f"and 4, {'/'.join(f'{b}-bit' for b in instances)} caches; timed at B=1, "
                    f"S={S}, {n_valid} valid slots, the {main_bits}-bit cache",

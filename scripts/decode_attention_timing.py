@@ -1,11 +1,13 @@
-"""Time the timeline decode kernels (rows 13-18, 29, 30) beside their SDPA
-yardsticks on the card for one checkout's kernels, and run the
-`--decode_impl decode_kernel` arm end to end, so that two checkouts can be
-compared in turns in one call.
+"""Time the timeline decode kernels (rows 4, 13-19, 29, 30) beside their
+SDPA yardsticks on the card for one checkout's kernels, and run the bf16
+main path, the serving pool and the `--decode_impl` arms end to end, so
+that two checkouts can be compared in turns in one call.
 
 Kernels, at the decoder's geometry (28 layers, 8 KV heads, 24 query heads,
 hd 128, chip_smoke's seeded `db_case` inputs), for each B of --batch and
-each S of --slots: the single kernel on a bf16 and an int8 cache (rows 29,
+each S of --slots: the bf16 main path's decode attention (row 4, the
+offset a [B] tensor on the device), the packed kernel on a bf16 and an int8
+cache (row 19), the single kernel on a bf16 and an int8 cache (rows 29,
 30), the normalized db kernel on bf16, int8 and int4 caches (rows 16-18)
 and the stats kernel on the same three (rows 13-15, called as a rank that
 does not own the fresh row), every call appending at slot S - 24 with the
@@ -19,13 +21,17 @@ serving path's two ranks call them at its last decode step
 (chip_smoke's `sp_slots`): rank 0 over its whole slab, rank 1 owning the
 fresh row.
 
-End to end (unless --no-paths): the decode_kernel arm on the bf16 tree and
-on the int4w+kv4 tree, B 1, chip_smoke's requests (`bf16_request`,
-`int4_request(b1=True)`): N_NEW greedy tokens through `generate(attn_impl=
-'decode_kernel')`, the decode ms per token, every step's top-2 logit margin
-(a top-2 a step is captured, so this run's ms is not chip_smoke's), and one
-decode token's device time by kernel group (chip_smoke's `path_profile`:
-torch.profiler, 9 new tokens less 1).
+End to end (unless --no-paths), chip_smoke's requests (`bf16_request`,
+`int4_request(b1=True)`), B 1: on the bf16 tree the auto arm (the main
+path: row 4), the decode_kernel arm, and the decode_packed arm on a bf16
+and on an int8 KV cache (row 19); on the int4w+kv4 tree the decode_kernel
+arm: N_NEW greedy tokens through `generate(attn_impl=...)`, the decode ms
+per token, every step's top-2 logit margin (a top-2 a step is captured, so
+this run's ms is not chip_smoke's), and one decode token's device time by
+kernel group (chip_smoke's `path_profile`: torch.profiler, 9 new tokens
+less 1). Then the serving pool on the bf16 tree with a bf16 KV cache (row 4
+with one offset a row): four requests of N_NEW greedy tokens, two with
+audio, their chains.
 
 The timers, inputs and phases are chip_smoke.py's from the checkout that
 holds this script; the package, kernels included, is --checkout's (default:
@@ -37,8 +43,8 @@ chain equals and, where it parts, the parted row's margins there:
     python scripts/decode_attention_timing.py --compare <parent.log> <change.log>
     python scripts/decode_attention_timing.py --sweep 512 1568 3040 6080
 
---sweep times only rows 16 and 18 at B 1 at the given slot counts, at the
-planner's launch and at other cluster sizes (1-4) and ring depths, and
+--sweep times only rows 4, 16 and 18 at B 1 at the given slot counts, at
+the planner's launch and at other cluster sizes (1-4) and ring depths, and
 row 16 with 1, 3 and 8 query heads a KV head. --order (no timing) holds
 rows 13-18 at chip_smoke's sp slab to the plain version and the plain
 version to itself with its logits correctly rounded, under chip_smoke's
@@ -56,6 +62,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 L, HKV, HQ, HD = 28, 8, 24, 128
 ROWS = {  # row -> (kind, cache bits)
+    "4 decode_attention_mono": ("mono", 16),
+    "19 decode_attention_packed": ("packed", 16),
+    "19 decode_attention_quantized_packed": ("packed", 8),
     "29 decode_attention": ("single", 16), "30 decode_attention_quantized": ("single", 8),
     "16 decode_attention_db": ("db", 16), "17 decode_attention_quantized_db": ("db", 8),
     "18 decode_attention_quantized4_db": ("db", 4),
@@ -75,9 +84,17 @@ def load(path: Path, name: str):
 
 
 def call(cs, kind, case, bits, li, off, valid, scale):
-    """One kernel call on the case's own caches (the append repeats)."""
+    """One kernel call on the case's own caches (the append repeats); the
+    mono kind takes `off` as its [B] tensor on the device."""
     from audio_llama_tpu_torch.ops import decode_attention_db as db
+    from audio_llama_tpu_torch.ops import decode_attention_mono as dm
 
+    if kind == "mono":
+        return dm.decode_attention_cuda(case["q"], *case["rows"], *case["caches"], li, off,
+                                        valid, scale)
+    if kind == "packed":
+        return cs.ab_call("decode_attention_packed", case, bits, li, off, valid, scale,
+                          copy=False)
     if kind == "single":
         return cs.single_call(case, bits, li, off, valid, scale, copy=False)
     if kind == "db":
@@ -102,29 +119,34 @@ def timed(cs, fn, iters=56):
     except AssertionError as err:  # CUPTI lost records: CUDA events, no kernel_ms
         cs.log(f"timed: {err}; by CUDA events instead")
         return float(cs.events_ms(fn, iters=iters, warmup=0)), None
-    kernel = sum(ms for name, ms in by_name.items()
-                 if "single_kernel" in name or "db_kernel" in name)
+    kernel = sum(ms for name, ms in by_name.items()  # (the first designs' names too)
+                 if any(k in name for k in ("single_kernel", "db_kernel", "::decode_kernel<",
+                                            "packed_")))
     return sum(by_name.values()) / iters, kernel / iters
 
 
 def sweep(cs, log, gen, slots):
-    """Rows 16 and 18 (the normalized db kernel, bf16 and int4 caches) at B
-    1 for each S, at the planner's launch and at forced cluster sizes C and
-    ring depths: where a call's time goes (per ring stage a block, per
-    launch)."""
+    """Rows 16 and 18 (the normalized db kernel, bf16 and int4 caches) and
+    row 4 (the mono mode) at B 1 for each S, at the planner's launch and at
+    forced cluster sizes C and ring depths: where a call's time goes (per
+    ring stage a block, per launch)."""
     import torch
 
     from audio_llama_tpu_torch.ops import decode_attention_db as db
+    from audio_llama_tpu_torch.ops import decode_attention_mono as dm
     from audio_llama_tpu_torch.ops import decode_timeline as dtl
 
     dev = torch.device("cuda", 0)
     scale = HD ** -0.5
-    planner = db.timeline_plan
-    for bits, S in itertools.product((16, 4), slots):
+    for (kind, bits, mod, name), S in itertools.product(
+            (("db", 16, db, AB_NAME[16]), ("db", 4, db, AB_NAME[4]),
+             ("mono", 16, dm, "decode_attention_mono")), slots):
+        planner = mod.timeline_plan
         fmt = cs.TIMELINE_FMT[bits]
         base = dtl.timeline_plan(1, HKV, S, HQ // HKV, HD, fmt)
         case = cs.db_case(dev, gen, bits, 1, S, L, HKV, HQ, HD)
         valid = (torch.arange(S, device=dev)[None, :] <= S - 24).to(torch.int32)
+        off = S - 24 if kind == "db" else torch.tensor([S - 24], dtype=torch.int32, device=dev)
         for C, stages in [(base.C, base.stages)] + [(c, base.stages) for c in (1, 2, 4)] \
                 + [(base.C, r) for r in (2, 4, 8)]:
             if C > S // 32:
@@ -133,14 +155,14 @@ def sweep(cs, log, gen, slots):
             smem = dtl.block_smem(fmt, HQ // HKV, HD, n, stages)
             if smem > dtl.SMEM_MAX:
                 continue
-            db.timeline_plan = lambda *a, **k: dtl.TimelinePlan(C, stages, n, smem, HKV)
+            mod.timeline_plan = lambda *a, **k: dtl.TimelinePlan(C, stages, n, smem, HKV)
             turn = itertools.count()
             try:
-                ms, kernel_ms = timed(cs, lambda: call(cs, "db", case, bits, next(turn) % L,
-                                                       S - 24, valid, scale))
+                ms, kernel_ms = timed(cs, lambda: call(cs, kind, case, bits, next(turn) % L,
+                                                       off, valid, scale))
             finally:
-                db.timeline_plan = planner
-            log(json.dumps({f"sweep {AB_NAME[bits]} B=1 S={S} C={C} stages={stages}": dict(
+                mod.timeline_plan = planner
+            log(json.dumps({f"sweep {name} B=1 S={S} C={C} stages={stages}": dict(
                 ms=ms, kernel_ms=kernel_ms, stages_a_block=2 * -(-n // dtl.stage_rows(fmt, HD)), planner=(C, stages) ==
                 (base.C, base.stages))}))
         del case
@@ -179,7 +201,7 @@ def order(cs, log, gen):
         return einsum(eq, *ops)
 
     for row, (kind, bits) in ROWS.items():
-        if kind == "single":
+        if kind not in ("db", "stats"):
             continue
         frac = cs.ATOL_ROW_RMS_FRAC["decode_attention_db_stats" if kind == "stats"
                                     else AB_NAME[bits]]
@@ -220,10 +242,12 @@ def kernels(cs, log, batches, slots, gen):
         off = S - 24
         valid = (torch.arange(S, device=dev)[None, :] <= off).to(torch.int32).repeat(B, 1)
         n_valid = int(valid[0].sum())
+        offs = torch.full((B,), off, dtype=torch.int32, device=dev)  # mono: on the device
         for row, (kind, bits) in ROWS.items():
             case = cs.db_case(dev, gen, bits, B, S, L, HKV, HQ, HD)
             turn = itertools.count()
-            at = S + 16 if kind == "stats" else off  # stats: a rank that does not own it
+            at = S + 16 if kind == "stats" else offs if kind == "mono" else off  # stats: a
+            # rank that does not own the fresh row
             nbytes = B * (HKV * n_valid * row_bytes(bits) + 2.0 * HQ * HD * 2 + 4.0 * S
                           + HKV * row_bytes(bits))
             bms, by = cs.bound(4.0 * B * HQ * n_valid * HD, nbytes)
@@ -263,7 +287,9 @@ def sp_ranks(cs, log, gen):
 
 
 def paths(cs, log):
-    """The decode_kernel arm, bf16 and int4w+kv4 trees at B 1."""
+    """The bf16 tree's auto, decode_kernel and decode_packed (bf16 and int8
+    KV) arms and its serving pool with a bf16 KV cache; the int4w+kv4
+    tree's decode_kernel arm; B 1."""
     import torch
 
     from audio_llama_tpu_torch.inference.generate import generate
@@ -278,14 +304,11 @@ def paths(cs, log):
         steps.append((top[:, 0] - top[:, 1]).tolist())
         return sample(logits, *a, **kw)
 
-    for label, kv in (("decode_kernel bf16 B=1", False), ("decode_kernel int4w+kv4 B=1", 4)):
-        if kv:
-            cfg, frozen, trainable, ids, mask, audio, _, _ = cs.int4_request(dev, b1=True)
-        else:
-            cfg, frozen, trainable, ids, mask, audio, _ = cs.bf16_request(dev)
+    def arm(label, model, kv, impl):
+        cfg, frozen, trainable, ids, mask, audio = model
         kw = dict(eos_id=cs.EOS, pad_id=0, audio_start_id=cs.AUDIO_START,
                   audio_end_id=cs.AUDIO_END, compute_dtype=torch.bfloat16, device=dev,
-                  kv_quant=kv, greedy=True, attn_impl="decode_kernel")
+                  kv_quant=kv, greedy=True, attn_impl=impl)
 
         def run(n):
             return generate(frozen, trainable, cfg, ids, mask, audio, None, max_new_tokens=n,
@@ -305,8 +328,60 @@ def paths(cs, log):
             repeat_equal=bool(torch.equal(again, toks)),
             decode_ms_per_token=(total_ms - first_ms) / (cs.N_NEW - 1))}))
         cs.path_profile(run, label)
-        del frozen, trainable
-        torch.cuda.empty_cache()
+
+    cfg, frozen, trainable, ids, mask, audio, _ = cs.bf16_request(dev)
+    bf16 = (cfg, frozen, trainable, ids, mask, audio)
+    for label, kv, impl in (("auto bf16 B=1", False, "auto"),
+                            ("decode_kernel bf16 B=1", False, "decode_kernel"),
+                            ("decode_packed bf16 B=1", False, "decode_packed"),
+                            ("decode_packed bf16w+kv8 B=1", True, "decode_packed")):
+        arm(label, bf16, kv, impl)
+    pool(cs, log, bf16)
+    del bf16, frozen, trainable
+    torch.cuda.empty_cache()
+    cfg, frozen, trainable, ids, mask, audio, _, _ = cs.int4_request(dev, b1=True)
+    arm("decode_kernel int4w+kv4 B=1", (cfg, frozen, trainable, ids, mask, audio), 4,
+        "decode_kernel")
+    del frozen, trainable
+    torch.cuda.empty_cache()
+
+
+def pool(cs, log, model):
+    """The serving pool (4 rows, bf16 KV: row 4 with one offset a row) on the
+    bf16 tree: four requests of N_NEW greedy tokens (two with seeded 30 s
+    audio, prompts of 24, 16, 20 and 12 tokens), each one's chain."""
+    import numpy as np
+    import torch
+
+    from audio_llama_tpu_torch.inference.serving import ServingEngine
+
+    cfg, frozen, trainable = model[:3]
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(4)
+    eng = ServingEngine(frozen, trainable, cfg, rows=4,
+                        max_len=cs._rounded_len(cfg.audio_seq_len + 2 + 64 + cs.N_NEW),
+                        prefill_buckets=(32,), chunk_steps=8, kv_quant=False,
+                        compute_dtype=torch.bfloat16, greedy=True, eos_id=-1, pad_id=0,
+                        audio_start_id=cs.AUDIO_START, audio_end_id=cs.AUDIO_END, device=dev)
+    reqs = [(rng.integers(0, cfg.llama.vocab_size, (n,)).astype(np.int32),
+             (rng.normal(size=cfg.mel.max_samples) * 0.1).astype(np.float32) if a else None)
+            for n, a in ((24, True), (16, False), (20, True), (12, False))]
+    with cs.SamplerTrace() as trace:
+        rids = [eng.submit(i, audio_features=a, max_new_tokens=cs.N_NEW) for i, a in reqs]
+        out = eng.run(max_chunks=64)
+    # request n's token 0 from its prefill, token t from decode step t - 1's
+    # row n, when the four prefills come first (one admission, rows in order)
+    shapes = [lg.shape[0] for lg in trace.logits]
+    in_order = shapes[:len(reqs)] == [1] * len(reqs) and 1 not in shapes[len(reqs):]
+    top = [lg.topk(2, dim=-1).values for lg in trace.logits]
+    margins = [(t[:, 0] - t[:, 1]).tolist() for t in top]
+    for n, rid in enumerate(rids):
+        rows = [[margins[n][0]]] + [[m[n]] for m in margins[len(reqs):]] if in_order else []
+        log(json.dumps({"chain": dict(name=f"pool bf16 KV request {n}", tokens=[out[rid]],
+                                      top2_margin_per_step=rows, repeat_equal=None,
+                                      decode_ms_per_token=None)}))
+    del eng
+    torch.cuda.empty_cache()
 
 
 def compare(first: str, second: str) -> int:
@@ -342,7 +417,7 @@ def main(argv=None) -> int:
     ap.add_argument("--log", help="the run's log file")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 4])
     ap.add_argument("--slots", type=int, nargs="+", default=[1568, 3040])
-    ap.add_argument("--no-paths", action="store_true", help="skip the decode_kernel arm")
+    ap.add_argument("--no-paths", action="store_true", help="skip the end-to-end paths")
     ap.add_argument("--sweep", type=int, nargs="*", metavar="S",
                     help="only time rows 16 and 18 at B 1 over cluster sizes and ring depths "
                          "at these slot counts")
@@ -369,6 +444,9 @@ def main(argv=None) -> int:
             out.flush()
 
     cs.log = log  # chip_smoke's phases log through its module global
+    # the first designs' kernel names (a parent checkout's rows 4 and 19)
+    cs.KERNEL_GROUPS = (("::decode_kernel<", "decode_attention kernel"),
+                        ("packed_", "decode_attention_packed kernel")) + cs.KERNEL_GROUPS
     log(f"kernels: {_cuda.build()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -979,9 +979,9 @@ def test_decode_ab_kernels(dev, name, bits, B, S, off, Hq, Hkv, hd, dtype):
 
 @pytest.mark.parametrize("quant", [False, True])
 def test_packed_kernel_masked_leading_chunk_and_repeat_launches(dev, quant):
-    """chunk 32 (NC 3 of 96 slots) with the first chunk fully masked: within
-    the bar of the plain version; two launches give the same bits (the merge
-    counters return to zero)."""
+    """chunk 32 (NC 3 of 96 slots, one chunk a block) with the first chunk
+    fully masked: within the bar of the plain version; two calls, one launch
+    each, give the same bits."""
     from audio_llama_tpu_torch.ops import decode_attention_packed as pk
 
     case = _ab_case(dev, 8 if quant else 16, 2, 96, 24, 8, 128)
@@ -997,7 +997,7 @@ def test_packed_kernel_masked_leading_chunk_and_repeat_launches(dev, quant):
     before = pk.launches_q8 if quant else pk.launches
     got, again = call(pk.packed_cuda), call(pk.packed_cuda)
     torch.cuda.synchronize()
-    assert (pk.launches_q8 if quant else pk.launches) == before + 4  # two launches a call
+    assert (pk.launches_q8 if quant else pk.launches) == before + 2  # one launch a call
     assert torch.equal(got, again)
     _close(got, call(pk.packed_plain), torch.bfloat16, "decode_attention_packed")
 
@@ -1022,8 +1022,8 @@ def test_decode_ab_check_rejects_a_stale_fresh_row(dev, name, bits):
                                      ("decode_packed", True)])
 def test_tiny_generate_decode_impl_on_the_card(dev, impl, kv):
     """The tiny model at bf16 through generate(attn_impl=...): the kernel
-    launched once a layer a decode step (packed: twice), the first token the
-    auto arm's (the prefill is the same)."""
+    launched once a layer a decode step, the first token the auto arm's (the
+    prefill is the same)."""
     from audio_llama_tpu_torch.inference.generate import generate
     from audio_llama_tpu_torch.ops import decode_attention_db as db
     from audio_llama_tpu_torch.ops import decode_attention_packed as pk
@@ -1037,8 +1037,7 @@ def test_tiny_generate_decode_impl_on_the_card(dev, impl, kv):
                ("decode_packed", True): (pk, "launches_q8")}[(impl, kv)]
     n = getattr(*counter)
     got = generate(frozen, train, cfg, ids, torch.ones_like(ids), attn_impl=impl, **kw).tokens
-    per_step = 2 if impl == "decode_packed" else 1
-    assert getattr(*counter) - n == per_step * cfg.llama.num_layers * 5
+    assert getattr(*counter) - n == cfg.llama.num_layers * 5
     want = generate(frozen, train, cfg, ids, torch.ones_like(ids), **kw).tokens
     assert torch.equal(got[:, 0], want[:, 0])
 
@@ -1744,15 +1743,18 @@ def test_timeline_kernels_give_the_same_bits_twice(dev, kind, bits):
 
 @pytest.mark.parametrize("kind,fmt", [("db", "bf16"), ("db", "int8"), ("db", "int4"),
                                       ("db_stats", "bf16"), ("db_stats", "int8"),
-                                      ("db_stats", "int4")])
+                                      ("db_stats", "int4"), ("mono", "bf16"), ("mono", "f32"),
+                                      ("packed", "bf16"), ("packed", "int8")])
 @pytest.mark.parametrize("B,S", [(1, 3040), (4, 1568), (1, 24000)])
 def test_timeline_kernel_info(dev, kind, fmt, B, S):
     """The launch's shared memory equals the planner's; no spill; the plan's
     clusters can be resident."""
+    from audio_llama_tpu_torch.ops import decode_attention_packed as pk
     from audio_llama_tpu_torch.ops import decode_timeline as dtl
 
-    plan = dtl.timeline_plan(B, 8, S, 3, 128, fmt)
-    info = dtl.kernel_info(kind, fmt, 1, 3, S, 128, plan)
+    chunk = pk.pick_chunk(S, pk.DEFAULT_CHUNK) if kind == "packed" else 0
+    plan = dtl.timeline_plan(B, 8, S, 3, 128, fmt, chunk=chunk)
+    info = dtl.kernel_info(kind, fmt, 0 if fmt == "f32" else 1, 3, S, 128, plan)
     assert info["smem_bytes"] == plan.smem
     assert info["local_bytes"] == 0 and info["clusters_resident"] >= 1
 
@@ -2016,3 +2018,121 @@ def test_int4_decode_kernel_info(dev, M):
         info = mlp4.kernel_info(M, 3072, 8192, mlp, group)
         assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, info
         assert info["smem_bytes"] == mlp.smem, (mlp, info)
+
+
+# ---- row 4 (the mono mode) and row 19 (the chunk mode) on the timeline core ----
+
+def _mono_case(dev, B, S, L=3, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return dict(q=randn(B, 24, 128), kn=randn(B, 8, 128), vn=randn(B, 8, 128),
+                ck=randn(L, B, 8, S, 128), cv=randn(L, B, 8, S, 128))
+
+
+def _mono_call(case, off, valid, kernel=True, li=1):
+    ck, cv = case["ck"].clone(), case["cv"].clone()
+    fn = dm.decode_attention_cuda if kernel else dm.decode_attention_plain
+    out = fn(case["q"], case["kn"], case["vn"], ck, cv, li, off, valid, 128 ** -0.5)[0]
+    return out, ck, cv
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [1568, 3040])
+def test_mono_kernel_at_b4_with_four_offsets(dev, dtype, S):
+    """Row 4 at B 4, each row at its own offset on the device (a range
+    boundary of the plan, an early slot, one past the timeline, S - 1),
+    against the plain version: the output within the bar, the caches
+    bit-equal; a second launch gives the same bits."""
+    from audio_llama_tpu_torch.ops import decode_timeline as dtl
+
+    B = 4
+    plan = dtl.timeline_plan(B, 8, S, 3, 128, dtl.cache_fmt(dtype))
+    offs = torch.tensor([plan.ranges(S)[2][0], 41, S + 3, S - 1], dtype=torch.int32,
+                        device=dev)
+    valid = (torch.arange(S, device=dev)[None, :] <= offs[:, None]).to(torch.int32)
+    valid[0, 7:30] = 0
+    case = _mono_case(dev, B, S, dtype=dtype, seed=S)
+    before = dm.launches
+    got, gk, gv = _mono_call(case, offs, valid)
+    want, wk, wv = _mono_call(case, offs, valid, kernel=False)
+    again = _mono_call(case, offs, valid)[0]
+    torch.cuda.synchronize()
+    assert dm.launches == before + 2
+    _close(got, want, dtype, "decode_attention_mono")
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert torch.equal(got, again)
+
+
+def test_mono_kernel_rows_fully_masked_and_past_shared_memory(dev):
+    """A fully masked row gives 0, as the plain version; 24000 slots (past the
+    one-block design's 227 KB cap) within the bar."""
+    S = 24000
+    case = _mono_case(dev, 2, S, L=2, seed=5)
+    offs = torch.tensor([S - 9, 100], dtype=torch.int32, device=dev)
+    valid = (torch.arange(S, device=dev)[None, :] <= offs[:, None]).to(torch.int32)
+    valid[1] = 0
+    got = _mono_call(case, offs, valid)[0]
+    want = _mono_call(case, offs, valid, kernel=False)[0]
+    torch.cuda.synchronize()
+    assert not got[1].any()
+    _close(got, want, torch.bfloat16, "decode_attention_mono")
+
+
+def test_mono_check_rejects_another_rows_offset(dev):
+    """Row 1's offset read for row 0: the fresh row lands on a slot row 0 does
+    not attend, and row 0's own slot is read stale."""
+    S = 1568
+    case = _mono_case(dev, 4, S, seed=9)
+    offs = torch.tensor([40, 800, 1100, 1557], dtype=torch.int32, device=dev)
+    valid = (torch.arange(S, device=dev)[None, :] <= offs[:, None]).to(torch.int32)
+    want = _mono_call(case, offs, valid, kernel=False)[0]
+    wrong = offs.clone()
+    wrong[0] = offs[1]
+    got = _mono_call(case, wrong, valid)[0]
+    assert tol_ratio(got, want, ATOL_ROW_RMS_FRAC["decode_attention_mono"]) > 1
+
+
+@pytest.mark.parametrize("bits", [16, 8])
+@pytest.mark.parametrize("S", [1568, 3040])
+def test_packed_kernel_at_b4_with_four_offsets(dev, bits, S):
+    """Row 19 at B 4 (4 blocks a cluster, uneven chunks a block at 3040), four
+    offsets (a chunk boundary, a block's range boundary, the first slot,
+    S - 1), against the plain version with the caches bit-equal; each call
+    launched twice gives the same bits."""
+    from chip_smoke import ab_call, check_append
+    from audio_llama_tpu_torch.ops import decode_attention_packed as pk
+    from audio_llama_tpu_torch.ops import decode_timeline as dtl
+
+    B, name = 4, "decode_attention_packed"
+    CH = pk.pick_chunk(S, pk.DEFAULT_CHUNK)
+    plan = dtl.timeline_plan(B, 8, S, 3, 128, "bf16" if bits == 16 else "int8", chunk=CH)
+    case = _ab_case(dev, bits, B, S, 24, 8, 128, seed=S)
+    for off in (3 * CH, plan.ranges(S)[1][0], 0, S - 1):
+        valid = (torch.arange(S, device=dev)[None, :] <= off).to(torch.int32).repeat(B, 1)
+        valid[2, :CH] = 0  # a masked leading chunk in one row
+        valid[2, off] = 1
+        got, gc = ab_call(name, case, bits, 1, off, valid, 128 ** -0.5)
+        again = ab_call(name, case, bits, 1, off, valid, 128 ** -0.5)[0]
+        want, wc = ab_call(name, case, bits, 1, off, valid, 128 ** -0.5, cuda=False)
+        torch.cuda.synchronize()
+        _close(got, want, torch.bfloat16, name)
+        check_append(name, gc, wc, case["caches"], case["rows"], 1, off)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("bits", [16, 8])
+def test_packed_check_rejects_a_rank_left_out_of_the_running_max(dev, bits):
+    """The planted fault: the blocks after rank 1 start their walk without its
+    chunks' maxima."""
+    from chip_smoke import ab_call
+
+    S, B, name = 3040, 4, "decode_attention_packed"
+    case = _ab_case(dev, bits, B, S, 24, 8, 128, seed=11)
+    off = S - 24
+    valid = (torch.arange(S, device=dev)[None, :] <= off).to(torch.int32).repeat(B, 1)
+    want = ab_call(name, case, bits, 1, off, valid, 128 ** -0.5, cuda=False)[0]
+    got = ab_call(name, case, bits, 1, off, valid, 128 ** -0.5, skip_rank=1)[0]
+    assert tol_ratio(got, want, ATOL_ROW_RMS_FRAC[name]) > 1
