@@ -62,8 +62,9 @@ SIGNATURES = {
     "al_mlp_int4_info": [_I] * 6 + [_P],
     "al_decode_attention_q4": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P, _P],
     "al_decode_attention_q8": [_I] + [_P] * 11 + [_I] * 7 + [_F, _P, _P],
-    "al_decode_megakernel": [_P] * 24 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    "al_decode_megakernel": [_P] * 27 + [_I] * 8 + [_F, _F] + [_I] * 7 + [_P],
     "al_megakernel_blocks_per_sm": [_I, _I],
+    "al_megakernel_info": [_I] * 4 + [_P],
     "al_causal_attention_dq": [_P] * 9 + [_I] * 6 + [_P],
     "al_causal_attention_dkv": [_P] * 10 + [_I] * 6 + [_P],
     "al_decode_db_stats": [_I, _I] + [_P] * 10 + [_I] * 8 + [_F] + [_P] * 3 + [_I] * 2 + [_P],
@@ -188,9 +189,10 @@ def counters(device: torch.device, n: int) -> torch.Tensor:
 
 
 def barrier_words(device: torch.device) -> torch.Tensor:
-    """Two int32 words on `device` for the megakernel's grid barrier: an
-    arrival count, zero between launches, and a generation that only
-    grows. Launches on one stream run in turn, so one pair serves them all."""
+    """Two int32 words on `device` for the megakernel's grid barriers: an
+    arrival count and a count of blocks done, both zero between launches
+    (the last block to leave resets them). Launches on one stream run in
+    turn, so one pair serves them all."""
     with _lock:
         buf = _barriers.get(device)
         if buf is None:

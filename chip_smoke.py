@@ -20,7 +20,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (never used by the port; the int4 decode products' on dequantized
      weights rotated past the L2, `library_ms_hot` on one) and the least
      time the card could take (bound); the megakernel also with its grid
-     barriers alone; the int4 decode kernels' planted faults include a
+     barriers alone and each of its phases alone (its phase mask), its
+     ptxas and runtime resources (a spill fails the run), and planted
+     faults of its design (a timeline split left out of the merge, a K
+     slice's partial dropped, stale ring stages consumed); the int4 decode kernels' planted faults include a
      block's rows left out of the cluster sum, a stale ring stage, and the
      MLP's activations read from the next tile and a down K chunk left out;
   3. bf16 main path: `inference.generate.generate` at the full published
@@ -1334,8 +1337,12 @@ def mega_layerwise(case, **fault):
 def megakernel_faults(case):
     """The planted faults of the megakernel check (run through the kernel)
     -> {fault: worst per-layer tol_ratio}: the fresh row not attended, slot
-    offset + 1 attended, and one layer's down residual skipped (its scales
-    zeroed)."""
+    offset + 1 attended, one layer's down residual skipped (its scales
+    zeroed); and one of each mechanism of the kernel's design: a timeline
+    split (the first, which holds the valid slots) left out of the merge,
+    a K slice's partial (the second of every tile) dropped, and stale ring
+    stages consumed (each stage issued across a barrier filled with the
+    bytes its slot held before)."""
     off = int(case["offset"])
     Tk = case["valid"].shape[1]
     kpos = torch.arange(Tk, device=case["valid"].device)[None, :]
@@ -1348,6 +1355,9 @@ def megakernel_faults(case):
         "fresh row not attended": dict(valid=not_off),
         "slot offset+1 attended": dict(valid=(kpos <= off + 1).to(torch.int32)),
         "one layer's down residual skipped": dict(dn=dn),
+        "one timeline split left out of the merge": dict(skip_split=0),
+        "one K slice's partial dropped": dict(skip_slice=1),
+        "a stale ring stage consumed": dict(stale=True),
     }
     out = {}
     for fault, kw in planted.items():
@@ -1421,6 +1431,7 @@ def megakernel_checks(dev, gen):
     def run(**over):
         return mk.decode_megakernel_cuda(**{**case, **over})
 
+    pl = mk.launch_plan(dev, lc.hidden_size, lc.intermediate_size, lc.num_heads, Hkv, Tk)
     row = dict(
         name="decode_megakernel", route="cuda",
         source="audio_llama_tpu_torch/csrc/decode_megakernel.cu",
@@ -1431,13 +1442,34 @@ def megakernel_checks(dev, gen):
         ms=time_ms(run, iters=10), plain_ms=events_ms(lambda: mk.decode_megakernel_plain(**case),
                                                     iters=1, warmup=1),
         library_ms=None,  # no one PyTorch call computes a decoder step
-        barriers_only_ms=time_ms(lambda: run(barriers_only=True), iters=10),
+        barriers_only_ms=time_ms(lambda: run(phases=0), iters=10),
+        # each phase alone (the phase mask), every barrier kept
+        phase_ms={name: time_ms(lambda i=i: run(phases=1 << i), iters=10)
+                  for i, name in enumerate(mk.PHASES)},
+        resources=megakernel_report(pl, lc.num_heads // Hkv, lc.hidden_size),
         grid_barriers=5 * L - 1, launches=None, bound_ms=bms, bound_by=bby,
         shapes=f"x[1,{lc.hidden_size}] bf16, {L} layers of fused int4 slabs, cache "
                f"[{L},1,{Hkv},{Tk},{hd}] int4 K|V, {n_valid} valid, pair and obin",
     )
     log(f"kernel decode_megakernel ok: {json.dumps(row)}")
     return row
+
+
+def megakernel_report(pl, G: int, D: int) -> dict:
+    """The megakernel's instance for G at the plan `pl` (D wide): ptxas's registers
+    and spills, the runtime's registers, local bytes, shared memory and
+    resident blocks per SM (`sm90_checked`: a spill or local memory fails
+    the run), and the plan's grid. Fewer resident blocks than the plan's
+    fail it too."""
+    from audio_llama_tpu_torch.ops import decode_megakernel as mk
+
+    info = mk.kernel_info(G, pl, D)
+    if info["blocks_per_sm"] < pl.per_sm:
+        raise AssertionError(f"decode_megakernel: {info['blocks_per_sm']} blocks resident per SM, "
+                             f"the plan launches {pl.per_sm}")
+    return dict(**sm90_checked("decode_megakernel", f"megakernelILi{G}EE", info),
+                grid=pl.grid, blocks_per_sm=pl.per_sm, timeline_splits=pl.splits,
+                x_slots=pl.maxj)
 
 
 def q8_kernel_checks(dev, gen):

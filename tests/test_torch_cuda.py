@@ -510,25 +510,38 @@ class _Widths:
         self.llama = LlamaConfig(**dims)
 
 
-# the full model's widths at 2 layers, and the JAX megakernel test's geometry
+# the full model's widths at 2 layers (G 3), the JAX megakernel test's
+# geometry (G 2), and geometries of G 1 and G 4
 MK_WIDTHS = {
     "3b": dict(hidden_size=3072, intermediate_size=8192, num_heads=24, num_kv_heads=8),
     "tiny": dict(hidden_size=256, intermediate_size=256, num_heads=2, num_kv_heads=1,
                  rope_scaling=None),
+    "g1": dict(hidden_size=1024, intermediate_size=2816, num_heads=8, num_kv_heads=8),
+    "g4": dict(hidden_size=2048, intermediate_size=5632, num_heads=16, num_kv_heads=4),
 }
+# (Tk, offset): the JAX test's, one timeline group at both ends, the B = 1
+# path's last step at 1568 slots, 3040 slots at both ends
+MK_TIMELINES = [(256, 200), (32, 0), (32, 31), (1568, 1556), (3040, 0), (3040, 3039)]
 
 
-@pytest.mark.parametrize("widths", ["3b", "tiny"])
+def _mk_case(dev, widths, fmt, Tk, off, L=2, seed=3):
+    from chip_smoke import megakernel_case
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg = _Widths(num_layers=L, head_dim=128, **MK_WIDTHS[widths])
+    return megakernel_case(dev, gen, fmt, L, Tk, off, cfg=cfg)
+
+
+@pytest.mark.parametrize("tk,off", MK_TIMELINES)
+@pytest.mark.parametrize("widths", list(MK_WIDTHS))
 @pytest.mark.parametrize("fmt", ["pair", "obin"])
-def test_megakernel_kernel(dev, widths, fmt):
+def test_megakernel_kernel(dev, widths, fmt, tk, off):
     """Each layer within the bar of the plain version on the same input, and
     the one-launch stack equal to its layers launched one by one."""
-    from chip_smoke import mega_layerwise, mega_run, megakernel_case
+    from chip_smoke import mega_layerwise, mega_run
     from audio_llama_tpu_torch.ops import decode_megakernel as mk
 
-    gen = torch.Generator(device=dev).manual_seed(3)
-    cfg = _Widths(num_layers=2, head_dim=128, **MK_WIDTHS[widths])
-    case = megakernel_case(dev, gen, fmt, 2, 256, 200, cfg=cfg)
+    case = _mk_case(dev, widths, fmt, tk, off)
     before = mk.launches
     stack = mega_run(mk.decode_megakernel, case)
     torch.cuda.synchronize()
@@ -539,14 +552,44 @@ def test_megakernel_kernel(dev, widths, fmt):
         assert torch.equal(a, b)
     gc, wc = got[1].to(torch.int32), want[1].to(torch.int32)
     d = ((gc & 0xF) - (wc & 0xF)).abs() + ((gc >> 4) - (wc >> 4)).abs()
-    assert d.max() <= 2 and (d > 0).float().mean().item() * 256 < 0.01
+    assert d.max() <= 2 and (d > 0).float().mean().item() * tk < 0.01
     for g, w in zip(got[2:], want[2:]):  # the scale slabs, then the fresh scales
         torch.testing.assert_close(g, w, rtol=2.0 ** -7, atol=0)
-    # barriers only: the same launch shape runs and is not counted
+    # the barriers alone, and each phase alone: the same launch shape runs
+    # and is not counted
     before = mk.launches
-    mk.decode_megakernel_cuda(**case, barriers_only=True)
+    for phases in [0] + [1 << i for i in range(len(mk.PHASES))]:
+        mk.decode_megakernel_cuda(**case, phases=phases)
     torch.cuda.synchronize()
     assert mk.launches == before
+
+
+def test_megakernel_longest_cache(dev):
+    """The longest cache the gate admits (MAX_TK slots), the fresh row at
+    its last slot."""
+    from chip_smoke import mega_layerwise
+    from audio_llama_tpu_torch.ops import decode_megakernel as mk
+
+    tk = mk.MAX_TK
+    case = _mk_case(dev, "tiny", "obin", tk, tk - 1)
+    assert mk.ok_for(_Widths(num_layers=2, head_dim=128, **MK_WIDTHS["tiny"]).llama,
+                     {n: w for n, w in zip(mk.SLABS, (case["qkv"], case["o"], case["gu"],
+                                                      case["dn"]))}, tk, tk - 1, dev)
+    assert mega_layerwise(case)[0] <= 1
+
+
+@pytest.mark.parametrize("widths", ["3b", "g4"])
+def test_megakernel_two_launches_same_bits(dev, widths):
+    """The split plan and the ordered sums make the launch deterministic:
+    two launches on the same inputs give the same bits."""
+    from chip_smoke import mega_run
+    from audio_llama_tpu_torch.ops import decode_megakernel as mk
+
+    case = _mk_case(dev, widths, "pair", 1568, 1556, L=4)
+    first = mega_run(mk.decode_megakernel_cuda, case)
+    second = mega_run(mk.decode_megakernel_cuda, case)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("fmt", ["pair", "obin"])
@@ -557,12 +600,16 @@ def test_megakernel_check_rejects_planted_faults(dev, fmt):
     cfg = _Widths(num_layers=4, head_dim=128, **MK_WIDTHS["3b"])
     case = megakernel_case(dev, gen, fmt, 4, 256, 2, cfg=cfg)
     assert mega_layerwise(case)[0] <= 1
-    assert min(megakernel_faults(case).values()) > FAULT_MARGIN
+    faults = megakernel_faults(case)
+    assert {"one timeline split left out of the merge", "one K slice's partial dropped",
+            "a stale ring stage consumed"} <= set(faults)
+    assert min(faults.values()) > FAULT_MARGIN
 
 
 def test_megakernel_gate_on_the_card(dev):
-    """ok_for asks the occupancy API on the card; a refused geometry (a full
-    cache) keeps the per-layer path."""
+    """ok_for asks for a resident launch plan on the card: it admits every
+    32-slot timeline up to MAX_TK with the append slot inside, and refuses a
+    full cache, a longer timeline, w_r trees and groups other than 128."""
     from audio_llama_tpu_torch.config import LlamaConfig
     from audio_llama_tpu_torch.ops import decode_megakernel as mk
 
@@ -571,8 +618,25 @@ def test_megakernel_gate_on_the_card(dev):
                  "w_s": torch.empty((2, K // 128, N), device=dev)}
              for n, K, N in (("qkv_proj", 3072, 5120), ("o_proj", 3072, 3072),
                              ("gateup_proj", 3072, 16384), ("down_proj", 8192, 3072))}
-    assert mk.ok_for(lc, slabs, 1568, 1556, dev)
-    assert not mk.ok_for(lc, slabs, 1568, 1568, dev)
+    for tk, off in ((32, 0), (32, 31), (1568, 1556), (3040, 3039), (mk.MAX_TK, 0),
+                    (mk.MAX_TK, mk.MAX_TK - 1)):
+        assert mk.ok_for(lc, slabs, tk, off, dev), (tk, off)
+    assert not mk.ok_for(lc, slabs, 1568, 1568, dev)  # a full cache
+    assert not mk.ok_for(lc, slabs, mk.MAX_TK + 32, 0, dev)
+    assert not mk.ok_for(lc, slabs, 1568, -1, dev)
+    assert not mk.ok_for(lc, {**slabs, "o_proj": {**slabs["o_proj"], "w_r": slabs["o_proj"][
+        "w_s"]}}, 1568, 1556, dev)
+    g64 = {"w_p": slabs["down_proj"]["w_p"], "w_s": torch.empty((2, 8192 // 64, 3072),
+                                                                device=dev)}
+    assert not mk.ok_for(lc, {**slabs, "down_proj": g64}, 1568, 1556, dev)
+    # the 3B widths run two blocks an SM, the plan's shared memory is the
+    # kernel's, and nothing spills
+    pl = mk.launch_plan(dev, 3072, 8192, 24, 8, 1568)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert pl.per_sm == 2 and pl.grid == 2 * sms
+    info = mk.kernel_info(3, pl, 3072)
+    assert info["smem_bytes"] == pl.smem and info["blocks_per_sm"] >= 2
+    assert info["local_bytes"] == 0
 
 
 def test_quantizers_divide_as_the_host_does(dev):

@@ -193,3 +193,51 @@ def test_gate_refuses(monkeypatch):
     llama.llama_forward(tree, CFG, input_ids=tok, kv_cache=cache, lora=lora)
     llama.llama_forward(tree, CFG, input_ids=tok, kv_cache=cache._replace(host_length=TK))
     assert calls == []
+
+
+# (D, F, Hq, Hkv): the 3B widths (G 3), the JAX test's geometry (G 2), and
+# the card tests' G 1 and G 4 geometries
+PLAN_WIDTHS = [(3072, 8192, 24, 8), (256, 256, 2, 1), (1024, 2816, 8, 8), (2048, 5632, 16, 4)]
+
+
+@pytest.mark.parametrize("widths", PLAN_WIDTHS)
+@pytest.mark.parametrize("tk", [32, 64, 1568, 3040, mk.MAX_TK])
+@pytest.mark.parametrize("sms,per_sm", [(132, 2), (132, 1), (114, 2), (16, 1)])
+def test_launch_plan_covers_every_column_row_and_slot_once(widths, tk, sms, per_sm):
+    """The kernel's work split (the formulas `plan`, `shares`, `tile_slices`
+    and `splits` share with csrc/decode_megakernel.cu): every product's
+    units (a group of 128 K rows of a tile of 128 packed columns) go to
+    exactly one block, each tile's K slices cover its groups once in K
+    order under distinct partial keys, every share fits the block's x-row
+    slots, and each KV head's timeline groups go to exactly one split, one
+    split a block."""
+    D, F, Hq, Hkv = widths
+    pl = mk.plan(D, F, Hq, Hkv, tk, sms, per_sm)
+    P = pl.grid
+    assert P == sms * per_sm and pl.smem == mk.smem_bytes(pl.maxj, D, pl.splits, Hq // Hkv)
+    assert mk.ok_for(LlamaConfig(**{**DIMS, "hidden_size": D, "intermediate_size": F,
+                                    "num_heads": Hq, "num_kv_heads": Hkv}),
+                     {n: {"w_p": torch.empty((1, K, Nh), dtype=torch.int8),
+                          "w_s": torch.empty((1, K // 128, 2 * Nh))}
+                      for n, (K, Nh) in zip(SLABS, mk.products(D, F, Hq, Hkv))}, tk, tk - 1)
+    for K, Nh in mk.products(D, F, Hq, Hkv):
+        T, Gk = Nh // mk.TILE, K // 128
+        assert T * mk.TILE == Nh and Gk * 128 == K  # every column and K row in some unit
+        W = T * Gk
+        sh = mk.shares(W, P)
+        assert sh[0][0] == 0 and sh[-1][1] == W
+        assert all(a[1] == b[0] for a, b in zip(sh, sh[1:]))  # each unit in one share
+        assert max(e - s for s, e in sh) <= pl.maxj and W <= pl.stages and T <= pl.tiles
+        keys = []
+        for t in range(T):
+            sl = mk.tile_slices(t, Gk, W, P)
+            assert [g for _, lo, hi in sl for g in range(lo, hi)] == list(range(t * Gk, t * Gk + Gk))
+            for b, lo, hi in sl:
+                assert (lo, hi) == (max(sh[b][0], t * Gk), min(sh[b][1], t * Gk + Gk))
+            keys += [lo for _, lo, _ in sl]
+        assert len(set(keys)) == len(keys)
+    ng = tk // 32
+    sp = mk.splits(ng, pl.splits)
+    assert Hkv * pl.splits <= P
+    assert [g for lo, hi in sp for g in range(lo, hi)] == list(range(ng))
+    assert all(hi > lo for lo, hi in sp)  # every split arrives at its head's merge
